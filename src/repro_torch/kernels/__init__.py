@@ -1,0 +1,44 @@
+"""Hand-written CUDA kernels for the SVC hot loops (``csrc/*.cu``).
+
+Each kernel ships ``ops.py`` (checks, padding-free dispatch, the launch)
+and ``ref.py`` (its plain PyTorch version).  A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises — there is no fallback.  Every wrapper carries a plain
+integer ``launches`` that it bumps where it launches its kernel, so a run
+can show that the main path went through the kernels.
+
+  hash_threshold  — η_{a,m} mask
+  fused_clean     — η + per-group count/sum over delta rows in one pass
+  outlier_member  — η ∨ outlier-index digest membership in one pass
+  multi_agg       — all Q queries' moments in one panel scan (two kernels:
+                    two-sided clean ∥ stale ∥ diff, and one-sided)
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """Kernel name → the wrapper that launches it."""
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby
+    from repro_torch.kernels.hash_threshold.ops import hash_threshold
+    from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
+    from repro_torch.kernels.outlier_member.ops import outlier_codes
+
+    return {
+        "hash_threshold": hash_threshold,
+        "fused_clean": fused_clean_groupby,
+        "outlier_member": outlier_codes,
+        "multi_agg_two": multi_agg_two,
+        "multi_agg_one": multi_agg_one,
+    }
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}
