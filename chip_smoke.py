@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Builds the CUDA kernels from ``src/repro_torch/csrc``, drives the
-single-view SVC loop at full size — the paper's running example visitView
-(§2.1, Conviva-shaped session logs, as in ``examples/quickstart.py``) —
-through ``ViewManager``, holds every kernel against its plain PyTorch
-version on the main path's own tensors, checks the answers, and prints one
-JSON object per phase.  The line before the last two is the kernel table,
-the next the card's name and power limit as ``nvidia-smi`` reports them,
-and the last line is ``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels from ``src/repro_torch/csrc`` and drives two paths
+at full size through the entry points a user calls:
+
+  1. the single-view SVC loop — the paper's running example visitView
+     (§2.1, Conviva-shaped session logs, as in ``examples/quickstart.py``)
+     through ``ViewManager``;
+  2. the fleet control plane — 16 group-by views over their own
+     Conviva-shaped logs (``benchmarks/fig_planner_fleet.py`` at a real
+     size): ``svc_refresh_many`` against per-view cleans, then 5 epochs of
+     ``MaintenancePlanner`` under a Zipf query stream.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after; every kernel is then held against its plain PyTorch version on
+its path's own tensors.  One JSON object per phase; the line before the
+last two is the kernel table, the next the card's name and power limit as
+``nvidia-smi`` reports them, and the last line is
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repository, or when any check fails.
@@ -45,6 +54,31 @@ SEED = 0
 ITERS = 20  # calls per timing
 # device against CPU, at a size the CPU path runs in seconds
 SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA = 2_000, 200_000, 20_000
+
+# The fleet (benchmarks/fig_planner_fleet.py:95-110 at a real size): 16
+# views, each a group-by over its own Conviva-shaped log of 5M sessions on
+# 1M videos (a fused key domain of 2^20, MAX_FUSED_GROUPS).
+FLEET_VIEWS = 16  # N_VIEWS_FULL, fig_planner_fleet.py:55
+FLEET_VIDEOS = 1_000_000
+FLEET_LOGS = 5_000_000
+FLEET_DELTA = 500_000  # per view and epoch: 10%, the update fraction of fig5_accuracy.py
+FLEET_DELETES = 50_000  # existing sessions deleted from each with_deletes view (1%)
+FLEET_GROUPS = 1_500_000  # delta_group_capacity and the group-by's arena
+FLEET_EPOCHS = 5  # EPOCHS, fig_planner_fleet.py:56
+FLEET_QUERIES_PER_HIT = 16
+FLEET_HITS = 15  # Zipf-drawn view hits per epoch (240 queries)
+# the starvation guard's age cap, in epochs of the planner's clock: every
+# view was last maintained at epoch 0, so the guard maintains the drifting
+# fleet in epoch 4; the last epoch runs with adapt_m (ratio retunes)
+FLEET_AGE_CAP_EPOCHS = 3.5
+# model-unit prices of the small card-against-CPU fleet, where measured
+# walls would differ between the two devices
+CLEAN_COST, MAINTAIN_COST = 1.0, 4.0
+
+# the kernels each path must launch
+SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "multi_agg_two",
+                    "multi_agg_one")
+FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score")
 
 
 
@@ -88,6 +122,36 @@ def wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def profile_ops(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: self host and device
+    milliseconds in all, the ``top`` operators by each, and the calls of
+    the CUDA runtime entries that launch kernels, copy or wait."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append({"op": e.key, "calls": e.count, "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                     "self_device_ms": dev_us / 1e3})
+    runtime = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize",
+               "cudaDeviceSynchronize")
+    return {
+        "self_cpu_ms": sum(r["self_cpu_ms"] for r in rows),
+        "self_device_ms": sum(r["self_device_ms"] for r in rows),
+        "top_cpu": sorted(rows, key=lambda r: -r["self_cpu_ms"])[:top],
+        "top_device": sorted(rows, key=lambda r: -r["self_device_ms"])[:top],
+        "runtime_calls": {r["op"]: r["calls"] for r in rows if r["op"] in runtime},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +512,497 @@ def device_vs_cpu(n_videos, n_logs, n_delta, m, k, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The fleet path: svc_refresh_many and the planner over 16 views
+# ---------------------------------------------------------------------------
+
+def traffic_weights(n_views: int) -> np.ndarray:
+    """Zipf over a fixed rank permutation that parks the hottest views late
+    in registration order (benchmarks/fig_planner_fleet.py:59-70)."""
+    rng = np.random.default_rng(123)
+    rank = rng.permutation(n_views)
+    back = [i for i in range(n_views) if i >= n_views // 2]
+    for hot, pos in zip(np.argsort(rank)[:3], back[-3:]):
+        rank[hot], rank[pos] = rank[pos], rank[hot]
+    w = 1.0 / (1.0 + rank) ** 1.7
+    return w / w.sum()
+
+
+def build_fleet(device, n_views, n_videos, n_logs, groups, m, clock=None):
+    """``n_views`` group-by views, view i over its own log (seed i); views in
+    the upper half register ``with_deletes``, view 0 carries an outlier
+    index (k = K on ``bytes``) and so cleans per view."""
+    from repro_torch.core import ViewDef
+    from repro_torch.data.synthetic import make_log_video
+    from repro_torch.relational.plan import GroupByNode, Scan
+    from repro_torch.views import ViewManager
+
+    vm = ViewManager(device=device, **({"clock": clock} if clock else {}))
+    names = []
+    for i in range(n_views):
+        log, _video = make_log_video(np.random.default_rng(i), n_videos, n_logs, device=device)
+        vm.register_base(f"FLog{i}", log)
+        del _video
+        plan = GroupByNode(child=Scan(f"FLog{i}", pk=("sessionId",)), keys=("videoId",),
+                           aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
+                           num_groups=groups)
+        vm.register_view(ViewDef(f"fv{i}", plan), delta_bases=(f"FLog{i}",), m=m, seed=i,
+                         delta_group_capacity=groups, with_deletes=i >= n_views // 2)
+        names.append(f"fv{i}")
+    vm.register_outlier_index("fv0", "FLog0", "bytes", k=min(K, n_logs))
+    return vm, names
+
+
+def fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, epoch, n_deletes=0):
+    """One epoch's grow_log delta per view (and, when asked, deletes of
+    existing sessions for the with_deletes views)."""
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.relational.relation import from_columns
+
+    for i in range(n_views):
+        rng = np.random.default_rng(10_000 + 100 * epoch + i)
+        start = n_logs + epoch * n_delta
+        vm.ingest(f"FLog{i}", inserts=grow_log(rng, n_videos, start, n_delta, device=vm.device))
+        if n_deletes and i >= n_views // 2:
+            import torch
+
+            base = vm.base[f"FLog{i}"]
+            pick = torch.from_numpy(rng.choice(n_logs, n_deletes, replace=False)).to(vm.device)
+            vm.ingest(f"FLog{i}", deletes=from_columns(
+                {c: base.col(c)[pick] for c in base.schema.columns}, pk=base.schema.pk))
+
+
+def exact_delta_sums(vm, name: str, groups: int):
+    """Per group, over the rows the view's η keeps: float64 sums and counts
+    of the pending insert and delete deltas' ``bytes``."""
+    import torch
+
+    from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
+
+    mv = vm.views[name]
+    d = vm._deltas_for(mv)
+    base = mv.delta_bases[0]
+    out = {}
+    for side, rel in (("ins", d.inserts.get(base)), ("del", d.deletes.get(base))):
+        s = torch.zeros(groups + 1, dtype=torch.float64, device=vm.device)
+        n = torch.zeros(groups + 1, dtype=torch.int64, device=vm.device)
+        if rel is not None:
+            vid = rel.col("videoId")
+            keep = hash_threshold_ref((vid,), mv.m, mv.seed) & rel.valid
+            g = torch.where(keep, vid.long(), torch.full_like(vid, groups, dtype=torch.int64))
+            s.index_add_(0, g, torch.where(keep, rel.col("bytes").double(),
+                                           torch.zeros_like(rel.col("bytes"), dtype=torch.float64)))
+            n = torch.bincount(g, minlength=groups + 1)
+        out[side] = (s[:groups].cpu().numpy(), n[:groups].cpu().numpy())
+    return out
+
+
+def same_clean(batched, per_view, stale, exact, what: str) -> dict:
+    """Keys and ``visits`` exact; ``totalBytes`` of the two cleans within
+    2·γ_{n−1}·Σ|x| of each other, where a group's value is a float32 sum of
+    n = 1 + kept inserts + kept deletes terms (its stale value, the inserts,
+    the deleted rows) whose absolute values add to Σ|x|: each side lies
+    within γ_{n−1}·Σ|x| of the exact sum, in whatever order it added."""
+    a, b = sorted_sample(batched), sorted_sample(per_view)
+    for col in ("videoId", "visits"):
+        if not np.array_equal(a[col], b[col]):
+            fail(f"{what}: column {col} differs between the batched and the per-view clean")
+    keys = a["videoId"]
+    st = sorted_sample(stale)
+    pos = np.searchsorted(st["videoId"], keys)
+    pos = np.minimum(pos, max(len(st["videoId"]) - 1, 0))
+    hit = (st["videoId"][pos] == keys) if len(st["videoId"]) else np.zeros(len(keys), bool)
+    stale_abs = np.where(hit, np.abs(st["totalBytes"][pos].astype(np.float64)), 0.0)
+    (si, ni), (sd, nd) = exact["ins"], exact["del"]
+    abs_sum = stale_abs + si[keys] + sd[keys]
+    n = 1 + ni[keys] + nd[keys]
+    bound = 2 * f32_sum_rtol(n) * abs_sum
+    diff = np.abs(a["totalBytes"].astype(np.float64) - b["totalBytes"].astype(np.float64))
+    if np.any(diff > bound):
+        fail(f"{what}: totalBytes beyond 2*gamma*sum|x| (max {float(diff.max()):.3e})")
+    return {"rows": int(keys.size),
+            "max_rel_diff_totalBytes": float(np.max(diff / np.maximum(abs_sum, 1e-30)))
+            if keys.size else 0.0,
+            "max_bound_share": float(np.max(diff / np.maximum(bound, 1e-300))) if keys.size else 0.0}
+
+
+class uncounted:
+    """Launches inside this block (comparisons with the plain versions) leave
+    the kernels' counters as they were."""
+
+    def __enter__(self):
+        from repro_torch import kernels
+
+        self.saved = kernels.launch_counts()
+
+    def __exit__(self, *exc):
+        from repro_torch import kernels
+
+        for name, fn in kernels.wrappers().items():
+            fn.launches = self.saved[name]
+
+
+class EpochClock:
+    """The planner's clock, read in epochs: view ages are whole epochs, so
+    the starvation guard fires in a fixed epoch and both choices of an
+    epoch (kernel and plain scores) read the same ages."""
+
+    t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def checked_planner(vm, budget_s, clock, age_cap_s):
+    """A MaintenancePlanner that, after each plan (outside the spans that
+    ``plan`` times), also chooses from the plain ``fleet_score_ref`` scores
+    of the same feature panel (on the card) and keeps both decisions, the
+    two score panels and the fleet panel's channels for the kernel checks."""
+    import torch
+
+    from repro_torch.kernels.fleet_score import fleet_score_ref
+    from repro_torch.planner import FleetScores, MaintenancePlanner
+
+    class CheckedPlanner(MaintenancePlanner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.checks = []
+            self.last_inputs = None
+            self._fs = None
+
+        def choose(self, fs, budget=None):
+            self._fs = fs
+            return super().choose(fs, budget)
+
+        def plan(self, budget_s=None):
+            report = super().plan(budget_s)
+            fs = self._fs
+            plain = fleet_score_ref(torch.from_numpy(fs.features).to(self.vm.device)).cpu().numpy()
+            alt = MaintenancePlanner.choose(self, FleetScores(fs.names, fs.features, plain),
+                                            budget_s)
+            self.checks.append((fs, plain, report, alt))
+            self.last_inputs = (fs.features, self.vm.fleet_panel()._stacked)
+            return report
+
+    return CheckedPlanner(vm, budget_s=budget_s, age_cap_s=age_cap_s, clock=clock)
+
+
+def run_fleet_path(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs,
+                   device="cuda"):
+    """register → ingest (+ deletes) → svc_refresh_many ∥ per-view cleans →
+    planner epochs under a Zipf query stream → maintain_all.
+
+    Returns (walls, checks, captured kernel inputs); the caller resets the
+    launch counters before and reads them after."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import Query
+    from repro_torch.core.maintenance import fleet_fused_inputs, fleet_merge_inputs
+
+    t = {}
+    (vm, names), t["register_s"] = wall(
+        lambda: build_fleet(device, n_views, n_videos, n_logs, groups, m))
+    _, t["ingest_s"] = wall(lambda: fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, 0,
+                                                 n_deletes))
+
+    # 1. batched against per-view, from the same stale samples and deltas
+    before = kernels.launch_counts()
+    dts, t["svc_refresh_many_s"] = wall(lambda: vm.svc_refresh_many(names))
+    after = kernels.launch_counts()
+    # the cleans moved neither stale samples nor pending deltas: rebuild the
+    # batched launches' inputs for the kernel checks
+    batched_names = [n for n in names if vm.views[n].outlier_index is None]
+    with uncounted():
+        jobs = [vm._merge_job(n, vm.views[n], vm.fleet_panel()) for n in batched_names]
+        merge_launches, _pre = fleet_merge_inputs(jobs)
+        fused_launches = fleet_fused_inputs(
+            [((j.name, "ins"), j.ins[0], j.ins[1]) for j in jobs])
+        del jobs, _pre
+    merge_groups = len(merge_launches)
+    if after["fleet_merge"] - before["fleet_merge"] != merge_groups:
+        fail(f"fleet_merge launched {after['fleet_merge'] - before['fleet_merge']} times for "
+             f"{merge_groups} shape groups")
+    if after["fused_clean_fleet"] == before["fused_clean_fleet"]:
+        fail("svc_refresh_many did not launch fused_clean_fleet")
+    batched = {n: vm.views[n].clean_sample for n in names}
+    exact = {n: exact_delta_sums(vm, n, groups) for n in batched_names}
+    per_view_s = {}
+    for n in names:
+        per_view_s[n] = vm.svc_refresh(n)
+    t["per_view_cleans_s"] = sum(per_view_s.values())
+    comparison = {}
+    for n in batched_names:
+        comparison[n] = same_clean(batched[n], vm.views[n].clean_sample, vm.views[n].stale_sample,
+                                   exact[n], f"fleet {n}")
+    del batched, exact
+    # the same cleans again, both ways, with every slot and arena warm; then
+    # one call of each under the profiler
+    _, t["svc_refresh_many_warm_s"] = wall(lambda: vm.svc_refresh_many(names))
+    warm_view_s = {n: vm.svc_refresh(n) for n in names}
+    t["per_view_cleans_warm_s"] = sum(warm_view_s.values())
+    profiles = {"svc_refresh_many": profile_ops(lambda: vm.svc_refresh_many(names)),
+                "per_view_cleans": profile_ops(lambda: [vm.svc_refresh(n) for n in names])}
+
+    for what, prof in profiles.items():
+        emit({"phase": "fleet_profile", "call": what, **prof})
+
+    # 2. planner epochs under a Zipf query stream, priced from this run's
+    # walls: a clean at the median warm per-view clean, a maintain at one
+    # view's measured IVM, a retune at one retune-then-clean through the
+    # batched path (held against a per-view clean of the retuned view), and
+    # fig_planner_fleet's budget of one maintain plus 2.5 cleans
+    clean_s = float(np.median(list(warm_view_s.values())))
+    maintain_s = vm.maintain(names[-1])
+    pair, retuned = names[-3:-1], names[-2]
+    new_m = 2.0 * vm.views[retuned].m
+    vm.adaptive_m = True
+    vm.views[retuned].recommended_m = new_m
+    before = kernels.launch_counts()["fleet_merge"]
+    retune_dts = vm.svc_refresh_many(pair)
+    vm.adaptive_m = False
+    retune_s = retune_dts[retuned]
+    if vm.views[retuned].m != new_m or kernels.launch_counts()["fleet_merge"] == before:
+        fail("the retune did not go through the batched clean")
+    batched_retune = vm.views[retuned].clean_sample
+    retune_exact = exact_delta_sums(vm, retuned, groups)
+    vm.svc_refresh(retuned)
+    retune_check = same_clean(batched_retune, vm.views[retuned].clean_sample,
+                              vm.views[retuned].stale_sample, retune_exact, f"retuned {retuned}")
+    del batched_retune, retune_exact
+    budget_s = maintain_s + 2.5 * clean_s
+    clock = EpochClock()
+    planner = checked_planner(vm, budget_s, clock, FLEET_AGE_CAP_EPOCHS)
+    planner.cost_model.pin_costs(refresh_s=clean_s, maintain_s=maintain_s, retune_s=retune_s)
+    weights = traffic_weights(n_views)
+    t_rng = np.random.default_rng(31)
+    q = Query("sum", "totalBytes")
+    epochs_out = []
+    for epoch in range(1, epochs + 1):
+        clock.t = float(epoch)
+        if epoch == epochs:  # the last epoch adapts the sampling ratios
+            planner.adapt_m = vm.adaptive_m = True
+        hits = t_rng.multinomial(FLEET_HITS, weights)
+        for i in range(n_views):
+            for _ in range(int(hits[i])):
+                for e in vm.query_batch(names[i], [q] * FLEET_QUERIES_PER_HIT):
+                    if not math.isfinite(float(e.value)):
+                        fail(f"fleet query on {names[i]}: non-finite estimate")
+        fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, epoch)
+        rep = planner.step()
+        fs, plain, kernel_rep, plain_rep = planner.checks[-1]
+        if kernel_rep is not rep:
+            fail("the planner's report is not the one it chose")
+        if not np.array_equal(fs.scores.view(np.int32), plain.view(np.int32)):
+            fail(f"epoch {epoch}: fleet_score differs from its plain version")
+        acts = [(a.view, a.action, a.forced) for a in rep.actions]
+        if acts != [(a.view, a.action, a.forced) for a in plain_rep.actions] \
+                or rep.skipped != plain_rep.skipped:
+            fail(f"epoch {epoch}: the plain scorer chooses other actions")
+        if any(a.failed or a.overrun for a in rep.actions):
+            fail(f"epoch {epoch}: an action failed: {rep.to_dict()}")
+        mix = {k: sum(a.action == k for a in rep.actions) for k in ("clean", "retune", "maintain")}
+        epochs_out.append({"epoch": epoch, "actions": [a[:2] for a in acts], "mix": mix,
+                           "forced": sum(a.forced for a in rep.actions),
+                           "skipped": len(rep.skipped), "adapt_m": planner.adapt_m,
+                           "m_after": sorted({vm.views[n].m for n in names}),
+                           "snapshot_s": rep.snapshot_s, "schedule_s": rep.schedule_s,
+                           "act_s": rep.act_s, "corr_wins": sum(rep.corr_wins.values())})
+    for kind in ("clean", "maintain"):
+        if not any(e["mix"][kind] for e in epochs_out):
+            fail(f"no planner epoch chose a {kind}: {[(e['epoch'], e['mix']) for e in epochs_out]}, "
+                 f"prices {clean_s}, {maintain_s}, {retune_s} s, budget {budget_s} s")
+    features, channels = planner.last_inputs
+    prices = {"clean_s": clean_s, "maintain_s": maintain_s, "retune_s": retune_s,
+              "budget_s": budget_s, "age_cap_epochs": FLEET_AGE_CAP_EPOCHS,
+              "retune_vs_per_view": retune_check}
+
+    # 3. full maintenance makes every view exact
+    _, t["maintain_all_s"] = wall(vm.maintain_all)
+    for n in names:
+        for qq in (Query("sum", "totalBytes"), Query("count"), Query("sum", "visits")):
+            a, b = float(vm.query_stale(n, qq)), float(vm.query_exact_fresh(n, qq))
+            if a != b:
+                fail(f"fleet {n}: after maintain_all query_stale {a} != query_exact_fresh {b}")
+    inputs = {"fused": fused_launches[0][1], "merge": merge_launches[0][1],
+              "moments": channels, "features": torch.from_numpy(features).to(vm.device)}
+    return t, {"comparison": comparison, "epochs": epochs_out, "merge_groups": merge_groups,
+               "per_view_s": per_view_s, "svc_refresh_many_view_s": dts, "prices": prices}, \
+        inputs
+
+
+def check_fleet_kernels(inputs, launches, iters):
+    """The fleet kernels against their plain versions on the fleet path's own
+    tensors: fused_clean_fleet (the insert side of the batched clean),
+    fleet_merge (its merge panels), fleet_moments (the last epoch's fleet
+    panel) and fleet_score (the last epoch's feature panel)."""
+    import torch
+
+    from repro_torch.kernels.fleet_merge import fleet_merge, fleet_merge_ref, merge_unsorted, \
+        sort_by_key
+    from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
+    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby_fleet
+    from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref
+    from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
+
+    out = []
+
+    # 1. fused_clean_fleet: counts exact; both float32 sums within the
+    # float32 bound of the float64 sums over the same kept rows
+    gid, vals, valid, ms, seeds, G = inputs["fused"]
+    V, R = gid.shape
+    gc, gs = fused_clean_groupby_fleet(gid, vals, valid, ms, seeds, G)
+    pc, ps = fused_clean_fleet_ref(gid, vals, valid, ms, seeds, G)
+    if not torch.equal(gc, pc):
+        fail("fused_clean_fleet counts differ from the plain version")
+    keep = torch.stack([hash_threshold_ref((gid[v],), ms[v], seeds[v]) for v in range(V)])
+    keep = keep & valid & (gid >= 0) & (gid < G)
+    nseg = G + 1
+    g = (torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+         + nseg * torch.arange(V, device=gid.device)[:, None]).reshape(-1)
+    x64 = torch.where(keep, vals[..., 0].double(), torch.zeros_like(vals[..., 0], dtype=torch.float64))
+    exact = torch.zeros(V * nseg, dtype=torch.float64, device=gid.device).index_add_(
+        0, g, x64.reshape(-1)).reshape(V, nseg)[:, :G]
+    bound = torch.from_numpy(f32_sum_rtol(pc.cpu().numpy())).to(gid.device) * exact.abs()
+    diff = (gs[..., 0].double() - exact).abs()
+    diff_plain = (ps[..., 0].double() - exact).abs()
+    if bool((diff > bound).any()) or bool((diff_plain > bound).any()):
+        fail("fused_clean_fleet sums beyond the float32 bound")
+    kept = float(pc.sum())
+    C = vals.shape[2]
+
+    def index_add_only():
+        gg = (torch.where(valid, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+              + nseg * torch.arange(V, device=gid.device)[:, None]).reshape(-1)
+        torch.zeros((V * nseg, 1 + C), dtype=torch.float32, device=gid.device).index_add_(
+            0, gg, torch.cat([torch.ones_like(vals[..., :1]), vals], 2).reshape(V * R, 1 + C))
+
+    out.append(kernel_entry(
+        "fused_clean_fleet", "cuda", "src/repro_torch/csrc/fused_clean.cu",
+        "src/repro/kernels/fused_clean/ops.py:59", launches["fused_clean_fleet"],
+        float(diff.max()),
+        cuda_ms(lambda: fused_clean_groupby_fleet(gid, vals, valid, ms, seeds, G), iters),
+        cuda_ms(lambda: fused_clean_fleet_ref(gid, vals, valid, ms, seeds, G), iters),
+        bytes_=V * R * (4 + 1) + kept * 4 * C + V * G * (1 + C) * 4, ops=0,
+        views=V, rows=R, groups=G, kept_rows=kept,
+        index_add_ms=cuda_ms(index_add_only, iters),
+        max_bound_share=float((diff / bound.clamp(min=1e-300)).max()),
+        tolerance=("counts exact; float32 sums within gamma_{n-1}*sum|x| of the float64 "
+                   "sum, n the group's kept rows"),
+    ))
+
+    # 2. fleet_merge: bit-equal to the plain version (keys, values, validity)
+    args = inputs["merge"]
+    V, R = args[0].shape
+    G, A = args[3].shape[1], args[2].shape[2]
+    # the data decides what must move: keys and flags of every row, values
+    # of the valid stale rows and live delta groups only, every output
+    n_stale, n_ins, n_del = (int(args[i].sum()) for i in (1, 3, 5))
+    got = fleet_merge(*args)
+    want = sort_by_key(*fleet_merge_ref(*args))
+    for gt, wt, what in zip(got, want, ("keys", "vals", "valid")):
+        same = torch.equal(gt.view(torch.int32), wt.view(torch.int32)) if gt.dtype == torch.float32 \
+            else torch.equal(gt, wt)
+        if not same:
+            fail(f"fleet_merge {what} differ from the plain version")
+    out.append(kernel_entry(
+        "fleet_merge", "cuda", "src/repro_torch/csrc/fleet_merge.cu",
+        "src/repro/kernels/fleet_merge/kernel.py:73", launches["fleet_merge"], 0.0,
+        cuda_ms(lambda: fleet_merge(*args), iters),
+        cuda_ms(lambda: sort_by_key(*fleet_merge_ref(*args)), iters),
+        bytes_=V * R * (4 + 1) + (n_stale + n_ins + n_del) * 4 * A + 2 * V * G
+        + V * (R + G) * (4 + 1 + 4 * A),
+        ops=2 * n_stale * A,
+        views=V, stale_rows=R, groups=G, aggs=A, valid_stale_rows=n_stale,
+        live_insert_groups=n_ins, live_delete_groups=n_del,
+        kernel_only_ms=cuda_ms(lambda: merge_unsorted(*args), iters),
+        plain_unsorted_ms=cuda_ms(lambda: fleet_merge_ref(*args), iters),
+        tolerance="bit-equal (keys, values and validity)",
+    ))
+
+    # 3. fleet_moments: ≤ 1e-6 relative, and the same bits run to run
+    ch = inputs["moments"]
+    V, R = ch[0].shape
+    got = fleet_moments(*ch)
+    want = fleet_moments_ref(*ch)
+    err = (got - want).abs()
+    rel = float((err / want.abs().clamp(min=1e-30)).max())
+    if bool((err > 1e-6 * want.abs()).any()):
+        fail(f"fleet_moments beyond 1e-6 relative of the plain version (max {rel:.3e})")
+    if not torch.equal(got, fleet_moments(*ch)):
+        fail("fleet_moments differs from run to run")
+    out.append(kernel_entry(
+        "fleet_moments", "cuda", "src/repro_torch/csrc/fleet_moments.cu",
+        "src/repro/kernels/fleet_moments/kernel.py:54", launches["fleet_moments"],
+        float(err.max()),
+        cuda_ms(lambda: fleet_moments(*ch), iters),
+        cuda_ms(lambda: fleet_moments_ref(*ch), iters),
+        bytes_=8 * V * R * 4 + V * 5 * 4, ops=22 * V * R,
+        views=V, rows=R, max_rel_err=rel, tolerance="1e-6 relative; deterministic",
+    ))
+
+    # 4. fleet_score: bit-equal to the plain version
+    feats = inputs["features"]
+    V = feats.shape[0]
+    got = fleet_scores(feats)
+    if not torch.equal(got.view(torch.int32), fleet_score_ref(feats).view(torch.int32)):
+        fail("fleet_score differs from the plain version")
+    out.append(kernel_entry(
+        "fleet_score", "cuda", "src/repro_torch/csrc/fleet_score.cu",
+        "src/repro/kernels/fleet_score/kernel.py:102", launches["fleet_score"], 0.0,
+        cuda_ms(lambda: fleet_scores(feats), iters),
+        cuda_ms(lambda: fleet_score_ref(feats), iters),
+        bytes_=V * (13 + 6) * 4, ops=45 * V, views=V, tolerance="bit-equal",
+    ))
+    return out
+
+
+def fleet_device_vs_cpu(n_views, n_videos, n_logs, n_delta, n_deletes, m, epochs) -> dict:
+    """A small fleet on the card and on the CPU: the same samples after
+    svc_refresh_many (keys and counts exact, sums 1e-5 relative) and the
+    same planner actions in every epoch."""
+    from repro_torch.core import Query
+    from repro_torch.planner import MaintenancePlanner
+
+    class Frozen:
+        def __call__(self):
+            return 0.0
+
+    q = Query("sum", "totalBytes")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        vm, names = build_fleet(device, n_views, n_videos, n_logs, int(n_videos * 1.5), m,
+                                clock=Frozen())
+        fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, 0, n_deletes)
+        vm.svc_refresh_many(names)
+        samples = {n: sorted_sample(vm.views[n].clean_sample) for n in names}
+        planner = MaintenancePlanner(vm, budget_s=2.5 * CLEAN_COST, age_cap_s=1e9,
+                                     clock=Frozen())
+        planner.cost_model.pin_costs(refresh_s=CLEAN_COST, maintain_s=MAINTAIN_COST)
+        acts = []
+        for epoch in range(1, epochs + 1):
+            for i, n in enumerate(names):
+                vm.query_batch(n, [q] * (1 + (i * 7) % 5))
+            fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, epoch)
+            acts.append([(a.view, a.action) for a in planner.step().actions])
+        runs[device] = (samples, acts)
+    (gs, ga), (cs, ca) = runs["cuda"], runs["cpu"]
+    if ga != ca:
+        fail(f"fleet device vs CPU: planner actions {ga} != {ca}")
+    worst = 0.0
+    for n in gs:
+        for col in ("videoId", "visits"):
+            if not np.array_equal(gs[n][col], cs[n][col]):
+                fail(f"fleet device vs CPU: {n} column {col} differs")
+        a, b = gs[n]["totalBytes"].astype(np.float64), cs[n]["totalBytes"].astype(np.float64)
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        if rel.size and rel.max() > 1e-5:
+            fail(f"fleet device vs CPU: {n} totalBytes rel {rel.max():.3e}")
+        worst = max(worst, float(rel.max()) if rel.size else 0.0)
+    return {"views": n_views, "epochs": epochs, "actions": ga, "max_rel_err_totalBytes": worst}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -496,7 +1051,7 @@ def main(argv=None) -> int:
     times, ests, state = run_svc_loop(vm, view, log, video, delta, groups, M, K, queries)
     launches = kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SVC_LOOP_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     for what, e in ests.items():
@@ -526,7 +1081,35 @@ def main(argv=None) -> int:
     small = device_vs_cpu(SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA, M, K, SEED)
     emit({"phase": "device_vs_cpu", "n_logs": SMALL_LOGS, **small})
 
-    emit({"kernels": table})
+    # the fleet path, on a card the single-view path has let go of
+    del vm, view, log, video, delta, state, ests
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    walls, fleet, inputs = run_fleet_path(FLEET_VIEWS, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA,
+                                          FLEET_DELETES, FLEET_GROUPS, M, FLEET_EPOCHS)
+    fleet_launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in FLEET_KERNELS if fleet_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the fleet path: {missing}")
+    emit({"phase": "fleet_path", "views": FLEET_VIEWS, "n_videos": FLEET_VIDEOS,
+          "n_logs_per_view": FLEET_LOGS, "delta_rows_per_view": FLEET_DELTA,
+          "deleted_rows_per_view": FLEET_DELETES, "m": M, "epochs": FLEET_EPOCHS,
+          "wall_s": walls, "epochs_out": fleet["epochs"], "merge_shape_groups": fleet["merge_groups"],
+          "batched_vs_per_view": fleet["comparison"],
+          "svc_refresh_many_view_s": fleet["svc_refresh_many_view_s"],
+          "per_view_clean_s": fleet["per_view_s"], "planner_prices": fleet["prices"],
+          "peak_device_gb": peak_gb,
+          "launches": fleet_launches, "stale_eq_exact_fresh_after_ivm": True, "card": smi})
+    fleet_table = check_fleet_kernels(inputs, fleet_launches, ITERS)
+    del inputs
+    for entry in fleet_table:
+        emit({"phase": "kernel", **entry, "card": smi})
+    small_fleet = fleet_device_vs_cpu(4, 2_000, 100_000, 10_000, 1_000, M, 2)
+    emit({"phase": "fleet_device_vs_cpu", **small_fleet})
+
+    emit({"kernels": table + fleet_table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

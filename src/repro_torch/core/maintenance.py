@@ -11,14 +11,16 @@ paper's experiments: apply the view definition to the deltas, full-outer-
 join the delta view onto the stale view on the group key, and merge
 aggregates with generalized projection (Example 1).
 
-The single-view surface of ``repro.core.maintenance``; the fleet functions
-(``fleet_*``, ``collect_fused_specs``, ``_MergeJob``) are not ported yet.
+The fleet path (``collect_fused_specs``, ``fleet_clean_merge``) batches
+many views' delta aggregations into one ``kernels/fused_clean`` fleet
+launch and their merge remainders into one ``kernels/fleet_merge`` launch,
+as ``repro.core.maintenance`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -344,13 +346,39 @@ def _fused_scan_name(spec: _FusedSpec) -> str:
     return "__fused__" + "__".join(parts)
 
 
-def fuse_delta_groupbys(plan: Plan, env: Mapping[str, Relation]):
+def collect_fused_specs(plan: Plan, env: Mapping[str, Relation]):
+    """The fusable delta-aggregation sub-trees of a pushed cleaning plan.
+
+    Same walk as ``fuse_delta_groupbys`` but evaluation-free: the fleet
+    refresh path batches the specs' η+γ stage across views before splicing
+    the results back in through ``precomputed``."""
+    out = []
+
+    def walk(p: Plan) -> None:
+        spec = _match_fused_groupby(p, env)
+        if spec is not None:
+            out.append(spec)
+            return
+        for f in dataclasses.fields(p):
+            v = getattr(p, f.name)
+            if isinstance(v, Plan):
+                walk(v)
+
+    walk(plan)
+    return out
+
+
+def fuse_delta_groupbys(plan: Plan, env: Mapping[str, Relation],
+                        precomputed: Optional[Mapping[_FusedSpec, Relation]] = None):
     """Splice fused-kernel results in place of fusable delta aggregations.
 
     Every sub-tree of the pushed cleaning plan matching the canonical η+γ
     shape is evaluated by ``kernels/fused_clean`` and replaced with a Scan
     of the materialized delta view, leaving only the outer-join merge for
-    the plan executor.  Returns (plan, env) unchanged when nothing qualifies.
+    the plan executor.  ``precomputed`` maps specs to already-evaluated
+    delta views (the fleet path batched them); matching specs splice those
+    instead of re-evaluating.  Returns (plan, env) unchanged when nothing
+    qualifies.
     """
     new_env = dict(env)
     fused_any = False
@@ -359,7 +387,9 @@ def fuse_delta_groupbys(plan: Plan, env: Mapping[str, Relation]):
         nonlocal fused_any
         spec = _match_fused_groupby(p, new_env)
         if spec is not None:
-            rel = _eval_fused_groupby(spec, new_env)
+            rel = None if precomputed is None else precomputed.get(spec)
+            if rel is None:
+                rel = _eval_fused_groupby(spec, new_env)
             if rel is not None:
                 name = _fused_scan_name(spec)
                 new_env[name] = rel
@@ -378,6 +408,218 @@ def fuse_delta_groupbys(plan: Plan, env: Mapping[str, Relation]):
     return (new_plan, new_env) if fused_any else (plan, env)
 
 
+# ---------------------------------------------------------------------------
+# Fleet-batched delta aggregation and merge remainder (svc_refresh_many)
+# ---------------------------------------------------------------------------
+
+def fleet_fused_inputs(entries):
+    """The launches of a batched fused η+γ over many delta relations.
+
+    ``entries`` is a list of (entry_id, fact, spec).  Entries are grouped by
+    (delta arena capacity, value-column count); every group becomes ONE
+    ``fused_clean_groupby_fleet`` launch with per-entry ratios and seeds (a
+    lone entry still rides the batched kernel).  Entries whose key domain is unbounded
+    (negative keys, or past MAX_FUSED_GROUPS) are left out, so one wide-key
+    entry does not knock its shape-mates off the batched path.  One host
+    sync reads every member's key bounds.
+
+    Returns a list of (entry ids, launch arguments) — the arguments are
+    (gid (V, R), vals (V, R, C), valid (V, R), ms, seeds, num_groups).
+    """
+    groups: Dict[Tuple[int, int], list] = {}
+    for eid, fact, spec in entries:
+        sum_cols = tuple(val for _o, fn, val in spec.node.aggs if fn == "sum")
+        groups.setdefault((fact.capacity, len(sum_cols)), []).append((eid, fact, spec, sum_cols))
+
+    imax = torch.iinfo(torch.int32).max
+    launches = []
+    for members in groups.values():
+        bounds = torch.stack([
+            torch.stack([
+                torch.where(fact.valid, fact.col(spec.key),
+                            torch.full_like(fact.col(spec.key), imax)).min(),
+                torch.where(fact.valid, fact.col(spec.key),
+                            torch.full_like(fact.col(spec.key), -1)).max(),
+            ])
+            for _n, fact, spec, _sc in members
+        ]).cpu().tolist()
+        keep = [i for i, (lo, hi) in enumerate(bounds)
+                if lo >= 0 and next_pow2(max(hi + 1, 64)) <= MAX_FUSED_GROUPS]
+        if not keep:
+            continue
+        num_groups = next_pow2(max(max(bounds[i][1] for i in keep) + 1, 64))
+        sel = [members[i] for i in keep]
+        gid = torch.stack([fact.col(spec.key) for _n, fact, spec, _sc in sel])
+        valid = torch.stack([fact.valid for _n, fact, _s, _sc in sel])
+        vals = torch.stack([
+            torch.stack([fact.col(c).to(torch.float32) for c in sc], dim=1) if sc
+            else torch.zeros((fact.capacity, 0), dtype=torch.float32, device=fact.device)
+            for _n, fact, _s, sc in sel
+        ])
+        ms = [spec.m for _n, _f, spec, _sc in sel]
+        seeds = [spec.seed for _n, _f, spec, _sc in sel]
+        launches.append(([eid for eid, _f, _s, _sc in sel],
+                         (gid, vals, valid, ms, seeds, num_groups)))
+    return launches
+
+
+def _fleet_fused_counts(entries):
+    """Batched fused η+γ (``fleet_fused_inputs``) → {entry_id: (counts (G,),
+    sums (G, n_sum), G)} for the entries that ran; callers fall back for the
+    rest."""
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby_fleet
+
+    out = {}
+    for eids, args in fleet_fused_inputs(entries):
+        counts, sums = fused_clean_groupby_fleet(*args)
+        for i, eid in enumerate(eids):
+            out[eid] = (counts[i], sums[i], args[-1])
+    return out
+
+
+def _cap_group_validity(counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """Which dense delta groups survive ``_assemble_fused_output``'s compact.
+
+    The per-view path compacts the dense accumulator to the group-by's
+    static capacity, keeping the ``cap`` LOWEST-keyed live groups when more
+    are live; reproducing that drop keeps the batched merge equal to the
+    per-view path even in overflow."""
+    nz = counts > 0
+    rank = torch.cumsum(nz.to(torch.int32), dim=0)
+    return nz & (rank <= cap)
+
+
+@dataclasses.dataclass
+class _MergeJob:
+    """One view's inputs to the fleet-batched merge remainder.
+
+    ``stale_*`` come from the fleet panel's merge slot (one padded Rp across
+    the fleet, SENTINEL keys / zero values on invalid rows); ``ins``/``dele``
+    are (delta fact, fused spec) pairs whose aggregations
+    ``fleet_clean_merge`` batches before the single merge launch."""
+
+    name: str
+    key: str                       # group-key column name
+    agg_cols: Tuple[str, ...]      # aggregate output columns, spec order
+    col_dtypes: Mapping[str, torch.dtype]  # clean-sample column dtypes
+    stale_keys: torch.Tensor       # (Rp,) int32, SENTINEL on invalid rows
+    stale_valid: torch.Tensor      # (Rp,) bool
+    stale_vals: torch.Tensor       # (Rp, A) f32, agg_cols order
+    ins: Tuple[Relation, _FusedSpec]
+    dele: Optional[Tuple[Relation, _FusedSpec]]
+    out_capacity: int              # the view's sample arena capacity
+
+
+def _dense_side(spec: _FusedSpec, counts: torch.Tensor, sums: torch.Tensor,
+                num_groups: int, g_pad: int):
+    """Raw accumulators → (valid (g_pad,), vals (g_pad, A)) dense panels, value
+    columns in ``spec.node.aggs`` order (the layout of
+    ``_assemble_fused_output``)."""
+    gv = _cap_group_validity(counts, spec.node.num_groups)
+    cols = []
+    i = 0
+    for _out, fn_name, _val in spec.node.aggs:
+        if fn_name == "count":
+            cols.append(counts.to(torch.float32))
+        else:
+            cols.append(sums[:, i].to(torch.float32))
+            i += 1
+    vals = torch.stack(cols, dim=1)
+    if g_pad > num_groups:
+        gv = torch.nn.functional.pad(gv, (0, g_pad - num_groups))
+        vals = torch.nn.functional.pad(vals, (0, 0, 0, g_pad - num_groups))
+    return gv, vals
+
+
+def fleet_merge_inputs(jobs: Sequence[_MergeJob]):
+    """Batch every job's delta aggregations and stack the fleet_merge panels.
+
+    The insert side (and delete side) of every job run batched
+    (``_fleet_fused_counts``); jobs sharing (Rp, aggregate count) stack into one
+    launch.  Returns ``(launches, precomputed)``: a list of (jobs, the seven
+    stacked ``fleet_merge`` arguments), and {view name: {spec: relation}}
+    for jobs whose key domain kept a side off the batched path — their
+    aggregated sides still splice into the per-view fallback."""
+    entries = []
+    for j in jobs:
+        entries.append(((j.name, "ins"), j.ins[0], j.ins[1]))
+        if j.dele is not None:
+            entries.append(((j.name, "del"), j.dele[0], j.dele[1]))
+    raw = _fleet_fused_counts(entries)
+
+    precomputed: Dict[str, Dict[_FusedSpec, Relation]] = {}
+    ready = []
+    for j in jobs:
+        ri = raw.get((j.name, "ins"))
+        rd = raw.get((j.name, "del")) if j.dele is not None else None
+        if ri is None or (j.dele is not None and rd is None):
+            pre = {}
+            if ri is not None:
+                pre[j.ins[1]] = _assemble_fused_output(j.ins[1], ri[2], ri[0], ri[1])
+            if rd is not None:
+                pre[j.dele[1]] = _assemble_fused_output(j.dele[1], rd[2], rd[0], rd[1])
+            if pre:
+                precomputed[j.name] = pre
+            continue
+        ready.append((j, ri, rd))
+
+    shape_groups: Dict[Tuple[int, int], list] = {}
+    for item in ready:
+        j = item[0]
+        shape_groups.setdefault((int(j.stale_keys.shape[0]), len(j.agg_cols)), []).append(item)
+
+    launches = []
+    for (_rp, n_agg), members in shape_groups.items():
+        g_pad = max(max(ri[2], rd[2] if rd is not None else 0) for _j, ri, rd in members)
+        dev = members[0][0].stale_keys.device
+        ins_v, ins_x, del_v, del_x = [], [], [], []
+        for j, ri, rd in members:
+            gv, gx = _dense_side(j.ins[1], ri[0], ri[1], ri[2], g_pad)
+            ins_v.append(gv)
+            ins_x.append(gx)
+            if rd is not None:
+                gv, gx = _dense_side(j.dele[1], rd[0], rd[1], rd[2], g_pad)
+            else:
+                gv = torch.zeros(g_pad, dtype=torch.bool, device=dev)
+                gx = torch.zeros((g_pad, n_agg), dtype=torch.float32, device=dev)
+            del_v.append(gv)
+            del_x.append(gx)
+        args = (torch.stack([j.stale_keys for j, _ri, _rd in members]),
+                torch.stack([j.stale_valid for j, _ri, _rd in members]),
+                torch.stack([j.stale_vals for j, _ri, _rd in members]),
+                torch.stack(ins_v), torch.stack(ins_x), torch.stack(del_v), torch.stack(del_x))
+        launches.append(([j for j, _ri, _rd in members], args))
+    return launches, precomputed
+
+
+def fleet_clean_merge(jobs: Sequence[_MergeJob]):
+    """The whole epoch's merge remainders in one ``fleet_merge`` launch per
+    (Rp, aggregate count) shape (``fleet_merge_inputs``).  Per-view work
+    after the launch is slicing the sorted rows back into each view's
+    sample arena.
+
+    Returns ``(merged, precomputed)``: ``merged`` maps view name → its
+    cleaned sample relation; ``precomputed`` as ``fleet_merge_inputs``.
+    """
+    from repro_torch.kernels.fleet_merge import fleet_merge
+
+    launches, precomputed = fleet_merge_inputs(jobs)
+    merged: Dict[str, Relation] = {}
+    for members, args in launches:
+        keys, vals, valid = fleet_merge(*args)
+        span = int(keys.shape[1])
+        for idx, j in enumerate(members):
+            n = min(j.out_capacity, span)
+            # sorted valid-first ascending ⇒ truncation keeps the lowest-
+            # keyed rows, exactly compact's overflow behaviour
+            cols = {j.key: keys[idx, :n].to(j.col_dtypes[j.key])}
+            for a_i, cname in enumerate(j.agg_cols):
+                cols[cname] = vals[idx, :n, a_i].to(j.col_dtypes[cname])
+            merged[j.name] = from_columns(cols, pk=(j.key,), valid=valid[idx, :n],
+                                          capacity=j.out_capacity)
+    return merged, precomputed
+
+
 def clean_sample(
     strategy: Plan,
     view_name: str,
@@ -390,6 +632,7 @@ def clean_sample(
     out_capacity: Optional[int] = None,
     pin_name: Optional[str] = None,
     fused: bool = True,
+    precomputed: Optional[Mapping[_FusedSpec, Relation]] = None,
 ) -> Relation:
     """Ŝ' = C(Ŝ, D, ∂D) — the up-to-date sample at ratio m (Problem 1).
 
@@ -397,14 +640,15 @@ def clean_sample(
     sub-aggregations run through ``kernels/fused_clean`` — hash threshold
     and per-group accumulation in one pass — and only the merge remainder
     runs through the plan executor.  Plans whose shape or key domain does
-    not qualify fall back to the plan executor.
+    not qualify fall back to the plan executor.  ``precomputed`` splices
+    delta aggregations the fleet path already batched.
     """
     plan = cleaning_plan(strategy, view_pk, m, seed, pin_name=pin_name)
     env = delta_env(view_name, stale_sample, deltas)
     if extra_env:
         env.update(extra_env)
     if fused:
-        plan, env = fuse_delta_groupbys(plan, env)
+        plan, env = fuse_delta_groupbys(plan, env, precomputed=precomputed)
     return compact(execute(plan, env), out_capacity or stale_sample.capacity)
 
 

@@ -12,6 +12,10 @@ can show that the main path went through the kernels.
   outlier_member  — η ∨ outlier-index digest membership in one pass
   multi_agg       — all Q queries' moments in one panel scan (two kernels:
                     two-sided clean ∥ stale ∥ diff, and one-sided)
+  fused_clean_fleet — fused_clean for V views in one launch (svc_refresh_many)
+  fleet_merge     — every view's merge remainder (stale + ins) − del
+  fleet_moments   — every view's planner moments from the fleet panel
+  fleet_score     — every view's action scores for the planner's knapsack
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """Kernel name → the wrapper that launches it."""
-    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby
+    from repro_torch.kernels.fleet_merge.ops import fleet_merge
+    from repro_torch.kernels.fleet_moments.ops import fleet_moments
+    from repro_torch.kernels.fleet_score.ops import fleet_scores
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
     from repro_torch.kernels.outlier_member.ops import outlier_codes
@@ -32,6 +39,10 @@ def wrappers() -> Dict[str, object]:
         "outlier_member": outlier_codes,
         "multi_agg_two": multi_agg_two,
         "multi_agg_one": multi_agg_one,
+        "fused_clean_fleet": fused_clean_groupby_fleet,
+        "fleet_merge": fleet_merge,
+        "fleet_moments": fleet_moments,
+        "fleet_score": fleet_scores,
     }
 
 

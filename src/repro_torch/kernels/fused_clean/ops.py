@@ -4,18 +4,20 @@
 dispatches to when the cleaning plan's delta sub-aggregation has the
 canonical SVC shape.  CPU tensors take the plain version (``ref.py``);
 CUDA tensors launch ``csrc/fused_clean.cu`` or raise.
+``fused_clean_groupby_fleet`` does the same for V views in one launch
+(the fleet refresh path, ``svc_refresh_many``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.hashing import seed_mix
 from repro_torch.kernels import _build as B
-from repro_torch.kernels.fused_clean.ref import fused_clean_ref
+from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref, fused_clean_ref
 
 _ARGS = (B.P, B.P, B.P, B.P, B.I64, B.I32, B.I64, B.U32, B.F32, B.P, B.P)
 
@@ -56,3 +58,48 @@ def fused_clean_groupby(
 
 
 fused_clean_groupby.launches = 0
+
+
+_FLEET_ARGS = (B.P, B.P, B.P, B.I64, B.I64, B.I32, B.I64, B.P, B.P, B.P, B.P)
+
+
+def fused_clean_groupby_fleet(
+    gid: torch.Tensor,
+    vals: torch.Tensor,
+    valid: torch.Tensor,
+    ms: Sequence[float],
+    seeds: Sequence[int],
+    num_groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch cleans a whole fleet's delta aggregations (pin-free).
+
+    gid (V, R) int32 per-view group keys; vals (V, R, C) f32; valid (V, R)
+    bool; ``ms``/``seeds`` the per-view ratios and η seeds, so each view's
+    slice equals its own ``fused_clean_groupby`` call.  Returns
+    (counts (V, G) f32, sums (V, G, C) f32)."""
+    dev = gid.device
+    V, R = gid.shape
+    B.check(gid, "gid", torch.int32, dev, (V, R))
+    B.check(vals, "vals", torch.float32, dev)
+    if vals.dim() != 3 or vals.shape[:2] != (V, R):
+        raise ValueError(f"vals: shape {tuple(vals.shape)}, expected ({V}, {R}, C)")
+    B.check(valid, "valid", torch.bool, dev, (V, R))
+    if len(ms) != V or len(seeds) != V:
+        raise ValueError(f"need one m and one seed per view: {len(ms)}, {len(seeds)} for {V}")
+    if dev.type == "cpu":
+        return fused_clean_fleet_ref(gid, vals, valid, ms, seeds, num_groups)
+    B.check_cuda(dev)
+    C = vals.shape[2]
+    # the uint32 seed mixes travel as int32 of the same bits
+    mixes = torch.tensor(np.array([seed_mix(s) for s in seeds], dtype=np.uint32).view(np.int32),
+                         device=dev)
+    thresh = torch.tensor(np.array(ms, dtype=np.float32), device=dev)
+    out = torch.zeros((V, num_groups, 1 + C), dtype=torch.float32, device=dev)
+    B.launch("svc_fused_clean_fleet", _FLEET_ARGS, gid.data_ptr(), valid.data_ptr(),
+             vals.data_ptr(), V, R, C, num_groups, mixes.data_ptr(), thresh.data_ptr(),
+             out.data_ptr(), B.stream())
+    fused_clean_groupby_fleet.launches += 1
+    return out[:, :, 0], out[:, :, 1:]
+
+
+fused_clean_groupby_fleet.launches = 0

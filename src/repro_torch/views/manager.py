@@ -7,17 +7,21 @@ cleans just the samples in between so that ``query`` always answers from
 fresh, bounded estimates.  Estimator selection follows the §5.2.2
 break-even analysis (SVC+CORR vs SVC+AQP, or force with ``prefer=``).
 
-The single-view surface of ``repro.views.manager``: streaming, the
-planner, the fleet panel, tracing/metrics and fleet health are not ported
-yet.  Every relation lives on the manager's ``device`` (CUDA by default);
-a manager asked for CUDA on a machine without a card raises.
+The fleet surface rides along: ``svc_refresh_many`` cleans many views in
+one fused-clean fleet launch and one fleet_merge launch, ``fleet_panel``
+stacks every view's samples for the planner's moment pass, ``health``
+quarantines views whose clean or maintenance failed, and a ``cost_model``
+(``repro_torch.planner``) hears every refresh, maintenance and query.
+Streaming and tracing/metrics are not ported yet.  Every relation lives on
+the manager's ``device`` (CUDA by default); a manager asked for CUDA on a
+machine without a card raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +37,18 @@ from repro_torch.core.estimators import (
 )
 from repro_torch.core.maintenance import (
     DEL,
+    INS,
     DeltaSet,
     ViewDef,
+    _MergeJob,
     _replace_groupby_capacity,
     change_table_strategy,
     clean_sample,
+    cleaning_plan,
+    collect_fused_specs,
     delete_keys,
+    delta_env,
+    fleet_clean_merge,
     full_maintenance,
     upsert,
 )
@@ -68,6 +78,7 @@ from repro_torch.relational.relation import (
     lexsort_indices,
     next_pow2,
 )
+from repro_torch.robustness.health import FleetHealth
 
 
 @dataclasses.dataclass
@@ -92,16 +103,35 @@ class ManagedView:
     # delta batches offered to the outlier index but not yet merged; flushed
     # as ONE update_outlier_index call per refresh window
     outlier_offers: List[Relation] = dataclasses.field(default_factory=list)
+    maintenance_s: float = 0.0  # last timed op (refresh OR maintain) wall time
+    refresh_s: float = 0.0  # last svc_refresh wall time (cost-model seed)
+    ivm_s: float = 0.0  # last full-maintenance wall time (cost-model seed)
+    # per-base lifetime delta-row counts at the last maintain / svc_refresh
+    # (drift counters: pending rows = ViewManager.ingested_rows − these)
+    applied_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
+    cleaned_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # bumped whenever either sample moves (planner snapshot, panel slots)
+    sample_version: int = 0
+    # bumped only when the STALE sample is re-derived (maintain, ratio
+    # retune, pin refresh): the fleet panel's merge slots survive cleans
+    stale_version: int = 0
+    # planner-recommended sampling ratio (fleet scorer REC_M); applied by
+    # svc_refresh only when ViewManager.adaptive_m is on
+    recommended_m: Optional[float] = None
+    delta_group_capacity: int = 1024  # registration-time arena bound
 
 
 class ViewManager:
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", clock: Optional[Callable[[], float]] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"ViewManager(device={str(device)!r}): no CUDA device is available; "
                 "pass device='cpu' to run on the CPU"
             )
+        # every wall time of the manager and the planner reads THIS clock
+        # (tests inject a fake); each closing read follows a device sync
+        self.clock: Callable[[], float] = clock or time.perf_counter
         self.base: Dict[str, Relation] = {}
         self.views: Dict[str, ManagedView] = {}
         # pending deltas as an ordered SEGMENT log (one DeltaSet per ingest
@@ -109,11 +139,29 @@ class ViewManager:
         # relations once every dependent view has folded it in
         self.pending_segments: List[DeltaSet] = []
         self._merged_cache: Dict[Tuple[int, int], DeltaSet] = {}
+        self.ingested_rows: Dict[str, int] = {}  # lifetime delta rows per base
+        self._base_applied_rows: Dict[str, int] = {}  # rows folded into base
+        self.cost_model = None  # planner.CostModel once attached
+        self._panel = None  # FleetPanel once fleet_panel() ran
+        # svc_refresh honours planner-recommended ratios only when on
+        # (MaintenancePlanner(adapt_m=True) turns it on)
+        self.adaptive_m = False
+        # per-view quarantine/backoff registry of clean/maintain outcomes
+        self.health = FleetHealth()
+        # batched fleet launches that raised and fell back to per-view
+        # cleans (CPU managers only): a count here means the fleet path is
+        # degraded
+        self.fleet_merge_failures = 0
 
     def _sync(self) -> None:
         """Wait for the device, so wall times cover the work, not the enqueue."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _elapsed(self, t0: float) -> float:
+        """Clock seconds since ``t0``, read after the device finished."""
+        self._sync()
+        return self.clock() - t0
 
     @property
     def pending(self) -> DeltaSet:
@@ -156,9 +204,30 @@ class ViewManager:
             clean_sample=compact(stale_sample, cap),
             sample_capacity=cap,
             delta_bases=delta_bases,
+            # drift counters start at the base-applied watermark: rows
+            # already folded into the base are part of ``materialized``
+            applied_rows={b: self._base_applied_rows.get(b, 0) for b in delta_bases},
+            cleaned_rows={b: self._base_applied_rows.get(b, 0) for b in delta_bases},
+            delta_group_capacity=delta_group_capacity,
         )
         self.views[view.name] = mv
         return mv
+
+    # -- the fleet panel ------------------------------------------------------
+    def fleet_panel(self):
+        """The stacked (V, R) clean/stale sample panel of the whole fleet
+        (``repro_torch.views.panel.FleetPanel``), created lazily; slots are
+        invalidated per view as samples move."""
+        if self._panel is None:
+            from repro_torch.views.panel import FleetPanel
+
+            self._panel = FleetPanel(self)
+        return self._panel
+
+    def _bump_sample_version(self, mv: ManagedView) -> None:
+        mv.sample_version += 1
+        if self._panel is not None:
+            self._panel.invalidate(mv.view.name)
 
     def register_outlier_index(self, view_name: str, base: str, attr: str, k: int) -> None:
         """§6: index top-k of base[attr]; push keys up into the view pin set."""
@@ -182,6 +251,8 @@ class ViewManager:
         )
         mv.clean_sample = mv.stale_sample
         mv.corr_cache = None
+        mv.stale_version += 1
+        self._bump_sample_version(mv)
 
     # -- delta ingestion -----------------------------------------------------
     def ingest(self, base: str, inserts: Optional[Relation] = None,
@@ -189,14 +260,18 @@ class ViewManager:
         """Ingest a delta batch into the pending segment log; the caller
         refreshes (``svc_refresh``) or maintains (``maintain``) when it likes."""
         seg = DeltaSet()
+        n_rows = 0
         if inserts is not None:
             inserts = inserts.to(self.device)
             seg.inserts[base] = inserts
+            n_rows += int(inserts.valid.sum())
         if deletes is not None:
             seg.deletes[base] = deletes.to(self.device)
+            n_rows += int(seg.deletes[base].valid.sum())
         if not seg.is_empty():
             self.pending_segments.append(seg)
             self._merged_cache.clear()
+            self.ingested_rows[base] = self.ingested_rows.get(base, 0) + n_rows
         for mv in self.views.values():
             if (mv.outlier_index is not None and mv.outlier_index.base == base
                     and inserts is not None):
@@ -220,6 +295,15 @@ class ViewManager:
             )
             self._merged_cache[key] = merged
         return merged
+
+    def drift_rows(self, view_name: str, since: str = "ivm") -> int:
+        """Delta rows a view has not yet absorbed: ``since="ivm"`` not folded
+        by full maintenance, ``since="clean"`` not yet in the clean sample.
+        Counter reads only — the planner's drift signal costs no scan."""
+        mv = self.views[view_name]
+        snap = mv.applied_rows if since == "ivm" else mv.cleaned_rows
+        return sum(max(self.ingested_rows.get(b, 0) - snap.get(b, 0), 0)
+                   for b in mv.delta_bases)
 
     def _deltas_for(self, mv: ManagedView) -> DeltaSet:
         """Pending deltas beyond the view's applied cursor, with EMPTY
@@ -252,23 +336,43 @@ class ViewManager:
         mv.outlier_index = update_outlier_index(mv.outlier_index, delta)
 
     # -- SVC: clean the samples only (cheap, between maintenance periods) ----
-    def svc_refresh(self, view_name: str, fused: bool = True) -> float:
+    def svc_refresh(self, view_name: str, fused: bool = True, _precomputed=None,
+                    _extra_s: float = 0.0, _retuned: bool = False) -> float:
         """Clean the view's sample from the pending deltas (Problem 1).
 
         ``fused`` routes the delta aggregation through kernels/fused_clean
         (the plan executor takes over when the plan shape does not qualify).
+        With ``adaptive_m`` on, a planner-recommended ratio is applied first.
+        ``_precomputed``/``_extra_s``/``_retuned`` are ``svc_refresh_many``'s
+        internals: delta aggregations it already batched, this view's share
+        of the batched wall time, and whether it already retuned the ratio.
+
         The clean is TRANSACTIONAL: any failure restores the view's
-        pre-clean state and re-raises.  Returns the wall seconds."""
+        pre-clean state, records the failure in ``health`` and re-raises.
+        Returns the wall seconds."""
         mv = self.views[view_name]
         snap = _view_snapshot(mv)
         try:
-            return self._svc_refresh_inner(mv, view_name, fused)
-        except BaseException:
-            _restore_view(mv, snap)
+            dt = self._svc_refresh_inner(mv, view_name, fused, _precomputed, _extra_s, _retuned)
+        except BaseException as e:
+            self._roll_back(mv, snap, e)
             raise
+        self.health.record_success(view_name)
+        return dt
 
-    def _svc_refresh_inner(self, mv: ManagedView, view_name: str, fused: bool) -> float:
-        t0 = time.perf_counter()
+    def _roll_back(self, mv: ManagedView, snap: dict, error: BaseException) -> None:
+        _restore_view(mv, snap)
+        if self._panel is not None:
+            self._panel.invalidate(mv.view.name)
+        if isinstance(error, Exception):
+            self.health.record_failure(mv.view.name, error)
+
+    def _svc_refresh_inner(self, mv: ManagedView, view_name: str, fused: bool, precomputed,
+                           extra_s: float, retuned: bool) -> float:
+        t0 = self.clock()  # a retune below is part of the clean's cost
+        if self._wants_retune(mv):
+            self._retune_sample_ratio(mv, mv.recommended_m)
+            retuned = True
         if mv.outlier_index is not None:
             self._flush_outlier_offers(mv)
             mv.outlier_pin = self._pin_relation(mv)
@@ -289,12 +393,184 @@ class ViewManager:
             out_capacity=mv.sample_capacity,
             pin_name=pin_name,
             fused=fused,
+            precomputed=precomputed,
         )
         mv.clean_sample = flag_outliers(cleaned, mv.outlier_pin)
         mv.stale_sample = flag_outliers(mv.stale_sample, mv.outlier_pin)
         mv.corr_cache = None  # samples moved: new correspondence window
-        self._sync()
-        return time.perf_counter() - t0
+        dt = self._elapsed(t0) + float(extra_s)
+        self._after_clean(mv, view_name, dt, retuned)
+        return dt
+
+    def _after_clean(self, mv: ManagedView, view_name: str, dt: float, retuned: bool) -> None:
+        """The bookkeeping tail of every clean, per view or batched."""
+        mv.maintenance_s = dt
+        mv.refresh_s = dt
+        self._bump_sample_version(mv)
+        for b in mv.delta_bases:  # the clean sample now reflects all deltas
+            mv.cleaned_rows[b] = self.ingested_rows.get(b, 0)
+        if self.cost_model is not None:
+            if retuned:
+                self.cost_model.observe_retune(view_name, dt)
+            else:
+                self.cost_model.observe_refresh(view_name, dt)
+
+    def _retune_sample_ratio(self, mv: ManagedView, new_m: float) -> None:
+        """Planner-driven m adaptation: re-derive the sample pair from the
+        materialized view at the new ratio (Ŝ = η(S) stays true, so stepping
+        m up recovers rows the old sample dropped); the following clean folds
+        every pending delta.  The sample arena scales from its current size,
+        never below the registration-time formula, and the m-scaled group
+        capacities are re-bucketed."""
+        new_m = float(new_m)
+        old_m = mv.m
+        mv.m = new_m
+        mv.sample_capacity = next_pow2(max(
+            64,
+            int(mv.sample_capacity * (new_m / old_m)),
+            int(mv.materialized.capacity * new_m * 4),
+        ))
+        mv.sampled_strategy = _replace_groupby_capacity(
+            mv.strategy, next_pow2(max(64, int(mv.delta_group_capacity * new_m * 4))))
+        mv.stale_sample = compact(
+            hashing.apply_hash(mv.materialized, mv.view.pk, new_m, mv.seed, pin=mv.outlier_pin),
+            mv.sample_capacity,
+        )
+        mv.clean_sample = mv.stale_sample
+        mv.corr_cache = None
+        mv.recommended_m = None
+        mv.stale_version += 1
+        self._bump_sample_version(mv)
+
+    def _wants_retune(self, mv: ManagedView) -> bool:
+        return (self.adaptive_m and mv.recommended_m is not None
+                and abs(mv.recommended_m - mv.m) > 1e-9)
+
+    def _merge_job(self, name: str, mv: ManagedView, panel) -> Optional[_MergeJob]:
+        """The view's inputs to the batched clean, or None when its cleaning
+        plan does not reduce to the canonical fused specs: a pin-free single
+        int group key with exactly [ins] (or [ins, del] for with_deletes)."""
+        if len(mv.view.pk) != 1:
+            return None
+        plan = cleaning_plan(mv.sampled_strategy, mv.view.pk, mv.m, mv.seed)
+        env = delta_env(mv.view.name, mv.stale_sample, self._deltas_for(mv))
+        env.update(self.base)
+        specs = collect_fused_specs(plan, env)
+        # the merge remainder is bypassed wholesale, so EVERY delta layer of
+        # the strategy must have fused (collect order = OuterJoin nesting)
+        has_del = any(leaf.name.endswith(DEL) for leaf in plan_leaves(mv.strategy))
+        if len(specs) != (2 if has_del else 1):
+            return None
+        if any(s.dim_name is not None or s.pin_name is not None or s.key != mv.view.pk[0]
+               for s in specs):
+            return None
+        if not specs[0].fact_name.endswith(INS):
+            return None
+        if has_del and not specs[1].fact_name.endswith(DEL):
+            return None
+        agg_cols = tuple(o for o, _fn, _v in specs[0].node.aggs)
+        skeys, svalid, svals = panel.merge_slot(name, mv.view.pk[0], agg_cols)
+        return _MergeJob(
+            name=name,
+            key=mv.view.pk[0],
+            agg_cols=agg_cols,
+            col_dtypes={c: mv.stale_sample.col(c).dtype for c in mv.stale_sample.schema.columns},
+            stale_keys=skeys,
+            stale_valid=svalid,
+            stale_vals=svals,
+            ins=(env[specs[0].fact_name], specs[0]),
+            dele=(env[specs[1].fact_name], specs[1]) if has_del else None,
+            out_capacity=mv.sample_capacity,
+        )
+
+    def svc_refresh_many(self, names: Sequence[str], fused: bool = True,
+                         isolate: bool = True) -> Dict[str, float]:
+        """Refresh several views' samples through two fleet launches.
+
+        The η-filtered delta group-bys of every qualifying view run in ONE
+        kernels/fused_clean fleet launch (per-view seeds and ratios), and
+        their merge remainders — upserting the dense deltas into the
+        panel-backed stale samples with delete-cancellation — in ONE
+        kernels/fleet_merge launch per (Rp, aggregate count) shape.  Views
+        that do not qualify (outlier pins, composite keys, non-canonical
+        plans, unbounded key domains, ``fused=False``) clean per view,
+        reusing any side that did aggregate on the batched path.  Returns
+        per-view wall seconds (each member carries its share of the batched
+        launches).
+
+        With ``isolate`` (the default) a failed per-view clean is quarantined
+        in ``health`` and reported as 0.0 seconds while the other views
+        commit.  A failure of the batched launch itself falls the whole
+        epoch back to per-view cleans, counted in ``fleet_merge_failures``,
+        only on a CPU manager; on the card it propagates, because a kernel
+        that fails to build or launch must never hand its work to plain
+        PyTorch.  ``isolate=False`` propagates every failure."""
+        names = list(names)
+        out: Dict[str, float] = {}
+        jobs: List[_MergeJob] = []
+        retune_s: Dict[str, float] = {}
+        retuned: set = set()
+        if fused and len(names) > 1:
+            panel = self.fleet_panel()
+            for name in names:
+                mv = self.views[name]
+                if mv.outlier_index is not None or mv.outlier_pin is not None:
+                    continue
+                if self._wants_retune(mv):
+                    tr = self.clock()  # charge the retune to this view
+                    self._retune_sample_ratio(mv, mv.recommended_m)
+                    retune_s[name] = self._elapsed(tr)
+                    retuned.add(name)
+                job = self._merge_job(name, mv, panel)
+                if job is not None:
+                    jobs.append(job)
+        merged, precomputed = {}, {}
+        t0 = self.clock()
+        if jobs:
+            try:
+                merged, precomputed = fleet_clean_merge(jobs)
+                self._sync()
+            except Exception:
+                if not isolate or self.device.type != "cpu":
+                    raise
+                # the batched launch failed as a unit: every view cleans on
+                # its own (panel slots were only read, so nothing to restore)
+                self.fleet_merge_failures += 1
+                merged, precomputed = {}, {}
+        share = (self.clock() - t0) / len(merged) if merged else 0.0
+        for name in names:
+            try:
+                if name in merged:
+                    out[name] = self._finish_batched_refresh(
+                        name, merged[name], share + retune_s.get(name, 0.0), name in retuned)
+                else:
+                    out[name] = self.svc_refresh(
+                        name, fused=fused, _precomputed=precomputed.get(name),
+                        _extra_s=retune_s.get(name, 0.0), _retuned=name in retuned)
+            except Exception:
+                if not isolate:
+                    raise
+                # quarantined by the per-view guard; the view keeps serving
+                # its last good sample and the epoch commits
+                out[name] = 0.0
+        return out
+
+    def _finish_batched_refresh(self, view_name: str, rel: Relation, dt: float,
+                                retuned: bool) -> float:
+        """Install one fleet-merged clean sample: the bookkeeping tail of
+        ``svc_refresh`` without the plan execution.  Guarded the same way."""
+        mv = self.views[view_name]
+        snap = _view_snapshot(mv)
+        try:
+            mv.clean_sample = flag_outliers(rel, mv.outlier_pin)
+            mv.stale_sample = flag_outliers(mv.stale_sample, mv.outlier_pin)
+            mv.corr_cache = None  # samples moved: new correspondence window
+            self._after_clean(mv, view_name, dt, retuned)
+        except BaseException as e:
+            self._roll_back(mv, snap, e)
+            raise
+        self.health.record_success(view_name)
+        return dt
 
     # -- full IVM (the expensive path; runs at maintenance periods) ----------
     def maintain(self, view_name: str) -> float:
@@ -305,14 +581,16 @@ class ViewManager:
         mv = self.views[view_name]
         snap = _view_snapshot(mv)
         try:
-            return self._maintain_inner(mv)
-        except BaseException:
-            _restore_view(mv, snap)
+            dt = self._maintain_inner(mv, view_name)
+        except BaseException as e:
+            self._roll_back(mv, snap, e)
             raise
+        self.health.record_success(view_name)
+        return dt
 
-    def _maintain_inner(self, mv: ManagedView) -> float:
+    def _maintain_inner(self, mv: ManagedView, view_name: str) -> float:
         self._flush_outlier_offers(mv)
-        t0 = time.perf_counter()
+        t0 = self.clock()
         hi = len(self.pending_segments)
         mv.materialized = full_maintenance(
             mv.strategy,
@@ -322,16 +600,24 @@ class ViewManager:
             extra_env=self.base,
             out_capacity=mv.materialized.capacity,
         )
-        self._sync()
-        dt = time.perf_counter() - t0
+        dt = self._elapsed(t0)
         mv.stale_sample = compact(
             hashing.apply_hash(mv.materialized, mv.view.pk, mv.m, mv.seed, pin=mv.outlier_pin),
             mv.sample_capacity,
         )
         mv.clean_sample = mv.stale_sample
         mv.corr_cache = None
+        mv.maintenance_s = dt
+        mv.ivm_s = dt
+        mv.stale_version += 1
+        self._bump_sample_version(mv)
         mv.applied_seg = hi
+        for b in mv.delta_bases:
+            mv.applied_rows[b] = self.ingested_rows.get(b, 0)
+            mv.cleaned_rows[b] = self.ingested_rows.get(b, 0)
         self._advance_pending_floor()
+        if self.cost_model is not None:
+            self.cost_model.observe_maintain(view_name, dt)
         return dt
 
     def maintain_all(self) -> float:
@@ -364,8 +650,10 @@ class ViewManager:
             grown = max(self.base[b].capacity,
                         next_pow2(int(self.base[b].valid.sum()) + rel.capacity))
             self.base[b] = upsert(self.base[b], rel, capacity=grown)
+            self._base_applied_rows[b] = self._base_applied_rows.get(b, 0) + int(rel.valid.sum())
         for b, rel in seg.deletes.items():
             self.base[b] = delete_keys(self.base[b], rel)
+            self._base_applied_rows[b] = self._base_applied_rows.get(b, 0) + int(rel.valid.sum())
 
     # -- query API ------------------------------------------------------------
     def query(
@@ -374,9 +662,11 @@ class ViewManager:
         q: Query,
         confidence: float = 0.95,
         prefer: Optional[str] = None,  # "corr" | "aqp" | None (auto, §5.2.2)
+        record_traffic: bool = True,
     ) -> Estimate:
         """Estimate one query — a batch of one through the batched engine."""
-        return self.query_batch(view_name, [q], confidence=confidence, prefer=prefer)[0]
+        return self.query_batch(view_name, [q], confidence=confidence, prefer=prefer,
+                                record_traffic=record_traffic)[0]
 
     def query_batch(
         self,
@@ -384,6 +674,7 @@ class ViewManager:
         queries: Sequence[Query],
         confidence: float = 0.95,
         prefer: Optional[str] = None,
+        record_traffic: bool = True,
     ) -> List[Estimate]:
         """Answer N queries in one fused pass (multi-query optimization).
 
@@ -391,7 +682,10 @@ class ViewManager:
         one kernels/multi_agg moment scan and (only if some query resolves
         to SVC+CORR) one batched exact scan of the materialized view.  The
         others go through ``_query_fallback``; result order matches
-        ``queries``."""
+        ``queries``.  ``record_traffic=False`` answers without feeding the
+        planner's traffic counter (evaluation probes are not demand)."""
+        if self.cost_model is not None and record_traffic:
+            self.cost_model.observe_traffic(view_name, len(queries))
         mv = self.views[view_name]
         results: List[Optional[Estimate]] = [None] * len(queries)
         cols = sample_columns(mv.clean_sample)
@@ -455,9 +749,12 @@ class ViewManager:
 def _view_snapshot(mv: ManagedView) -> dict:
     """Field-level snapshot of a ManagedView for rollback.  Relations are
     never mutated in place (every update rebinds the field), so copying the
-    fields — and the offer list — is a full transactional checkpoint."""
+    fields — and the mutable containers — is a full transactional
+    checkpoint."""
     snap = {f.name: getattr(mv, f.name) for f in dataclasses.fields(mv)}
     snap["outlier_offers"] = list(mv.outlier_offers)
+    snap["applied_rows"] = dict(mv.applied_rows)
+    snap["cleaned_rows"] = dict(mv.cleaned_rows)
     return snap
 
 

@@ -10,14 +10,19 @@ Imports only torch, numpy and repro_torch, so it runs without JAX.
 Masks, codes and counts must be exact; float sums within 1e-5 relative
 plus, for atomically accumulated group sums, the float32 bound
 4·2^-24·sqrt(n) relative of a sum of n terms added in another order.
+fleet_merge and fleet_score must equal their plain versions bit for bit;
+fleet_moments within 1e-6 relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.fused_clean.ops import fused_clean_groupby
-from repro_torch.kernels.fused_clean.ref import fused_clean_ref
+from repro_torch.kernels.fleet_merge import fleet_merge, fleet_merge_ref, sort_by_key
+from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
+from repro_torch.kernels.fleet_score import N_FEATURES, fleet_score_ref, fleet_scores
+from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
+from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref, fused_clean_ref
 from repro_torch.kernels.hash_threshold.ops import hash_threshold
 from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
 from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
@@ -155,3 +160,150 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         hash_threshold((cols[0], torch.arange(10, dtype=torch.int32)), 0.5)  # mixed devices
     with pytest.raises(ValueError):
         outlier_codes((cols[0][::2],), cols, 0.5, 0)  # not contiguous
+
+
+def _bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        (a.view(torch.int32) == b.view(torch.int32)).all() if a.dtype == torch.float32
+        else (a == b).all())
+
+
+@pytest.mark.parametrize("V,R,G,A", [(16, 4096, 1024, 2), (3, 1000, 5000, 1), (1, 7, 3, 3)])
+def test_fleet_merge_kernel_is_bit_equal_to_plain(dev, V, R, G, A):
+    rng = np.random.default_rng(V + R + G)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    svalid = rng.uniform(size=(V, R)) < 0.7
+    skeys = rng.integers(0, G + 16, (V, R)).astype(np.int32)
+    skeys[:, 0] = np.iinfo(np.int32).max
+    skeys[:, 1] = -5
+    skeys = np.where(svalid, skeys, np.iinfo(np.int32).max).astype(np.int32)
+    args = (t(skeys), t(svalid), t(rng.normal(0, 1e3, (V, R, A)).astype(np.float32)),
+            t(rng.uniform(size=(V, G)) < 0.4), t(rng.normal(0, 1e3, (V, G, A)).astype(np.float32)),
+            t(rng.uniform(size=(V, G)) < 0.2), t(rng.normal(0, 1e3, (V, G, A)).astype(np.float32)))
+    before = fleet_merge.launches
+    got = fleet_merge(*args)
+    torch.cuda.synchronize()
+    assert fleet_merge.launches == before + 1
+    want = sort_by_key(*fleet_merge_ref(*args))
+    for g, w in zip(got, want):
+        assert _bits(g, w)
+
+
+@pytest.mark.parametrize("V", [1, 16, 1000])
+def test_fleet_score_kernel_is_bit_equal_to_plain(dev, V):
+    rng = np.random.default_rng(V)
+    f = np.abs(rng.normal(0, 1, (V, N_FEATURES))).astype(np.float32) * np.array(
+        [5e3, 400, 20, 1e5, 1e5, 500, 900, 50, 2, 5, 100, 0.5, 3], np.float32)
+    f[::3, 3] = 0.0  # zero AQP variance: hold the ratio
+    f[::5] = 0.0     # all-zero rows score zero
+    f[1::4, 11] = rng.choice([1.0 / 512, 1.0, 1.5], len(f[1::4]))
+    feats = torch.from_numpy(f).to(dev)
+    got = fleet_scores(feats)
+    assert _bits(got, fleet_score_ref(feats))
+
+
+@pytest.mark.parametrize("V,R", [(16, 1 << 16), (3, 100_003), (1, 5)])
+def test_fleet_moments_kernel_matches_plain_and_is_deterministic(dev, V, R):
+    rng = np.random.default_rng(R)
+    slab = np.zeros((V, 8, R), np.float32)
+    for side in (0, 4):
+        v = rng.uniform(size=(V, R)) < 0.7
+        pin = rng.uniform(size=(V, R)) < 0.1
+        slab[:, side] = np.where(v, rng.exponential(10.0, (V, R)), 0.0)
+        slab[:, side + 1] = v
+        slab[:, side + 2] = np.where(pin, 1.0, 10.0)
+        slab[:, side + 3] = np.where(pin, 0.0, 0.9)
+    panels = torch.from_numpy(slab).to(dev).unbind(1)  # strided views of one slab
+    got = fleet_moments(*panels)
+    want = fleet_moments_ref(*panels)
+    assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-30).all())
+    assert torch.equal(got, fleet_moments(*panels))
+
+
+def test_fused_clean_fleet_kernel_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    V, R, C, G = 4, 200_000, 1, 4096
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    gid = t(rng.integers(-1, G + 8, (V, R)).astype(np.int32))
+    valid = t(rng.uniform(size=(V, R)) < 0.9)
+    vals = t(rng.uniform(0.5, 100.0, (V, R, C)).astype(np.float32))
+    ms, seeds = (0.1, 0.25, 0.5, 1.0), (0, 1, 2, 3)
+    counts, sums = fused_clean_groupby_fleet(gid, vals, valid, ms, seeds, G)
+    pc, ps = fused_clean_fleet_ref(gid, vals, valid, ms, seeds, G)
+    assert torch.equal(counts, pc)
+    rtol = (1e-5 + 4 * 2.0 ** -24 * pc.clamp(min=1).sqrt())[..., None]
+    assert bool(((sums - ps).abs() <= rtol * ps.abs()).all())
+    for v in range(V):  # each view's slice is its own per-view clean
+        c1, _ = fused_clean_groupby(gid[v].contiguous(), vals[v].contiguous(),
+                                    valid[v].contiguous(), ms[v], seeds[v], G)
+        assert torch.equal(c1, counts[v])
+
+
+def _small_fleet(device):
+    """Four group-by views over their own 20k-session logs (two with
+    deletes), each with a 5k-session insert delta pending."""
+    from repro_torch.core import ViewDef
+    from repro_torch.relational.plan import GroupByNode, Scan
+    from repro_torch.relational.relation import from_columns
+    from repro_torch.views import ViewManager
+
+    rng = np.random.default_rng(11)
+    vm = ViewManager(device=device)
+    for i in range(4):
+        n = 20_000
+        vm.register_base(f"Log{i}", from_columns(
+            {"sessionId": np.arange(n, dtype=np.int32),
+             "videoId": rng.integers(0, 3000, n).astype(np.int32),
+             "bytes": rng.exponential(10.0, n).astype(np.float32)},
+            pk=["sessionId"], capacity=2 * n, device=device))
+        plan = GroupByNode(child=Scan(f"Log{i}", pk=("sessionId",)), keys=("videoId",),
+                           aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
+                           num_groups=6000)
+        vm.register_view(ViewDef(f"v{i}", plan), delta_bases=(f"Log{i}",), m=0.25, seed=i,
+                         delta_group_capacity=6000, with_deletes=i >= 2)
+    for i in range(4):
+        vm.ingest(f"Log{i}", inserts=from_columns(
+            {"sessionId": np.arange(10**6, 10**6 + 5000, dtype=np.int32),
+             "videoId": rng.integers(0, 3000, 5000).astype(np.int32),
+             "bytes": rng.exponential(10.0, 5000).astype(np.float32)},
+            pk=["sessionId"], device=device))
+    return vm
+
+
+def test_svc_refresh_many_on_the_card_matches_the_cpu(dev):
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.relational.relation import to_host
+
+    gpu, cpu = _small_fleet("cuda"), _small_fleet("cpu")
+    reset_launches()
+    gpu.svc_refresh_many(list(gpu.views))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fleet_merge"] == 1 and counts["fused_clean_fleet"] >= 1
+    cpu.svc_refresh_many(list(cpu.views))
+    for name in cpu.views:
+        a, b = to_host(gpu.views[name].clean_sample), to_host(cpu.views[name].clean_sample)
+        assert np.array_equal(a["videoId"], b["videoId"])
+        assert np.array_equal(a["visits"], b["visits"])
+        np.testing.assert_allclose(a["totalBytes"], b["totalBytes"], rtol=1e-5)
+
+
+def test_a_failed_batched_launch_raises_on_the_card(dev, monkeypatch):
+    """On the card a failing fleet kernel is an error even with
+    isolate=True: the epoch never falls back to the plain per-view path."""
+    from repro_torch.kernels import _build
+
+    real = _build.launch
+
+    def failing(name, *args):
+        if name == "svc_fleet_merge":
+            raise RuntimeError("svc_fleet_merge: CUDA error 1 (injected)")
+        return real(name, *args)
+
+    vm = _small_fleet("cuda")
+    before = {n: mv.clean_sample for n, mv in vm.views.items()}
+    monkeypatch.setattr(_build, "launch", failing)
+    with pytest.raises(RuntimeError, match="svc_fleet_merge"):
+        vm.svc_refresh_many(list(vm.views), isolate=True)
+    assert vm.fleet_merge_failures == 0
+    assert all(vm.views[n].clean_sample is s for n, s in before.items())

@@ -217,6 +217,14 @@ def test_cpu_runs_never_count_as_launches():
     before = port_kernels.launch_counts()
     gid = torch.zeros(4, dtype=torch.int32)
     fused_clean_groupby(gid, torch.ones(4, 1), torch.ones(4, dtype=torch.bool), 1.0, 0, 2)
+    wrappers = port_kernels.wrappers()
+    wrappers["fused_clean_fleet"](gid[None], torch.ones(1, 4, 1),
+                                  torch.ones(1, 4, dtype=torch.bool), (1.0,), (0,), 2)
+    wrappers["fleet_merge"](gid[None], torch.ones(1, 4, dtype=torch.bool), torch.ones(1, 4, 1),
+                            torch.ones(1, 2, dtype=torch.bool), torch.ones(1, 2, 1))
+    wrappers["fleet_moments"](*[torch.ones(2, 4)] * 8)
+    wrappers["fleet_score"](torch.ones(2, 13))
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member",
-                           "multi_agg_two", "multi_agg_one"}
+                           "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
+                           "fleet_merge", "fleet_moments", "fleet_score"}
