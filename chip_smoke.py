@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` and drives two paths
-at full size through the entry points a user calls:
+Builds the CUDA kernels from ``src/repro_torch/csrc`` and drives, at full
+size, through the entry points a user calls:
 
   1. the single-view SVC loop — the paper's running example visitView
      (§2.1, Conviva-shaped session logs, as in ``examples/quickstart.py``)
      through ``ViewManager``;
-  2. the fleet control plane — 16 group-by views over their own
+  2. streaming ingest on the same manager — a 10M-session delta as 20
+     out-of-order micro-batches through ``StreamingViewService`` (size and
+     age watermarks, a spilling ring), answered through the service
+     (dashboard, median/percentile/min/max, a select) before and checked
+     after ``maintain_all``; then ``segment_sum`` and ``corr_moments``, the
+     two library kernels, on that path's group-by ids and CORR join;
+  3. the fleet control plane — 16 group-by views over their own
      Conviva-shaped logs (``benchmarks/fig_planner_fleet.py`` at a real
      size): ``svc_refresh_many`` against per-view cleans, then 5 epochs of
      ``MaintenancePlanner`` under a Zipf query stream.
@@ -42,6 +48,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 U = 2.0 ** -24  # float32 unit roundoff
+# a sum carried in float64 and rounded once to float32 (corr_diff) lies
+# within u·|S| + γ64_{n−1}·Σ|x| of the exact sum: far inside 1e-6·Σ|x|
+F64_SUM_RTOL = 1e-6
 
 # The scenario (visitView at the sizing of benchmarks/common.py:142-158).
 N_VIDEOS = 1_000_000  # the largest round key domain under the fused bound
@@ -75,10 +84,22 @@ FLEET_AGE_CAP_EPOCHS = 3.5
 # walls would differ between the two devices
 CLEAN_COST, MAINTAIN_COST = 1.0, 4.0
 
+# The streaming path, on the visitView manager after the main path: a fresh
+# 10M-session grow_log delta (its own seed) as 20 micro-batches of 500k
+# sessions offered in a shuffled seq order.  Eight batches fill the ring;
+# the ninth spills it and trips the size watermark (4.5M rows); the same
+# again; the last 1M rows wait until the clock passes the age watermark.
+STREAM_CONFIG = dict(max_rows=4_500_000, max_age_s=3600.0, max_batches=8)
+STREAM_BATCHES = 20
+STREAM_SEED = 1
+SMALL_STREAM_BATCHES = 4
+
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "multi_agg_two",
                     "multi_agg_one")
 FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score")
+STREAM_KERNELS = ("fused_clean", "multi_agg_two", "multi_agg_one")
+API_KERNELS = ("segment_aggsum", "corr_diff")
 
 
 
@@ -1003,6 +1024,509 @@ def fleet_device_vs_cpu(n_views, n_videos, n_logs, n_delta, n_deletes, m, epochs
 
 
 # ---------------------------------------------------------------------------
+# The streaming path: out-of-order micro-batches through StreamingViewService
+# ---------------------------------------------------------------------------
+
+def sync(device) -> None:
+    """Wait for the card, so a host clock read after it covers the work."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class StreamClock:
+    """The streaming service's injected clock, moved by hand: batch ages and
+    the age watermark read it, so refresh points do not depend on walls."""
+
+    t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def stream_queries():
+    """The estimators outside the batched engine, on ``totalBytes``."""
+    from repro_torch.core import Query
+
+    return [Query("median", "totalBytes"), Query("percentile", "totalBytes", q=0.9),
+            Query("min", "totalBytes"), Query("max", "totalBytes")]
+
+
+def select_predicate():
+    from repro_torch.relational.expr import Cmp, Col, Lit
+
+    return Cmp("gt", Col("visitCount"), Lit(30.0))
+
+
+def micro_batches(delta, n_batches):
+    """``delta`` cut into ``n_batches`` equal slices (views, no copies)."""
+    from repro_torch.relational.relation import Relation
+
+    step = delta.capacity // n_batches
+    out = []
+    for i in range(n_batches):
+        sl = slice(i * step, delta.capacity if i == n_batches - 1 else (i + 1) * step)
+        out.append(Relation({c: v[sl] for c, v in delta.columns.items()}, delta.valid[sl],
+                            delta.schema))
+    return out
+
+
+def instrument_stream(vm, svc):
+    """Time every refresh (why it ran, its drain-and-apply and its clean)."""
+    events = []
+    real_refresh, real_many = svc.refresh, vm.svc_refresh_many
+    cleans = []
+
+    def svc_refresh_many(*a, **k):
+        sync(vm.device)
+        t0 = time.perf_counter()
+        out = real_many(*a, **k)
+        sync(vm.device)
+        cleans.append(time.perf_counter() - t0)
+        return out
+
+    def refresh(plan=None):
+        logs = svc.logs.values()
+        rows = sum(lg.pending_rows() for lg in logs)
+        age = max((lg.oldest_age_s() for lg in logs), default=0.0)
+        reason = ("size" if rows >= svc.config.max_rows
+                  else "age" if age >= svc.config.max_age_s else "forced")
+        n_clean = len(cleans)
+        sync(vm.device)
+        t0 = time.perf_counter()
+        total = real_refresh(plan)
+        sync(vm.device)
+        wall = time.perf_counter() - t0
+        clean = sum(cleans[n_clean:])
+        events.append({"reason": reason, "rows": rows, "wall_s": wall, "clean_s": clean,
+                       "drain_apply_s": wall - clean})
+        return total
+
+    vm.svc_refresh_many = svc_refresh_many
+    svc.refresh = refresh
+    return events
+
+
+def offer_stream(vm, svc, clock, batches, order):
+    """Offer ``batches[i]`` with seq i, arriving in ``order``, one clock
+    second apart; returns each offer's wall and whether it refreshed."""
+    walls = []
+    for i in order:
+        clock.t += 1.0
+        t0 = time.perf_counter()
+        refreshed = vm.ingest("Log", inserts=batches[i], seq=int(i))
+        sync(vm.device)
+        walls.append({"seq": int(i), "wall_s": time.perf_counter() - t0,
+                      "refreshed": bool(refreshed)})
+    return walls
+
+
+def run_stream_path(vm, view, n_videos, n_logs, n_delta, m, queries, cfg_kw, n_batches, seed):
+    """Stream a fresh ``grow_log`` delta through ``vm`` in ``n_batches``
+    shuffled micro-batches, then age the tail out; answer the dashboard,
+    the bootstrap and min/max queries and one select through the service;
+    repeat the dashboard from the cache; then fold everything in with
+    ``maintain_all`` and hold the answers to the maintained view's.
+    Returns (report, the kernel_api inputs, the phase's launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import Query
+    from repro_torch.core.estimators import correspondence_join
+    from repro_torch.core.select_queries import svc_select
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.streaming import StreamConfig
+
+    name = view.name
+    rng = np.random.default_rng(seed)
+    # sessions after the main path's delta: every streamed session is new
+    delta = grow_log(rng, n_videos, n_logs + n_delta, n_delta, device=vm.device)
+    batches = micro_batches(delta, n_batches)
+    order = rng.permutation(n_batches)
+    clock = StreamClock()
+    kernels.reset_launches()
+    svc = vm.configure_streaming(StreamConfig(**cfg_kw), clock=clock)
+    events = instrument_stream(vm, svc)
+    offers = offer_stream(vm, svc, clock, batches, order)
+    by_size = sum(e["reason"] == "size" for e in events)
+    pending_tail = svc.staleness().pending_rows
+    clock.t += svc.config.max_age_s + 1.0  # the tail ages past the age watermark
+    if not svc.watermark_due() or pending_tail >= svc.config.max_rows:
+        fail(f"stream: the last {pending_tail} rows do not wait for the age watermark")
+    t0 = time.perf_counter()
+    answers = svc.query_batch(name, queries)  # honours the due watermark first
+    sync(vm.device)
+    dashboard_s = time.perf_counter() - t0
+    st = svc.staleness()
+    if st.pending_rows != 0:
+        fail(f"stream: {st.pending_rows} rows pending after the last drain")
+    if svc.refresh_count < 3 or by_size < 1 or not any(e["reason"] == "age" for e in events):
+        fail(f"stream: refreshes {[e['reason'] for e in events]}, want ≥ 3 with one by age")
+    if st.spills < 1:
+        fail("stream: the ring never spilled")
+    others = {}
+    for q in stream_queries():
+        t0 = time.perf_counter()
+        est = svc.query(name, q).estimate
+        sync(vm.device)
+        others[q.agg if q.agg != "percentile" else f"p{int(q.q * 100)}"] = (
+            q, est, time.perf_counter() - t0)
+    mv = vm.views[name]
+    t0 = time.perf_counter()
+    sel = svc_select(mv.materialized, mv.clean_sample, mv.stale_sample, select_predicate(), m)
+    sync(vm.device)
+    select_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    # the same dashboard again: every answer from the cache, no kernel launched
+    hits0 = svc.result_cache.hits
+    again = svc.query_batch(name, queries)
+    if kernels.launch_counts() != launches:
+        fail("stream: a cached dashboard launched a kernel")
+    if svc.result_cache.hits != hits0 + len(queries) or any(
+            a.estimate is not b.estimate for a, b in zip(again, answers)):
+        fail("stream: the repeated dashboard was not served from the cache")
+    clean = mv.clean_sample
+    tb = clean.col("totalBytes")
+    inf = torch.full_like(tb, float("inf"))
+    sample_ext = {"max": float(torch.where(clean.valid, tb, -inf).max()),
+                  "min": float(torch.where(clean.valid, tb, inf).min())}
+    api = {"arena": vm.pending.inserts["Log"], "groups": mv.view.plan.num_groups,
+           "join": correspondence_join(mv.clean_sample, mv.stale_sample,
+                                       Query("sum", "totalBytes"), m),
+           "clean": mv.clean_sample, "stale": mv.stale_sample, "m": m}
+    t0 = time.perf_counter()
+    vm.maintain_all()
+    sync(vm.device)
+    maintain_s = time.perf_counter() - t0
+
+    # hold the answers to the maintained view (exact over base + every delta)
+    truth = []
+    for q in queries:
+        a, b = float(vm.query_stale(name, q)), float(vm.query_exact_fresh(name, q))
+        if a != b:
+            fail(f"stream: after maintain_all query_stale {a} != query_exact_fresh {b} for {q}")
+        truth.append(a)
+    ests = [r.estimate for r in answers]
+    check_estimates(ests, "stream dashboard")
+    out_others = {}
+    for key, (q, est, wall_s) in others.items():
+        exact = float(vm.query_stale(name, q))
+        v, lo, hi = float(est.value), float(est.ci_low), float(est.ci_high)
+        if not all(math.isfinite(x) for x in (v, lo, hi, float(est.stderr))) or lo > hi:
+            fail(f"stream: {key} estimate {est}")
+        row = {"method": est.method, "value": v, "ci_low": lo, "ci_high": hi,
+               "stderr": float(est.stderr), "exact": exact,
+               "rel_err": abs(v - exact) / max(abs(exact), 1e-30), "wall_s": wall_s}
+        if q.agg in ("min", "max"):
+            p = float(est.stderr)  # the Cantelli probability rides in stderr
+            if not 0.0 <= p <= 1.0:
+                fail(f"stream: {key} Cantelli probability {p} outside [0, 1]")
+            if (q.agg == "max" and v < sample_ext["max"]) or (q.agg == "min" and v > sample_ext["min"]):
+                fail(f"stream: {key} {v} beyond the clean sample's own {sample_ext[q.agg]}")
+            row["clean_sample_extremum"] = sample_ext[q.agg]
+        else:
+            row["exact_in_ci"] = lo <= exact <= hi
+        out_others[key] = row
+    counts = {}
+    for key in ("n_updated", "n_added", "n_deleted"):
+        e = getattr(sel, key)
+        v, lo, hi = float(e.value), float(e.ci_low), float(e.ci_high)
+        if not all(math.isfinite(x) for x in (v, lo, hi)) or not lo <= v <= hi:
+            fail(f"stream: select {key} {e}")
+        counts[key] = {"value": v, "ci_low": lo, "ci_high": hi}
+    report = {
+        "config": cfg_kw, "micro_batches": n_batches, "rows_per_batch": batches[0].capacity,
+        "arrival_seqs": [int(i) for i in order],
+        "refreshes": events, "spills": st.spills, "refresh_count": svc.refresh_count,
+        "offer_wall_s": offers, "dashboard_s": dashboard_s, "select_s": select_s,
+        "maintain_all_s": maintain_s, "pending_rows_after": st.pending_rows,
+        "dashboard_rel_err_vs_fresh": rel_errors(ests, truth),
+        "estimators": out_others, "select": {"rows": int(sel.patched.valid.sum()), **counts},
+        "cache": svc.result_cache.stats(), "launches": launches,
+    }
+    return report, api, launches
+
+
+# ---------------------------------------------------------------------------
+# kernel_api: segment_sum and corr_moments on the streaming path's tensors
+# ---------------------------------------------------------------------------
+
+def api_inputs(api):
+    """The group-by's (gid, [bytes, 1]) over the streamed delta arena, as
+    ``relational.ops.groupby`` builds them (invalid rows in the overflow
+    slot G), and the joined ``__t_new``/``__t_old``/valid of SVC+CORR for
+    ``sum(totalBytes)``."""
+    import torch
+
+    from repro_torch.relational import ops
+
+    arena, G = api["arena"], api["groups"]
+    order, _sk, _sv, _start, gid = ops.group_ids(arena, ("videoId",), G)
+    vals = torch.stack([arena.col("bytes")[order],
+                        torch.ones(arena.capacity, dtype=torch.float32, device=arena.device)], 1)
+    j = api["join"]
+    return ((gid.to(torch.int32).contiguous(), vals.contiguous(), G),
+            (j.col("__t_new").contiguous(), j.col("__t_old").contiguous(), j.valid.contiguous()))
+
+
+def drive_api(seg_args, corr_args):
+    """The kernels' own entry points: one call each."""
+    from repro_torch.kernels.corr_diff import corr_moments
+    from repro_torch.kernels.segment_aggsum import segment_sum
+
+    return segment_sum(*seg_args), corr_moments(*corr_args)
+
+
+def hold_segment_sum(got, gid, vals, G, what):
+    """Counts (column 1) exact; sums within γ_{n−1}·Σ|x| of the float64 sum.
+    Returns (max abs error, max share of the bound)."""
+    import torch
+
+    keep = (gid >= 0) & (gid < G)
+    g = torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    exact = torch.zeros((G + 1, 2), dtype=torch.float64, device=gid.device).index_add_(
+        0, g, vals.double())[:G]
+    abs_sum = torch.zeros((G + 1, 2), dtype=torch.float64, device=gid.device).index_add_(
+        0, g, vals.double().abs())[:G]
+    if not torch.equal(got[:, 1].double(), exact[:, 1]):
+        fail(f"{what}: segment_sum counts differ from the exact counts")
+    bound = torch.from_numpy(f32_sum_rtol(exact[:, 1].cpu().numpy())).to(gid.device) * abs_sum[:, 0]
+    diff = (got[:, 0].double() - exact[:, 0]).abs()
+    if bool((diff > bound).any()):
+        fail(f"{what}: segment_sum sums beyond the float32 bound (max abs {float(diff.max()):.3e})")
+    return float(diff.max()), float((diff / bound.clamp(min=1e-300)).max())
+
+
+def hold_corr_moments(got, t_new, t_old, mask, what, f64_sums):
+    """The count exact; Σd and Σd² around the float64 sums of the float32
+    per-row terms.  ``f64_sums`` (the kernel, which adds in float64 and
+    rounds once to float32): within F64_SUM_RTOL·Σ|x|; otherwise (the plain
+    float32 version): within γ_{n−1}·Σ|x|.  Returns (max abs error, max
+    share of the bound)."""
+    import torch
+
+    d = (t_new - t_old) * mask.to(torch.float32)
+    exact = [d.double().sum(), (d * d).double().sum(), mask.double().sum()]
+    if float(got[2]) != float(exact[2]):
+        fail(f"{what}: corr_moments count {float(got[2])} != {float(exact[2])}")
+    rtol = F64_SUM_RTOL if f64_sums else float(f32_sum_rtol(int(t_new.shape[0])))
+    errs, shares = [], []
+    for k, scale in ((0, d.double().abs().sum()), (1, exact[1])):
+        bound = rtol * float(scale)
+        err = abs(float(got[k]) - float(exact[k]))
+        if err > bound:
+            fail(f"{what}: corr_moments moment {k} off by {err:.3e} > {bound:.3e}")
+        errs.append(err)
+        shares.append(err / max(bound, 1e-300))
+    return max(errs), max(shares)
+
+
+def check_api_kernels(api, iters):
+    """kernel_api: reset the counters, drive both entry points on the path's
+    tensors, read the counters; then hold each kernel against its plain
+    version and against the path's own answer, and time it."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.estimators import _masked_moments, correspondence_diff_stratified
+    from repro_torch.core import Query
+    from repro_torch.kernels.corr_diff import corr_diff_ref, corr_moments
+    from repro_torch.kernels.segment_aggsum import segment_sum, segment_sum_ref
+    from repro_torch.relational import ops
+
+    seg_args, corr_args = api_inputs(api)
+    kernels.reset_launches()
+    seg, corr = drive_api(seg_args, corr_args)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for k in API_KERNELS:
+        if launches[k] == 0:
+            fail(f"kernel_api: {k} never launched")
+    out, checks = [], {}
+    gid, vals, G = seg_args
+    R = int(gid.shape[0])
+    err, share = hold_segment_sum(seg, gid, vals, G, "kernel_api")
+    plain = segment_sum_ref(gid, vals, G)
+    hold_segment_sum(plain, gid, vals, G, "kernel_api plain")
+    if not torch.equal(seg[:, 1], plain[:, 1]):
+        fail("kernel_api: segment_sum counts differ from the plain version")
+    # the group-by's own sums over the same arena
+    gb = ops.groupby(api["arena"], ("videoId",), {"totalBytes": ("sum", "bytes"),
+                                                 "visitCount": ("count", None)}, G)
+    if not torch.equal(seg[:, 1], gb.col("visitCount")):
+        fail("kernel_api: segment_sum counts differ from the group-by's")
+    gb_diff = (seg[:, 0].double() - gb.col("totalBytes").double()).abs()
+    gb_bound = 2 * torch.from_numpy(f32_sum_rtol(seg[:, 1].cpu().numpy())).to(gid.device) * \
+        gb.col("totalBytes").double().abs()
+    if bool((gb_diff > gb_bound).any()):
+        fail("kernel_api: segment_sum sums beyond 2*gamma of the group-by's")
+    kept = int(((gid >= 0) & (gid < G)).sum())
+    g_idx = torch.where((gid >= 0) & (gid < G), gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    out.append(kernel_entry(
+        "segment_aggsum", "cuda", "src/repro_torch/csrc/segment_aggsum.cu",
+        "src/repro/kernels/segment_aggsum/kernel.py:48", launches["segment_aggsum"], err,
+        cuda_ms(lambda: segment_sum(gid, vals, G), iters),
+        cuda_ms(lambda: segment_sum_ref(gid, vals, G), iters),
+        bytes_=R * 4 + kept * 2 * 4 + G * 2 * 4, ops=kept * 2,
+        library_ms=cuda_ms(lambda: torch.zeros((G + 1, 2), dtype=torch.float32,
+                                               device=gid.device).index_add_(0, g_idx, vals),
+                           iters),
+        rows=R, columns=2, groups=G, kept_rows=kept, overflow_rows=R - kept,
+        hot_group_rows=float(seg[:, 1].max()), max_bound_share=share,
+        max_rel_diff_vs_groupby=float((gb_diff / gb.col("totalBytes").double().abs()
+                                       .clamp(min=1e-30)).max()),
+        library_call="index_add_ of vals into a (G + 1, 2) zeroed tensor, gid remapped beforehand",
+        tolerance=("counts exact (plain, group-by, float64); float32 sums within "
+                   "gamma_{n-1}*sum|x| of the float64 sum and 2*gamma of the group-by's"),
+    ))
+    t_new, t_old, mask = corr_args
+    n = int(t_new.shape[0])
+    got = torch.stack(corr)
+    err_c, share_c = hold_corr_moments(got, t_new, t_old, mask, "kernel_api", f64_sums=True)
+    plain_c = torch.stack(corr_diff_ref(t_new, t_old, mask))
+    hold_corr_moments(plain_c, t_new, t_old, mask, "kernel_api plain", f64_sums=False)
+    if not torch.equal(got, torch.stack(corr_moments(t_new, t_old, mask))):
+        fail("kernel_api: corr_moments differs from run to run")
+    d, dmask, _ = correspondence_diff_stratified(api["clean"], api["stale"],
+                                                 Query("sum", "totalBytes"), api["m"])
+    k, s, _mean, _var = _masked_moments(d, dmask)
+    if float(k) != float(got[2]):
+        fail(f"kernel_api: corr_moments count {float(got[2])} != svc_corr's k {float(k)}")
+    # svc_corr's s is a float32 sum in which the masked rows add exact
+    # zeros, so only its k live terms round: γ_{k−1}, plus the kernel's own
+    s_bound = (float(f32_sum_rtol(int(float(k)))) + F64_SUM_RTOL) * \
+        float(torch.where(dmask, d, torch.zeros_like(d)).double().abs().sum())
+    if abs(float(s) - float(got[0])) > s_bound:
+        fail("kernel_api: corr_moments sum beyond gamma_{k-1} + 1e-6 of svc_corr's s")
+    out.append(kernel_entry(
+        "corr_diff", "cuda", "src/repro_torch/csrc/corr_diff.cu",
+        "src/repro/kernels/corr_diff/kernel.py:50", launches["corr_diff"], err_c,
+        cuda_ms(lambda: corr_moments(t_new, t_old, mask), iters),
+        cuda_ms(lambda: corr_diff_ref(t_new, t_old, mask), iters),
+        bytes_=n * (4 + 4 + 1) + 3 * 4, ops=5 * n, library_ms=None,
+        rows=n, valid_rows=int(float(got[2])), svc_corr_k=float(k), svc_corr_s=float(s),
+        max_bound_share=share_c,
+        moments=[float(x) for x in got],
+        plain_is="the three-reduction expression (d.sum(), (d*d).sum(), mask.sum())",
+        tolerance=("count exact (plain, float64, svc_corr's k); the kernel's sums within "
+                   "1e-6*sum|x| of the float64 sums (it adds in float64), the plain version's "
+                   "within gamma_{n-1}*sum|x|; (gamma_{k-1} + 1e-6)*sum|x| of svc_corr's s, "
+                   "k its live rows; the same bits run to run"),
+    ))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# The streaming path on the card against the CPU, at a small size
+# ---------------------------------------------------------------------------
+
+def stream_device_vs_cpu(n_videos, n_logs, n_delta, m, seed, n_batches,
+                         devices=("cuda", "cpu")) -> dict:
+    """The same offers through a CUDA and a CPU manager (``devices``: the
+    card's first; the CPU rehearsal passes two CPUs): the same refreshes
+    and staleness, the same clean samples, and on the CPU's samples (moved
+    to the card) the same min/max values and bootstrap stats under the same
+    uniforms; both kernels on the small path's tensors within the float32
+    bound, counts equal to the CPU's plain versions."""
+    import torch
+
+    from repro_torch.core import Query
+    from repro_torch.core.bootstrap import gather_cond, resample_stats
+    from repro_torch.core.estimators import correspondence_join
+    from repro_torch.core.minmax import svc_minmax
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.kernels.corr_diff import corr_diff_ref
+    from repro_torch.kernels.segment_aggsum import segment_sum_ref
+    from repro_torch.streaming import StreamConfig
+
+    step = n_delta // n_batches
+    # two batches fill the ring; the third spills and trips the size
+    # watermark; the last waits for the age watermark
+    cfg_kw = dict(max_rows=int(2.4 * step), max_age_s=3600.0, max_batches=2)
+    runs = []
+    for device in devices:
+        vm, view, log, video, _delta, groups = build_scenario(n_videos, n_logs, 0, m, seed, device)
+        vm.register_base("Log", log)
+        vm.register_base("Video", video)
+        vm.register_view(view, delta_bases=("Log",), m=m, delta_group_capacity=groups)
+        rng = np.random.default_rng(seed + 1)
+        delta = grow_log(rng, n_videos, n_logs, n_delta, device=device)
+        clock = StreamClock()
+        svc = vm.configure_streaming(StreamConfig(**cfg_kw), clock=clock)
+        events = instrument_stream(vm, svc)
+        offer_stream(vm, svc, clock, micro_batches(delta, n_batches), rng.permutation(n_batches))
+        clock.t += cfg_kw["max_age_s"] + 1.0
+        svc.query_batch(view.name, dashboard(n_videos))
+        mv = vm.views[view.name]
+        st = svc.staleness()
+        runs.append({
+            "refreshes": [e["reason"] for e in events],
+            "staleness": (svc.refresh_count, st.pending_rows, st.pending_batches, st.spills,
+                          st.refreshed_through_seq),
+            "clean": mv.clean_sample, "stale": mv.stale_sample,
+            "stale_result": {q.agg: vm.query_stale(view.name, q) for q in stream_queries()[2:]},
+            "minmax": {q.agg: float(svc.query(view.name, q).value) for q in stream_queries()[2:]},
+            "api": {"arena": vm.pending.inserts["Log"], "groups": groups,
+                    "join": correspondence_join(mv.clean_sample, mv.stale_sample,
+                                                Query("sum", "totalBytes"), m)},
+        })
+    gpu, cpu = runs
+    if gpu["refreshes"] != cpu["refreshes"] or gpu["staleness"] != cpu["staleness"]:
+        fail(f"stream device vs CPU: refreshes {gpu['refreshes']} {gpu['staleness']} != "
+             f"{cpu['refreshes']} {cpu['staleness']}")
+    if "age" not in gpu["refreshes"] or gpu["staleness"][3] < 1:
+        fail(f"stream device vs CPU: refreshes {gpu['refreshes']}, spills {gpu['staleness'][3]}")
+    same = same_sample(sorted_sample(gpu["clean"]), sorted_sample(cpu["clean"]),
+                       "stream device vs CPU clean sample")
+
+    # the CPU's samples on both devices
+    worst = 0.0
+    rng = np.random.default_rng(seed + 2)
+    for q in stream_queries():
+        got = []
+        if q.agg in ("min", "max"):
+            for device in devices:
+                r = svc_minmax(cpu["stale_result"][q.agg].to(device), cpu["clean"].to(device),
+                               cpu["stale"].to(device), q, m)
+                got.append((float(r.value), float(r.exceed_prob)))
+            (va, pa), (vb, pb) = got
+            if va != vb or abs(pa - pb) > 1e-5 * max(abs(pb), 1e-30):
+                fail(f"stream device vs CPU: {q.agg} {got[0]} != {got[1]}")
+            continue
+        us = None
+        for device in devices:
+            values, k = gather_cond(cpu["clean"].to(device), q)
+            if us is None:
+                us = rng.random((200, values.shape[0])).astype(np.float32)
+            qq = 0.5 if q.agg == "median" else q.q
+            got.append(resample_stats(values, k, torch.from_numpy(us).to(device),
+                                      qq).cpu().numpy())
+        rel = np.abs(got[0] - got[1]) / np.maximum(np.abs(got[1]), 1e-30)
+        worst = max(worst, float(rel.max()))
+        if rel.max() > 1e-6:
+            fail(f"stream device vs CPU: {q.agg} bootstrap stats rel {rel.max():.3e}")
+
+    seg_args, corr_args = api_inputs(gpu["api"])
+    with uncounted():
+        seg, corr = drive_api(seg_args, corr_args)
+    gid, vals, G = seg_args
+    seg_err = hold_segment_sum(seg, gid, vals, G, "stream small")[0]
+    if not torch.equal(seg[:, 1].cpu(), segment_sum_ref(gid.cpu(), vals.cpu(), G)[:, 1]):
+        fail("stream device vs CPU: segment_sum counts differ from the CPU's plain version")
+    corr_err = hold_corr_moments(torch.stack(corr), *corr_args, "stream small",
+                                 f64_sums=corr_args[0].is_cuda)[0]
+    if float(corr_diff_ref(*(t.cpu() for t in corr_args))[2]) != float(corr[2]):
+        fail("stream device vs CPU: corr_moments count differs from the CPU's plain version")
+    return {"n_logs": n_logs, "delta_rows": n_delta, "micro_batches": n_batches,
+            "config": cfg_kw, "refreshes": gpu["refreshes"], "staleness": gpu["staleness"],
+            **same, "minmax_own_samples": {a: (gpu["minmax"][a], cpu["minmax"][a])
+                                           for a in gpu["minmax"]},
+            "bootstrap_max_rel_err": worst,
+            "kernel_max_abs_err": {"segment_sum": seg_err, "corr_moments": corr_err}}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1078,11 +1602,29 @@ def main(argv=None) -> int:
     for entry in table:
         emit({"phase": "kernel", **entry, "card": smi})
 
+    # the streaming path on the same manager, then the two library kernels
+    # on its tensors
+    torch.cuda.reset_peak_memory_stats()
+    stream, api, stream_launches = run_stream_path(
+        vm, view, N_VIDEOS, args.n_logs, N_DELTA, M, queries, STREAM_CONFIG, STREAM_BATCHES,
+        STREAM_SEED)
+    missing = [k for k in STREAM_KERNELS if stream_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the streaming path: {missing}")
+    emit({"phase": "stream_path", "n_videos": N_VIDEOS, "n_logs": args.n_logs,
+          "stream_rows": N_DELTA, "m": M, **stream,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    api_table, api_launches = check_api_kernels(api, ITERS)
+    del api
+    emit({"phase": "kernel_api", "launches": api_launches, "card": smi})
+    for entry in api_table:
+        emit({"phase": "kernel", **entry, "card": smi})
+
     small = device_vs_cpu(SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA, M, K, SEED)
     emit({"phase": "device_vs_cpu", "n_logs": SMALL_LOGS, **small})
 
     # the fleet path, on a card the single-view path has let go of
-    del vm, view, log, video, delta, state, ests
+    del vm, view, log, video, delta, state, ests, stream
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1108,8 +1650,11 @@ def main(argv=None) -> int:
         emit({"phase": "kernel", **entry, "card": smi})
     small_fleet = fleet_device_vs_cpu(4, 2_000, 100_000, 10_000, 1_000, M, 2)
     emit({"phase": "fleet_device_vs_cpu", **small_fleet})
+    small_stream = stream_device_vs_cpu(SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA, M, SEED,
+                                        SMALL_STREAM_BATCHES)
+    emit({"phase": "stream_device_vs_cpu", **small_stream})
 
-    emit({"kernels": table + fleet_table})
+    emit({"kernels": table + fleet_table + api_table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

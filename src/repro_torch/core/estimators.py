@@ -108,18 +108,23 @@ def exact(view: Relation, query: Query) -> torch.Tensor:
 
 
 def masked_quantile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
-    """Quantile of values[mask] with dynamic count (sort + interpolate)."""
+    """Quantile of values[mask] along the last dimension, with a dynamic
+    count (sort + interpolate); leading dimensions are independent rows
+    (the bootstrap's replicates), and ``mask`` broadcasts against them."""
     v = torch.where(mask, values, torch.full_like(values, 3.4e38))
-    sv = torch.sort(v).values
-    k = mask.to(torch.float32).sum()
+    sv = torch.sort(v, dim=-1).values
+    k = mask.to(torch.float32).sum(-1)
     top = (k - 1.0).clamp(min=0.0)
     pos = q * top
-    n = v.shape[0]
+    n = v.shape[-1]
     lo = pos.floor().to(torch.int64).clamp(0, n - 1)
     hi = (lo + 1).clamp(0, n - 1)
     frac = pos - lo.to(torch.float32)
-    hi_val = torch.where(hi.to(torch.float32) <= top, sv[hi], sv[lo])
-    return sv[lo] * (1.0 - frac) + hi_val * frac
+    lead = sv.shape[:-1]
+    v_lo = sv.gather(-1, lo.expand(lead).unsqueeze(-1)).squeeze(-1)
+    v_hi = sv.gather(-1, hi.expand(lead).unsqueeze(-1)).squeeze(-1)
+    hi_val = torch.where(hi.to(torch.float32) <= top, v_hi, v_lo)
+    return v_lo * (1.0 - frac) + hi_val * frac
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +197,11 @@ def correspondence_diff(
     return d, mask
 
 
-def correspondence_diff_stratified(
+def correspondence_join(
     clean_sample: Relation, stale_sample: Relation, query: Query, m: float
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(d_i, mask, ompi_d): the Def. 4 diff plus its per-row 1−π factor
-    (0 for rows flagged ``__outlier`` on either side, §6.3)."""
+) -> Relation:
+    """The outer join of trans(Ŝ') and trans(Ŝ) on the view key: columns
+    ``__t_new``/``__t_old`` hold each side's §5.2.1 value (Ø→0)."""
     pk = clean_sample.schema.pk
     t_new, _ = trans_values(clean_sample, query, m)
     t_old, _ = trans_values(stale_sample, query, m)
@@ -204,7 +209,15 @@ def correspondence_diff_stratified(
     old_cols = {**stale_sample.columns, "__t": t_old}
     new_t = Relation(new_cols, clean_sample.valid, clean_sample.schema.with_columns(tuple(new_cols)))
     old_t = Relation(old_cols, stale_sample.valid, stale_sample.schema.with_columns(tuple(old_cols)))
-    joined = ops.outer_join_unique(new_t, old_t, on=pk, how="outer", suffixes=("_new", "_old"))
+    return ops.outer_join_unique(new_t, old_t, on=pk, how="outer", suffixes=("_new", "_old"))
+
+
+def correspondence_diff_stratified(
+    clean_sample: Relation, stale_sample: Relation, query: Query, m: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d_i, mask, ompi_d): the Def. 4 diff plus its per-row 1−π factor
+    (0 for rows flagged ``__outlier`` on either side, §6.3)."""
+    joined = correspondence_join(clean_sample, stale_sample, query, m)
     d = joined.col("__t_new") - joined.col("__t_old")  # Ø filled with 0 by the join
     pinned = torch.zeros_like(joined.valid)
     for side in ("_new", "_old"):

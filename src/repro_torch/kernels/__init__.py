@@ -16,6 +16,10 @@ can show that the main path went through the kernels.
   fleet_merge     — every view's merge remainder (stale + ins) − del
   fleet_moments   — every view's planner moments from the fleet panel
   fleet_score     — every view's action scores for the planner's knapsack
+  segment_sum     — group-by segment sum, out-of-range gids dropped
+                    (segment_aggsum)
+  corr_moments    — the SVC+CORR moments (Σd, Σd², count) in one pass
+                    (corr_diff)
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict
 
 def wrappers() -> Dict[str, object]:
     """Kernel name → the wrapper that launches it."""
+    from repro_torch.kernels.corr_diff.ops import corr_moments
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
     from repro_torch.kernels.fleet_moments.ops import fleet_moments
     from repro_torch.kernels.fleet_score.ops import fleet_scores
@@ -32,6 +37,7 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
     from repro_torch.kernels.outlier_member.ops import outlier_codes
+    from repro_torch.kernels.segment_aggsum.ops import segment_sum
 
     return {
         "hash_threshold": hash_threshold,
@@ -43,6 +49,8 @@ def wrappers() -> Dict[str, object]:
         "fleet_merge": fleet_merge,
         "fleet_moments": fleet_moments,
         "fleet_score": fleet_scores,
+        "segment_aggsum": segment_sum,
+        "corr_diff": corr_moments,
     }
 
 

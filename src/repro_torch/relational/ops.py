@@ -209,6 +209,22 @@ def outer_join_unique(
 # γ — group-by aggregation
 # ---------------------------------------------------------------------------
 
+def group_ids(rel: Relation, keys: Sequence[str], num_groups: int):
+    """The group-by's row numbering: ``(order, sorted keys, sorted valid,
+    group-start flags, gid)``.  Rows are stably sorted by key; ``gid`` is
+    each sorted row's dense group rank, and invalid rows and groups past
+    ``num_groups`` land in the overflow slot ``num_groups``."""
+    kcols = tuple(sentinel_where(rel.valid, rel.col(c)) for c in keys)
+    order = lexsort_indices(kcols)
+    sk = tuple(k[order] for k in kcols)
+    sv = rel.valid[order]
+    first = torch.arange(rel.capacity, device=rel.device) == 0
+    is_start = sv & (~keys_equal(sk, tuple(_shift_prev(k) for k in sk)) | first)
+    gid = torch.cumsum(is_start, 0) - 1
+    gid = torch.where(sv, gid.clamp(0, num_groups), torch.full_like(gid, num_groups))
+    return order, sk, sv, is_start, gid
+
+
 def groupby(
     rel: Relation,
     keys: Sequence[str],
@@ -222,15 +238,8 @@ def groupby(
     """
     keys = tuple(keys)
     dev = rel.device
-    kcols = tuple(sentinel_where(rel.valid, rel.col(c)) for c in keys)
-    order = lexsort_indices(kcols)
-    sk = tuple(k[order] for k in kcols)
-    sv = rel.valid[order]
-    first = torch.arange(rel.capacity, device=dev) == 0
-    is_start = sv & (~keys_equal(sk, tuple(_shift_prev(k) for k in sk)) | first)
-    gid = torch.cumsum(is_start, 0) - 1
+    order, sk, sv, is_start, gid = group_ids(rel, keys, num_groups)
     nseg = num_groups + 1
-    gid = torch.where(sv, gid.clamp(0, num_groups), torch.full_like(gid, num_groups))
 
     out_cols: Dict[str, torch.Tensor] = {}
     # group keys: each group's start row writes its key; every other row

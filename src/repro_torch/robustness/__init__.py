@@ -1,5 +1,7 @@
-"""Failure axis of the fleet: per-view quarantine and retry backoff."""
+"""Failure axis of the fleet: per-view quarantine and retry backoff, and
+the CI widening of answers served stale."""
 
+from repro_torch.robustness.degrade import pending_delta_bound, widen_estimate
 from repro_torch.robustness.health import FleetHealth, ViewHealth
 
-__all__ = ["FleetHealth", "ViewHealth"]
+__all__ = ["FleetHealth", "ViewHealth", "pending_delta_bound", "widen_estimate"]

@@ -12,8 +12,12 @@ one fused-clean fleet launch and one fleet_merge launch, ``fleet_panel``
 stacks every view's samples for the planner's moment pass, ``health``
 quarantines views whose clean or maintenance failed, and a ``cost_model``
 (``repro_torch.planner``) hears every refresh, maintenance and query.
-Streaming and tracing/metrics are not ported yet.  Every relation lives on
-the manager's ``device`` (CUDA by default); a manager asked for CUDA on a
+``configure_streaming`` routes ``ingest`` through bounded out-of-order
+micro-batch logs that refresh on size and age watermarks
+(``repro_torch.streaming``); ``metrics`` is the registry every streaming
+and serving counter lands in.  Median, percentile, min and max queries
+take the bootstrap and Cantelli estimators.  Every relation lives on the
+manager's ``device`` (CUDA by default); a manager asked for CUDA on a
 machine without a card raises.
 """
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing
+from repro_torch.core.bootstrap import bootstrap_aqp, bootstrap_corr
 from repro_torch.core.estimators import (
     Estimate,
     Query,
@@ -52,6 +57,7 @@ from repro_torch.core.maintenance import (
     full_maintenance,
     upsert,
 )
+from repro_torch.core.minmax import svc_minmax
 from repro_torch.core.outliers import (
     OutlierIndex,
     build_outlier_index,
@@ -59,6 +65,7 @@ from repro_torch.core.outliers import (
     propagate_outlier_keys,
     update_outlier_index,
 )
+from repro_torch.obs.registry import MetricsRegistry, counter_attr
 from repro_torch.query import (
     QueryBatch,
     build_correspondence_cache,
@@ -122,6 +129,11 @@ class ManagedView:
 
 
 class ViewManager:
+    # batched fleet launches that raised and fell back to per-view cleans
+    # (CPU managers only): a count here means the fleet path is degraded.
+    # A view over the metrics registry, as in the JAX package.
+    fleet_merge_failures = counter_attr()
+
     def __init__(self, device="cuda", clock: Optional[Callable[[], float]] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -132,6 +144,9 @@ class ViewManager:
         # every wall time of the manager and the planner reads THIS clock
         # (tests inject a fake); each closing read follows a device sync
         self.clock: Callable[[], float] = clock or time.perf_counter
+        # the registry of the whole pipeline: the streaming and serving
+        # instruments of configure_streaming land here too
+        self.metrics = MetricsRegistry()
         self.base: Dict[str, Relation] = {}
         self.views: Dict[str, ManagedView] = {}
         # pending deltas as an ordered SEGMENT log (one DeltaSet per ingest
@@ -141,6 +156,7 @@ class ViewManager:
         self._merged_cache: Dict[Tuple[int, int], DeltaSet] = {}
         self.ingested_rows: Dict[str, int] = {}  # lifetime delta rows per base
         self._base_applied_rows: Dict[str, int] = {}  # rows folded into base
+        self.stream = None  # StreamingViewService once configure_streaming ran
         self.cost_model = None  # planner.CostModel once attached
         self._panel = None  # FleetPanel once fleet_panel() ran
         # svc_refresh honours planner-recommended ratios only when on
@@ -148,10 +164,7 @@ class ViewManager:
         self.adaptive_m = False
         # per-view quarantine/backoff registry of clean/maintain outcomes
         self.health = FleetHealth()
-        # batched fleet launches that raised and fell back to per-view
-        # cleans (CPU managers only): a count here means the fleet path is
-        # degraded
-        self.fleet_merge_failures = 0
+        self._c_fleet_merge_failures = self.metrics.counter("fleet_merge_failures")
 
     def _sync(self) -> None:
         """Wait for the device, so wall times cover the work, not the enqueue."""
@@ -167,6 +180,18 @@ class ViewManager:
     def pending(self) -> DeltaSet:
         """All not-yet-base-applied deltas merged per base (read-only view)."""
         return self._pending_from(0)
+
+    # -- streaming -----------------------------------------------------------
+    def configure_streaming(self, config=None, clock=None):
+        """Route ``ingest`` through the streaming engine: micro-batches are
+        buffered in bounded DeltaLogs and the samples refresh on size/age
+        watermarks instead of manual calls (``repro_torch.streaming``).
+        ``clock`` is injectable for deterministic age and throttle tests."""
+        from repro_torch.streaming import StreamConfig, StreamingViewService
+
+        self.stream = StreamingViewService(self, config or StreamConfig(),
+                                           clock=clock or time.monotonic)
+        return self.stream
 
     # -- registration --------------------------------------------------------
     def register_base(self, name: str, rel: Relation) -> None:
@@ -256,9 +281,19 @@ class ViewManager:
 
     # -- delta ingestion -----------------------------------------------------
     def ingest(self, base: str, inserts: Optional[Relation] = None,
-               deletes: Optional[Relation] = None) -> None:
-        """Ingest a delta batch into the pending segment log; the caller
-        refreshes (``svc_refresh``) or maintains (``maintain``) when it likes."""
+               deletes: Optional[Relation] = None, seq: Optional[int] = None, key=None):
+        """Ingest a delta batch.  With streaming configured, the batch lands
+        in the DeltaLog (``seq`` orders out-of-order producers, ``key`` is an
+        optional idempotency key for at-least-once replays) and the samples
+        refresh on watermarks; returns whether this offer refreshed.
+        Otherwise it goes straight into the pending segment log and the
+        caller refreshes (``svc_refresh``) or maintains (``maintain``)."""
+        if self.stream is not None:
+            return self.stream.offer(base, inserts=inserts, deletes=deletes, seq=seq, key=key)
+        return self._ingest_pending(base, inserts=inserts, deletes=deletes)
+
+    def _ingest_pending(self, base: str, inserts: Optional[Relation] = None,
+                        deletes: Optional[Relation] = None) -> None:
         seg = DeltaSet()
         n_rows = 0
         if inserts is not None:
@@ -621,6 +656,11 @@ class ViewManager:
         return dt
 
     def maintain_all(self) -> float:
+        if self.stream is not None:  # fold still-buffered micro-batches in
+            for base, log in self.stream.logs.items():
+                ins, dels = log.drain()
+                if ins is not None or dels is not None:
+                    self._ingest_pending(base, inserts=ins, deletes=dels)
         total = 0.0
         for name in self.views:
             total += self.maintain(name)
@@ -662,10 +702,16 @@ class ViewManager:
         q: Query,
         confidence: float = 0.95,
         prefer: Optional[str] = None,  # "corr" | "aqp" | None (auto, §5.2.2)
+        rng: Optional[torch.Generator] = None,
         record_traffic: bool = True,
     ) -> Estimate:
-        """Estimate one query — a batch of one through the batched engine."""
-        return self.query_batch(view_name, [q], confidence=confidence, prefer=prefer,
+        """Estimate one query — a batch of one through the batched engine.
+
+        Sample-mean queries (sum/count/avg with encodable predicates) take
+        the batched engine; median/percentile (bootstrap, drawing from
+        ``rng``), min/max (Cantelli) and other predicates take the
+        per-query estimators."""
+        return self.query_batch(view_name, [q], confidence=confidence, prefer=prefer, rng=rng,
                                 record_traffic=record_traffic)[0]
 
     def query_batch(
@@ -674,6 +720,7 @@ class ViewManager:
         queries: Sequence[Query],
         confidence: float = 0.95,
         prefer: Optional[str] = None,
+        rng: Optional[torch.Generator] = None,
         record_traffic: bool = True,
     ) -> List[Estimate]:
         """Answer N queries in one fused pass (multi-query optimization).
@@ -682,8 +729,10 @@ class ViewManager:
         one kernels/multi_agg moment scan and (only if some query resolves
         to SVC+CORR) one batched exact scan of the materialized view.  The
         others go through ``_query_fallback``; result order matches
-        ``queries``.  ``record_traffic=False`` answers without feeding the
-        planner's traffic counter (evaluation probes are not demand)."""
+        ``queries``.  ``rng`` (a ``torch.Generator`` on the manager's
+        device) draws the bootstrap's uniforms, seeded with 0 when omitted.
+        ``record_traffic=False`` answers without feeding the planner's
+        traffic counter (evaluation probes are not demand)."""
         if self.cost_model is not None and record_traffic:
             self.cost_model.observe_traffic(view_name, len(queries))
         mv = self.views[view_name]
@@ -693,7 +742,7 @@ class ViewManager:
         fast = set(batched)
         for i, q in enumerate(queries):
             if i not in fast:
-                results[i] = self._query_fallback(mv, q, confidence, prefer)
+                results[i] = self._query_fallback(mv, q, confidence, prefer, rng)
         if batched:
             batch = QueryBatch.encode([queries[i] for i in batched], cols, self.device)
             if prefer == "aqp":
@@ -715,21 +764,27 @@ class ViewManager:
 
     def _query_fallback(
         self, mv: ManagedView, q: Query, confidence: float, prefer: Optional[str],
+        rng: Optional[torch.Generator],
     ) -> Estimate:
-        """Per-query estimators for queries outside the engine's class."""
+        """Per-query estimators for queries outside the engine's class.
+        Only the correction-side estimators scan the materialized view for
+        q(S)."""
         if q.agg in ("sum", "count", "avg"):
             if prefer is None:
                 cmp = variance_comparison(mv.clean_sample, mv.stale_sample, q, mv.m)
                 prefer = "corr" if bool(cmp["corr_wins"]) else "aqp"
             if prefer == "corr":
-                return svc_corr(exact(mv.materialized, q), mv.clean_sample,
-                                mv.stale_sample, q, mv.m, confidence)
+                return svc_corr(exact(mv.materialized, q), mv.clean_sample, mv.stale_sample, q,
+                                mv.m, confidence)
             return svc_aqp(mv.clean_sample, q, mv.m, confidence)
-        if q.agg in ("median", "percentile", "min", "max"):
-            raise NotImplementedError(
-                f"{q.agg} queries (bootstrap and min/max estimators) are not ported "
-                "yet: ROADMAP queue A.7"
-            )
+        if q.agg in ("median", "percentile"):  # rng None: the bootstrap seeds 0
+            if prefer == "aqp":
+                return bootstrap_aqp(mv.clean_sample, q, rng, confidence=confidence)
+            return bootstrap_corr(exact(mv.materialized, q), mv.clean_sample, mv.stale_sample,
+                                  q, rng, confidence=confidence)
+        if q.agg in ("min", "max"):
+            mm = svc_minmax(exact(mv.materialized, q), mv.clean_sample, mv.stale_sample, q, mv.m)
+            return Estimate(mm.value, mm.exceed_prob, mm.value, mm.value, mm.method, confidence)
         raise ValueError(q.agg)
 
     def query_stale(self, view_name: str, q: Query) -> torch.Tensor:

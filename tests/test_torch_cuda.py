@@ -11,7 +11,10 @@ Masks, codes and counts must be exact; float sums within 1e-5 relative
 plus, for atomically accumulated group sums, the float32 bound
 4·2^-24·sqrt(n) relative of a sum of n terms added in another order.
 fleet_merge and fleet_score must equal their plain versions bit for bit;
-fleet_moments within 1e-6 relative.
+fleet_moments within 1e-6 relative.  segment_sum's counts are exact and
+its sums within γ_{n−1}·Σ|x| of the float64 sums (the bound of a float32
+sum of n terms in any order); corr_moments' count is exact, its sums
+within 1e-6 of Σ|x| of the float64 sums, and the same bits run to run.
 """
 
 import numpy as np
@@ -307,3 +310,87 @@ def test_a_failed_batched_launch_raises_on_the_card(dev, monkeypatch):
         vm.svc_refresh_many(list(vm.views), isolate=True)
     assert vm.fleet_merge_failures == 0
     assert all(vm.views[n].clean_sample is s for n, s in before.items())
+
+
+def _gamma_bound(n):
+    """γ_{n−1}: a float32 sum of n terms in any order lies within γ·Σ|x|."""
+    k = (n.double() - 1.0).clamp(min=0.0) * 2.0 ** -24
+    return k / (1.0 - k)
+
+
+@pytest.mark.parametrize("R,C,G", [(1, 1, 1), (100_003, 1, 4096), (1_000_000, 2, 1_500_000),
+                                   (300_000, 3, 70)])
+@pytest.mark.parametrize("sort", [False, True])
+def test_segment_sum_kernel_matches_plain(dev, R, C, G, sort):
+    """Random and sorted gids (the group-by's order: long runs of one group,
+    crossing warps), a hot group, out-of-range ids among them."""
+    from repro_torch.kernels.segment_aggsum import segment_sum, segment_sum_ref
+
+    rng = np.random.default_rng(R + C)
+    gid = rng.integers(-2, G + 3, R).astype(np.int32)  # -2, -1 and ≥ G all drop
+    gid[: R // 4] = G // 2  # a hot group: atomics on one address
+    gid[:3] = [-1, G, G + 2][: min(3, R)]
+    if sort:
+        gid = np.sort(gid)
+    vals = rng.uniform(-50.0, 100.0, (R, C)).astype(np.float32)
+    vals[:, 0] = 1.0  # a count column
+    gid_t, vals_t = torch.from_numpy(gid).to(dev), torch.from_numpy(vals).to(dev)
+    before = segment_sum.launches
+    got = segment_sum(gid_t, vals_t, G)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    want = segment_sum_ref(gid_t, vals_t, G)
+    assert got.shape == (G, C)
+    assert torch.equal(got[:, 0], want[:, 0])  # counts exact
+    keep = (gid_t >= 0) & (gid_t < G)
+    g = torch.where(keep, gid_t.long(), torch.full_like(gid_t, G, dtype=torch.int64))
+    exact = torch.zeros((G + 1, C), dtype=torch.float64, device=dev).index_add_(
+        0, g, vals_t.double())[:G]
+    abs_sum = torch.zeros((G + 1, C), dtype=torch.float64, device=dev).index_add_(
+        0, g, vals_t.double().abs())[:G]
+    bound = _gamma_bound(want[:, :1].double()) * abs_sum
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    one = segment_sum(gid_t, vals_t[:, 0].contiguous(), G)
+    assert one.shape == (G,) and torch.equal(one, want[:, 0])
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 16384, 2_000_003])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int8])
+def test_corr_moments_kernel_matches_plain_and_is_deterministic(dev, n, mask_dtype):
+    from repro_torch.kernels.corr_diff import corr_diff_ref, corr_moments
+
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    t_new = t(rng.normal(5.0, 20.0, n).astype(np.float32))
+    t_old = t(rng.normal(4.0, 20.0, n).astype(np.float32))
+    mask = t(rng.uniform(size=n) < 0.7).to(mask_dtype)
+    before = corr_moments.launches
+    got = torch.stack(corr_moments(t_new, t_old, mask))
+    torch.cuda.synchronize()
+    assert corr_moments.launches == before + 1
+    want = torch.stack(corr_diff_ref(t_new, t_old, mask))
+    assert torch.equal(got[2], want[2])  # the count
+    d = (t_new - t_old) * mask.to(torch.float32)  # per-row rounding as the kernel's
+    exact = torch.stack([d.double().sum(), (d * d).double().sum()])
+    scale = torch.stack([d.double().abs().sum(), (d * d).double().sum()])
+    assert bool(((got[:2].double() - exact).abs() <= 1e-6 * scale + 1e-30).all())
+    bound = _gamma_bound(torch.tensor(float(n), device=dev)) * scale
+    assert bool(((want[:2].double() - exact).abs() <= bound + 1e-30).all())
+    assert torch.equal(got, torch.stack(corr_moments(t_new, t_old, mask)))  # same bits
+
+
+def test_new_wrappers_raise_instead_of_falling_back(dev):
+    from repro_torch.kernels.corr_diff import corr_moments
+    from repro_torch.kernels.segment_aggsum import segment_sum
+
+    gid = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        segment_sum(gid, torch.ones(8, 2, dtype=torch.float64, device=dev), 4)
+    with pytest.raises(ValueError):
+        segment_sum(gid, torch.ones(2, 8, device=dev).t(), 4)  # not contiguous
+    with pytest.raises(ValueError):
+        corr_moments(torch.ones(8, device=dev), torch.ones(8), torch.ones(8, dtype=torch.bool,
+                                                                      device=dev))
+    with pytest.raises(TypeError):
+        corr_moments(torch.ones(8, device=dev), torch.ones(8, device=dev),
+                     torch.ones(8, device=dev))

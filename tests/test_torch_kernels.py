@@ -224,7 +224,10 @@ def test_cpu_runs_never_count_as_launches():
                             torch.ones(1, 2, dtype=torch.bool), torch.ones(1, 2, 1))
     wrappers["fleet_moments"](*[torch.ones(2, 4)] * 8)
     wrappers["fleet_score"](torch.ones(2, 13))
+    wrappers["segment_aggsum"](gid, torch.ones(4, 2), 2)
+    wrappers["corr_diff"](torch.ones(4), torch.zeros(4), torch.ones(4, dtype=torch.bool))
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
-                           "fleet_merge", "fleet_moments", "fleet_score"}
+                           "fleet_merge", "fleet_moments", "fleet_score",
+                           "segment_aggsum", "corr_diff"}

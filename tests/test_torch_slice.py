@@ -71,12 +71,14 @@ def dashboard(core, X):
 
 
 def off_engine(core, X):
-    """Queries the batched engine cannot encode (``ne``, ``or``): the
-    per-query estimators answer them."""
+    """Queries the batched engine cannot encode (``ne``, ``or``, min, max):
+    the per-query estimators answer them."""
     vc, vid = X.Col("visitCount"), X.Col("videoId")
     return [core.Query("sum", "totalBytes", pred=X.Cmp("ne", vc, X.Lit(1.0))),
             core.Query("avg", "visitCount", pred=X.or_(X.Cmp("lt", vid, X.Lit(50.0)),
-                                                       X.Cmp("gt", vid, X.Lit(450.0))))]
+                                                       X.Cmp("gt", vid, X.Lit(450.0)))),
+            core.Query("max", "totalBytes"),
+            core.Query("min", "visitCount", pred=X.Cmp("gt", vid, X.Lit(10.0)))]
 
 
 def sorted_rows(h):
@@ -156,8 +158,6 @@ def run_port():
                        for q in off_engine(tcore, texpr) for p in (None, "corr", "aqp")]
     batch = tquery.QueryBatch.encode(queries, tquery.sample_columns(mv.clean_sample), "cpu")
     out["variance"] = tquery.variance_report(vm._corr_cache(mv), batch)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        vm.query("visitView", tcore.Query("median", "totalBytes"))
     vm.svc_refresh("visitView", fused=False)
     out["u2"] = mv.clean_sample
     vm.maintain_all()
