@@ -16,7 +16,12 @@ size, through the entry points a user calls:
   3. the fleet control plane — 16 group-by views over their own
      Conviva-shaped logs (``benchmarks/fig_planner_fleet.py`` at a real
      size): ``svc_refresh_many`` against per-view cleans, then 5 epochs of
-     ``MaintenancePlanner`` under a Zipf query stream.
+     ``MaintenancePlanner`` under a Zipf query stream;
+  4. LM serving — gemma-2b at full width in bf16 (random weights from a
+     seed) through ``ServeEngine``: 16 requests on 8 slots, one telemetry
+     row per decode tick into a streaming SVC view, then ``dashboard()``;
+     prefill against token-by-token decode, and the smoke model on the
+     card against the CPU.  Every attention is the flash_attention kernel.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; every kernel is then held against its plain PyTorch version on
@@ -35,6 +40,7 @@ Run:  python3 chip_smoke.py                        (full size, one GPU)
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -47,6 +53,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 U = 2.0 ** -24  # float32 unit roundoff
 # a sum carried in float64 and rounded once to float32 (corr_diff) lies
 # within u·|S| + γ64_{n−1}·Σ|x| of the exact sum: far inside 1e-6·Σ|x|
@@ -94,12 +101,45 @@ STREAM_BATCHES = 20
 STREAM_SEED = 1
 SMALL_STREAM_BATCHES = 4
 
+# The LM serving path (src/repro/launch/serve.py's default --arch): gemma-2b
+# at full width in bf16 through ServeEngine, 16 requests of 16–256 prompt
+# tokens (numpy seed 0) and 32 new tokens each on 8 slots; every decode
+# tick offers a telemetry row to serveView, refreshed each 32 ticks.
+SERVE_ARCH = "gemma-2b"
+SERVE_MAX_BATCH, SERVE_MAX_SEQ = 8, 1024
+SERVE_REQUESTS, SERVE_MAX_NEW = 16, 32
+SERVE_PROMPT_LENS = (16, 256)
+SERVE_TICK_CAPACITY = 1024  # ticks serveView holds (the run takes ~64)
+SERVE_STREAM = dict(max_rows=32, max_age_s=3600.0, max_batches=64)
+SERVE_PREFILL_LEN = 256
+# bf16 at full width: the prefill and the token-by-token decode sum in
+# other orders, so an activation may round to a neighbouring bf16 value
+# (2^-8 relative) and carry it through 18 layers
+PREFILL_DECODE_TOL = 3e-2
+SERVE_DEVICE_CPU_ATOL = 1e-4  # f32 smoke model, TF32 off
+# the kernel against its plain version: f32 sums in both; a bf16 output may
+# round to the neighbouring value
+FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+# (label, (B, S, T, H, K, hd), causal): DECODE_32K's length with gemma-2b's
+# heads, a long causal prefill, and the GQA head dims of granite-3-2b (64),
+# phi3-mini (96) and qwen2-vl-72b (128) at a small batch
+FLASH_SHAPES = (
+    ("decode_32k gemma-2b", (32, 1, 32768, 8, 1, 256), False),
+    ("prefill 4096 gemma-2b", (1, 4096, 4096, 8, 1, 256), True),
+    ("prefill 1024 granite-3-2b", (2, 1024, 1024, 32, 8, 64), True),
+    ("prefill 1024 phi3-mini", (2, 1024, 1024, 32, 32, 96), True),
+    ("decode 4096 qwen2-vl-72b", (4, 1, 4096, 64, 8, 128), False),
+)
+
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "multi_agg_two",
                     "multi_agg_one")
 FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score")
 STREAM_KERNELS = ("fused_clean", "multi_agg_two", "multi_agg_one")
 API_KERNELS = ("segment_aggsum", "corr_diff")
+# every layer's attention, and the telemetry view's cleans and dashboard
+SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
+                 "multi_agg_one")
 
 
 
@@ -313,8 +353,8 @@ def check_estimates(ests, what):
 # ---------------------------------------------------------------------------
 
 def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms, bytes_, ops,
-                 library_ms=None, **extra):
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+                 library_ms=None, ops_per_s=FP32_OPS_PER_S, **extra):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     entry = {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1527,6 +1567,326 @@ def stream_device_vs_cpu(n_videos, n_logs, n_delta, m, seed, n_batches,
 
 
 # ---------------------------------------------------------------------------
+# The LM serving path: gemma-2b through ServeEngine, telemetry into SVC
+# ---------------------------------------------------------------------------
+
+def serve_prompts(vocab: int, n: int, lo: int, hi: int, seed: int):
+    """``n`` prompts of mixed lengths in [lo, hi] (numpy, ``seed``): their
+    slots sit at different cache positions, so ticks split into groups."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, vocab, int(p)).astype(np.int32) for p in lens]
+
+
+def telemetry_service(device, capacity: int, stream_kw: dict):
+    """tests/test_streaming.py's serveView (sums of active, emitted and
+    queued, grouped by tickId) over an empty ServeLog base that holds
+    ``capacity`` ticks, streamed under ``stream_kw``."""
+    from repro_torch.core import ViewDef
+    from repro_torch.relational.plan import GroupByNode, Scan
+    from repro_torch.relational.relation import from_columns
+    from repro_torch.streaming import StreamConfig
+    from repro_torch.views import ViewManager
+
+    vm = ViewManager(device=device)
+    none = np.zeros(0, np.float32)
+    vm.register_base("ServeLog", from_columns(
+        {"tickId": np.zeros(0, np.int32), "active": none, "emitted": none, "queued": none},
+        pk=["tickId"], capacity=capacity, device=device))
+    plan = GroupByNode(child=Scan("ServeLog", pk=("tickId",)), keys=("tickId",),
+                       aggs=(("active", "sum", "active"), ("emitted", "sum", "emitted"),
+                             ("queued", "sum", "queued")),
+                       num_groups=capacity)
+    vm.register_view(ViewDef("serveView", plan), delta_bases=("ServeLog",), m=1.0,
+                     delta_group_capacity=capacity)
+    return vm.configure_streaming(StreamConfig(**stream_kw))
+
+
+class DecodeProbe:
+    """A Model's ``decode_step`` that counts its calls, folds the finiteness
+    of every logit into one device flag (no host sync), and keeps the
+    decoded rows' logits on the host when ``keep``."""
+
+    def __init__(self, model, keep: bool = False):
+        self.inner, self.keep = model.decode_step, keep
+        self.calls, self.finite, self.logits = 0, None, []
+
+    def __call__(self, params, cache, tokens, pos, rows=None):
+        import torch
+
+        logits, cache = self.inner(params, cache, tokens, pos, rows)
+        self.calls += 1
+        ok = torch.isfinite(logits).all()
+        self.finite = ok if self.finite is None else self.finite & ok
+        if self.keep:
+            self.logits.append(logits[list(rows)].float().cpu())
+        return logits, cache
+
+
+class FlashCapture:
+    """Stands in for the transformer's ``flash_attention`` while the serve
+    path runs: it calls the wrapper (which counts its launch) and keeps a
+    copy, with the same strides, of the inputs of the first decode call
+    whose cache slice reaches ``t_min`` keys (layer 0 of that step)."""
+
+    def __init__(self, t_min: int):
+        from repro_torch.models import transformer
+
+        self.mod, self.real, self.t_min, self.inputs = transformer, transformer.flash_attention, t_min, None
+
+    def __call__(self, q, k, v, causal=True):
+        import torch
+
+        out = self.real(q, k, v, causal)
+        if self.inputs is None and not causal and k.shape[1] >= self.t_min:
+            self.inputs = tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                    device=t.device).copy_(t) for t in (q, k, v))
+        return out
+
+    def __enter__(self):
+        self.mod.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+
+def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stream_kw, seed,
+                   device="cuda"):
+    """``cfg`` (gemma-2b at full width in bf16) with weights drawn on the
+    card from a ``torch.Generator(seed)``; the engine serves ``prompts``
+    with its telemetry streamed into serveView, then answers
+    ``dashboard()``.  The launch counters are set to 0 just before and read
+    just after.  Returns (report, model, params, the captured decode
+    inputs, launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, ServeEngine
+
+    model = get_model(cfg, device=device)
+    params, init_s = wall(lambda: model.init(torch.Generator(device=device).manual_seed(seed)))
+    probe = DecodeProbe(model)
+    svc = telemetry_service(device, tick_capacity, stream_kw)
+    engine = ServeEngine(dataclasses.replace(model, decode_step=probe), params,
+                         max_batch=max_batch, max_seq=max_seq, telemetry=svc)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with FlashCapture(max(len(p) for p in prompts)) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rid, p in enumerate(prompts):
+            engine.submit(Request(rid=rid, prompt=p, max_new=max_new))
+        done = engine.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        _, refresh_s = wall(svc.refresh)  # the ticks since the last watermark trip
+        dash, dashboard_s = wall(engine.dashboard)
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one warm decode call of the whole pool at the longest prompt's last
+    # position, alone and under the profiler
+    cache = model.init_cache(max_batch, max_seq)
+    tokens = torch.zeros((max_batch, 1), dtype=torch.int32, device=device)
+    rows, pos = list(range(max_batch)), max(len(p) for p in prompts) - 1
+
+    def decode_call():
+        return model.decode_step(params, cache, tokens, pos, rows)
+
+    with uncounted():
+        decode_call()
+        _, decode_call_s = wall(decode_call)
+        decode_profile = profile_ops(decode_call)
+    del cache
+
+    if len(done) != len(prompts):
+        fail(f"serve_path: {len(done)} of {len(prompts)} requests completed")
+    short = [r.rid for r in done if len(r.out_tokens) != max_new + 1]
+    if short:
+        fail(f"serve_path: requests {short} did not emit their budget of {max_new} + 1 tokens")
+    if not bool(probe.finite):
+        fail("serve_path: a decode step returned non-finite logits")
+    after_admission = sum(len(r.out_tokens) - 1 for r in done)
+    if float(dash["ticks"].value) != engine.ticks:
+        fail(f"serve_path: dashboard ticks {float(dash['ticks'].value)} != engine ticks {engine.ticks}")
+    if float(dash["tokens_emitted"].value) != after_admission:
+        fail(f"serve_path: dashboard tokens_emitted {float(dash['tokens_emitted'].value)} != "
+             f"{after_admission} emitted after admission")
+    prefill_calls = sum(len(p) for p in prompts)
+    if launches["flash_attention"] < cfg.n_layers * probe.calls:
+        fail(f"serve_path: flash_attention launched {launches['flash_attention']} times, fewer "
+             f"than {cfg.n_layers} layers x {probe.calls} decode calls")
+    if cap.inputs is None:
+        fail("serve_path: no decode call reached the longest prompt's length")
+    lat = np.array([r.t_done - r.t_submit for r in done])
+    tokens = sum(len(r.out_tokens) for r in done)
+    report = {
+        "arch": cfg.name, "params": sum(p.numel() for p in params.parameters()),
+        "dtype": cfg.compute_dtype, "max_batch": max_batch, "max_seq": max_seq,
+        "requests": len(prompts), "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+        "completed": len(done), "tokens": tokens, "tokens_after_admission": after_admission,
+        "run_s": run_s, "tok_per_s": tokens / run_s,
+        "p50_latency_s": float(np.percentile(lat, 50)), "p99_latency_s": float(np.percentile(lat, 99)),
+        "ticks": engine.ticks, "decode_calls": probe.calls, "prefill_decode_calls": prefill_calls,
+        "decode_calls_per_tick": (probe.calls - prefill_calls) / engine.ticks,
+        "flash_launches_per_decode_call": launches["flash_attention"] / probe.calls,
+        "init_s": init_s, "refresh_s": refresh_s, "dashboard_s": dashboard_s,
+        "telemetry_refreshes": svc.refresh_count,
+        "dashboard": {k: float(v.value) for k, v in dash.items() if hasattr(v, "value")},
+        "dashboard_pending_rows": dash["ticks"].staleness.pending_rows,
+        "peak_device_gb": peak_gb, "launches": launches,
+        "decode_call_s": decode_call_s, "decode_call_profile": decode_profile,
+    }
+    return report, model, params, cap.inputs, launches
+
+
+def serve_prefill_vs_decode(model, params, n: int, seed: int) -> dict:
+    """``prefill`` of one n-token prompt (the kernel's causal mode) against
+    the same tokens fed one by one through ``decode_step`` (its non-causal
+    mode on the cache slice), at full width in bf16: logits within
+    PREFILL_DECODE_TOL of the largest |logit|, caches likewise."""
+    import torch
+
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab, (1, n)).astype(np.int32)).to(model.device)
+    pre, cache_p = model.prefill(params, {"tokens": toks}, cache_len=n)
+    cache = model.init_cache(1, n)
+    outs = []
+    for i in range(n):
+        lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], i)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, 1).float()
+    pre = pre.float()
+    scale = float(pre.abs().max())
+    err = float((pre - dec).abs().max())
+    cache_err = max(float((cache_p[k].float() - cache[k].float()).abs().max()) for k in ("k", "v"))
+    cache_scale = max(float(cache_p[k].float().abs().max()) for k in ("k", "v"))
+    if not (bool(torch.isfinite(pre).all()) and bool(torch.isfinite(dec).all())):
+        fail("serve_prefill_vs_decode: non-finite logits")
+    if err > PREFILL_DECODE_TOL * scale or cache_err > PREFILL_DECODE_TOL * cache_scale:
+        fail(f"serve_prefill_vs_decode: logits {err} (of {scale}) or cache {cache_err} "
+             f"(of {cache_scale}) beyond {PREFILL_DECODE_TOL} of the largest magnitude")
+    return {"tokens": n, "max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "mean_abs_err": float((pre - dec).abs().mean()),
+            "cache_max_abs_err": cache_err, "cache_max_abs": cache_scale,
+            "argmax_agree": float((pre.argmax(-1) == dec.argmax(-1)).float().mean()),
+            "tolerance": f"max |prefill - decode| <= {PREFILL_DECODE_TOL} * max |prefill| "
+                         "(logits and K/V caches; bf16 activations round at 2^-8 relative "
+                         "wherever the two paths' sums differ)"}
+
+
+def flash_entry(label, q, k, v, causal, launches, iters, **extra):
+    """The kernel against its plain version on (q, k, v) and timed beside
+    it and beside scaled_dot_product_attention (the yardstick: the port
+    never calls it); launches here are not counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    with uncounted():
+        got = flash_attention(q, k, v, causal)
+        want = flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[str(q.dtype)]
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention {label}: max abs diff {err} from the plain version beyond {tol}")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal), iters)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal), iters)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=causal,
+                                              enable_gqa=H != K)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+    library_ms = cuda_ms(sdpa, iters)
+    m = min(S, T)
+    pairs = m * (m + 1) // 2 + (S - m) * T if causal else S * T  # kept (query, key) pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return kernel_entry(
+        "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:71", launches, err, ms, plain_ms,
+        bytes_=nbytes, ops=4 * B * H * hd * pairs, library_ms=library_ms,
+        ops_per_s=BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else FP32_OPS_PER_S,
+        shape=label, B=B, S=S, T=T, H=H, K=K, hd=hd, causal=causal, dtype=str(q.dtype),
+        strides={"q": list(q.stride()), "k": list(k.stride())},
+        library_call="torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
+        library_max_abs_diff_vs_plain=lib_err,
+        tolerance=f"|kernel - plain| <= {tol} + {tol}*|plain| (f32 scores, softmax and sums "
+                  "in both, in other orders; a bf16 output may round to the neighbouring value)",
+        **extra)
+
+
+def check_flash_kernels(serve_inputs, launches, iters, shapes=FLASH_SHAPES, device="cuda"):
+    """flash_attention on the serve path's captured decode inputs (the
+    kernels-line entry), then at ``shapes``: DECODE_32K's length, a
+    4,096-token causal prefill, and the GQA head dims of granite, phi3 and
+    qwen2-vl."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def qkv(B, S, T, H, K, hd):
+        return [torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
+
+    out = [flash_entry("serve_path decode (layer 0, captured)", *serve_inputs, False, launches,
+                       iters)]
+    for label, shape, causal in shapes:
+        out.append(flash_entry(label, *qkv(*shape), causal, launches, iters))
+    return out
+
+
+def serve_device_vs_cpu(arch, prompt_lens, max_batch, max_seq, max_new, seed,
+                        devices=("cuda", "cpu")) -> dict:
+    """``<arch>-smoke`` (f32) served on the card and on the CPU from one set
+    of weights (``devices``: the card's first; the CPU rehearsal passes two
+    CPUs): the same tokens, and every decoded row's logits within
+    SERVE_DEVICE_CPU_ATOL, with TF32 off."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p_cpu = get_model(cfg, device="cpu").init(seed)
+    runs = []
+    for device in devices:
+        model = get_model(cfg, device=device)
+        params = copy.deepcopy(p_cpu).to(device)
+        probe = DecodeProbe(model, keep=True)
+        eng = ServeEngine(dataclasses.replace(model, decode_step=probe), params,
+                          max_batch=max_batch, max_seq=max_seq)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
+        runs.append(({r.rid: r.out_tokens for r in eng.run()}, probe.logits, eng.ticks))
+    (tok_gpu, lg_gpu, ticks_gpu), (tok_cpu, lg_cpu, ticks_cpu) = runs
+    if tok_cpu != tok_gpu or ticks_cpu != ticks_gpu:
+        fail("serve_device_vs_cpu: the card emitted other tokens than the CPU")
+    if len(lg_cpu) != len(lg_gpu):
+        fail("serve_device_vs_cpu: different numbers of decode calls")
+    err = max(float((a - b).abs().max()) for a, b in zip(lg_cpu, lg_gpu))
+    if err > SERVE_DEVICE_CPU_ATOL:
+        fail(f"serve_device_vs_cpu: logits differ by {err} > {SERVE_DEVICE_CPU_ATOL}")
+    return {"arch": cfg.name, "requests": len(prompts), "prompt_lens": list(prompt_lens),
+            "decode_calls": len(lg_cpu), "ticks": ticks_cpu,
+            "tokens": sum(len(t) for t in tok_cpu.values()), "same_tokens": True,
+            "logits_max_abs_diff": err,
+            "tolerance": f"tokens equal; logits within {SERVE_DEVICE_CPU_ATOL} (f32, TF32 off)"}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1654,7 +2014,31 @@ def main(argv=None) -> int:
                                         SMALL_STREAM_BATCHES)
     emit({"phase": "stream_device_vs_cpu", **small_stream})
 
-    emit({"kernels": table + fleet_table + api_table})
+    # the LM serving path, on a card the SVC paths have let go of
+    del fleet, walls, small_fleet, small_stream
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+
+    prompts = serve_prompts(get_config(SERVE_ARCH).vocab, SERVE_REQUESTS, *SERVE_PROMPT_LENS, SEED)
+    serve, model, params, flash_inputs, serve_launches = run_serve_path(
+        get_config(SERVE_ARCH), SERVE_MAX_BATCH, SERVE_MAX_SEQ, prompts, SERVE_MAX_NEW, SERVE_TICK_CAPACITY,
+        SERVE_STREAM, SEED)
+    missing = [k for k in SERVE_KERNELS if serve_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the serve path: {missing}")
+    emit({"phase": "serve_path", **serve, "card": smi})
+    emit({"phase": "serve_prefill_vs_decode", "arch": SERVE_ARCH,
+          **serve_prefill_vs_decode(model, params, SERVE_PREFILL_LEN, SEED), "card": smi})
+    del model, params
+    torch.cuda.empty_cache()
+    flash_table = check_flash_kernels(flash_inputs, serve_launches["flash_attention"], ITERS)
+    del flash_inputs
+    for entry in flash_table:
+        emit({"phase": "kernel", **entry, "card": smi})
+    emit({"phase": "serve_device_vs_cpu",
+          **serve_device_vs_cpu(SERVE_ARCH, (3, 9, 5, 12, 4, 7), 4, 64, 8, SEED)})
+
+    emit({"kernels": table + fleet_table + api_table + flash_table[:1]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,23 @@
+"""gemma-7b [dense] — arXiv:2403.08295 (hf tier).
+
+28L d_model=3072 16H (kv=16) d_ff=24576 vocab=256000; GeGLU head_dim=256.
+"""
+
+import dataclasses
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="gemma-7b", family="dense",
+    n_layers=28, d_model=3072, n_heads=16, n_kv_heads=16, head_dim=256,
+    d_ff=24576, vocab=256_000, act="geglu", rope_theta=10_000.0,
+    remat="full",
+    source="arXiv:2403.08295; hf",
+)
+
+
+def smoke() -> ArchConfig:
+    return dataclasses.replace(
+        CONFIG, name="gemma-7b-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=4, head_dim=32, d_ff=128, vocab=512, compute_dtype="float32", remat="none",
+    )

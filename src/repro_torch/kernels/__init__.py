@@ -20,6 +20,8 @@ can show that the main path went through the kernels.
                     (segment_aggsum)
   corr_moments    — the SVC+CORR moments (Σd, Σd², count) in one pass
                     (corr_diff)
+  flash_attention — online-softmax GQA attention, causal or masked at T
+                    (the LM transformer's attention)
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict
 def wrappers() -> Dict[str, object]:
     """Kernel name → the wrapper that launches it."""
     from repro_torch.kernels.corr_diff.ops import corr_moments
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
     from repro_torch.kernels.fleet_moments.ops import fleet_moments
     from repro_torch.kernels.fleet_score.ops import fleet_scores
@@ -51,6 +54,7 @@ def wrappers() -> Dict[str, object]:
         "fleet_score": fleet_scores,
         "segment_aggsum": segment_sum,
         "corr_diff": corr_moments,
+        "flash_attention": flash_attention,
     }
 
 

@@ -1,0 +1,6 @@
+"""Online-softmax attention, GQA/MQA-aware, causal or masked at T."""
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_ref"]

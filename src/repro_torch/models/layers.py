@@ -1,0 +1,140 @@
+"""Shared model layers: norms, rotary embeddings, attention, GLU MLPs.
+
+The port of ``repro.models.layers``: pure functions over tensors, with
+JAX's layouts (q (B,S,H,hd), k/v (B,T,K,hd), matrices (in, out)).
+Norms and the attention softmax accumulate in f32; activations keep the
+config's ``compute_dtype``.  ``gqa_attention`` is the plain attention of
+the JAX model (scores in the inputs' dtype, then f32); the port's
+transformer computes its attention with ``kernels.flash_attention``
+instead, which keeps scores and probabilities in f32 throughout.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# init helpers (an explicit torch.Generator: the numbers differ from
+# jax.random's; parity tests carry JAX's weights over with models.convert)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               device=None) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * scale
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, device=None) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device) * 0.02
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` on ``device``, copied there once (decode calls it per layer)."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, n, head_dim); positions: broadcastable to (..., S)."""
+    freqs = _device_freqs(x.shape[-1], float(theta), x.device)
+    ang = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention; returns (B, S, H, hd).  Softmax in f32."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, H, hd)
+
+
+def causal_mask(S: int, T: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(1,1,1,S,T) boolean mask; query i attends keys j ≤ i + offset."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    kj = torch.arange(T, device=device)[None, :]
+    return (kj <= qi)[None, None, None]
+
+
+def local_mask(S: int, T: int, window: int, offset: int = 0, device=None) -> torch.Tensor:
+    """Banded causal mask: attend to the last ``window`` positions."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    kj = torch.arange(T, device=device)[None, :]
+    return ((kj <= qi) & (kj > qi - window))[None, None, None]
+
+
+def decode_mask(T: int, pos: int, window: int = 0, device=None) -> torch.Tensor:
+    """Mask for one-token decode against a cache of length T at ``pos``."""
+    kj = torch.arange(T, device=device)[None, :]
+    ok = kj <= pos
+    if window:
+        ok = ok & (kj > pos - window)
+    return ok[None, None, None]
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def glu_mlp(x: torch.Tensor, w_gate, w_up, w_down, act: str) -> torch.Tensor:
+    """SwiGLU / GeGLU: act(x·w_gate) ⊙ (x·w_up) · w_down."""
+    g = x @ w_gate
+    u = x @ w_up
+    if act == "swiglu":
+        h = F.silu(g) * u
+    elif act == "geglu":
+        h = F.gelu(g, approximate="tanh") * u
+    elif act == "gelu":
+        h = F.gelu(g, approximate="tanh")  # w_up unused pattern, kept uniform
+    else:
+        raise ValueError(act)
+    return h @ w_down
+
+
+def qkv_project(x, wq, wk, wv, H, K, hd):
+    B, S, _ = x.shape
+    q = (x @ wq).reshape(B, S, H, hd)
+    k = (x @ wk).reshape(B, S, K, hd)
+    v = (x @ wv).reshape(B, S, K, hd)
+    return q, k, v

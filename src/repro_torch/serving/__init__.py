@@ -1,4 +1,5 @@
-"""Serving plane: admission control and the staleness-keyed result cache."""
+"""Serving plane: admission control, the staleness-keyed result cache, and the
+LM serving engine with SVC telemetry."""
 
 from repro_torch.serving.admission import (
     ADMIT,
@@ -8,6 +9,7 @@ from repro_torch.serving.admission import (
     AdmissionController,
     TokenBucket,
 )
+from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.result_cache import ResultCache, predicate_digest, query_key
 
 __all__ = [
@@ -16,7 +18,9 @@ __all__ = [
     "THROTTLE",
     "AdmissionConfig",
     "AdmissionController",
+    "Request",
     "ResultCache",
+    "ServeEngine",
     "TokenBucket",
     "predicate_digest",
     "query_key",

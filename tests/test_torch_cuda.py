@@ -15,6 +15,9 @@ fleet_moments within 1e-6 relative.  segment_sum's counts are exact and
 its sums within γ_{n−1}·Σ|x| of the float64 sums (the bound of a float32
 sum of n terms in any order); corr_moments' count is exact, its sums
 within 1e-6 of Σ|x| of the float64 sums, and the same bits run to run.
+flash_attention within 1e-4 in float32 (the same f32 sums in another
+order) and 1e-2 in bfloat16 (an output may round to the neighbouring bf16
+value); the f32 smoke model on the card within 1e-4 of the CPU.
 """
 
 import numpy as np
@@ -394,3 +397,98 @@ def test_new_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         corr_moments(torch.ones(8, device=dev), torch.ones(8, device=dev),
                      torch.ones(8, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the kernel against its plain version (float32 within
+# 1e-4, another order of the same f32 sums; bfloat16 within 1e-2 relative
+# and absolute, the two may round an output to neighbouring bf16 values)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _qkv(B, S, T, H, K, hd, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (2, 128, 128, 4, 4, 64, True), (1, 300, 300, 8, 2, 32, True), (2, 256, 256, 4, 1, 128, True),
+    (1, 64, 64, 2, 2, 16, True), (1, 256, 256, 8, 1, 256, True), (2, 40, 72, 4, 2, 96, True),
+    (8, 1, 200, 8, 1, 256, False), (3, 1, 5000, 32, 8, 64, False), (2, 1, 33, 32, 32, 96, False),
+    (4, 7, 130, 16, 4, 128, False)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, S, T, H, K, hd, causal):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    q, k, v = _qkv(B, S, T, H, K, hd, dtype, dev)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, S, H, hd)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_a_cache_slice(dev, dtype):
+    """Decode reads a strided view of the (L, B, T, K, hd) cache, and an
+    unaligned one (a slice of the head dim's storage) takes scalar loads."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    cache = torch.randn(2, 8, 1024, 1, 256, device=dev).to(dtype)
+    q = torch.randn(8, 1, 8, 256, device=dev).to(dtype)
+    for pos in (0, 31, 32, 290, 1023):
+        ks, vs = cache[1, :, :pos + 1], cache[0, :, :pos + 1]
+        got = flash_attention(q, ks, vs, causal=False)
+        want = flash_attention_ref(q, ks, vs, causal=False)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    wide = torch.randn(2, 50, 2, 65, device=dev).to(dtype)
+    k = wide[..., 1:]  # rows start one element in: not 16-byte aligned
+    qq = torch.randn(2, 50, 4, 64, device=dev).to(dtype)
+    torch.testing.assert_close(flash_attention(qq, k, k).float(),
+                               flash_attention_ref(qq, k, k).float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+def test_flash_attention_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q16 = torch.ones(1, 4, 2, 64, dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q16, q16, q16)
+    q48 = torch.ones(1, 4, 2, 48, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q48, q48, q48)
+    q = torch.ones(1, 4, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q.transpose(1, 3).contiguous().transpose(1, 3), q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q)
+
+
+def test_smoke_model_on_the_card_matches_the_cpu(dev):
+    """gemma-2b-smoke (f32) from one set of weights: forward and 8 decode
+    steps on the card equal the CPU's within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("gemma-2b")
+    cpu, card = get_model(cfg, device="cpu"), get_model(cfg, device=dev)
+    p_cpu = cpu.init(0)
+    p_card = card.init(0)
+    p_card.load_state_dict(p_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(card.forward(p_card, {"tokens": toks.to(dev)})[0].cpu(),
+                               cpu.forward(p_cpu, {"tokens": toks})[0], rtol=1e-4, atol=1e-4)
+    c_cpu, c_card = cpu.init_cache(2, 32), card.init_cache(2, 32)
+    for i in range(8):
+        lc, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:, i:i + 1], i)
+        lg, c_card = card.decode_step(p_card, c_card, toks[:, i:i + 1].to(dev), i, rows=None)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,136 @@
+"""flash_attention: the port's plain version against the JAX package.
+
+The same numpy inputs go through JAX's ``flash_attention`` (the Pallas
+kernel in interpret mode, K/V repeated to H) and its ``flash_ref``, and
+through the port's ``flash_attention_ref`` and wrapper (which takes the
+plain version on CPU tensors and counts no launch).  Shapes are the JAX
+sweep of tests/test_kernels.py, plus one-token decode against the cache
+slice ``[:, :pos+1]`` (the port's decode) at head_dim 96 and 256.
+
+Tolerances are the JAX sweep's own: 2e-3 in float32 (the two sum the
+scores and P·V in other orders; observed ~1e-6), 3e-2 in bfloat16 (the
+output is rounded to bf16, ~2^-8 relative, and the two may round one
+element to neighbouring values).  The CUDA kernel is held to this plain
+version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+from repro.kernels.flash_attention.ref import flash_ref as jax_flash_ref
+from repro.models.layers import decode_mask as jax_decode_mask
+from repro.models.layers import gqa_attention as jax_gqa_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+SWEEP = [(2, 128, 4, 4, 64), (1, 300, 8, 2, 32), (2, 256, 4, 1, 128), (1, 64, 2, 2, 16)]
+TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small CPU ops run faster on one thread than through the intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(rng, B, S, T, H, K, hd, dtype):
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return ([jnp.asarray(a, jdt) for a in (q, k, v)],
+            [torch.from_numpy(a).to(tdt) for a in (q, k, v)])
+
+
+def _jax_ref(q, k, v, causal):
+    """JAX's flash_ref over (B·H, S, hd), K/V repeated as its ops.py does."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+
+    def bh(x, n):
+        return jnp.moveaxis(jnp.repeat(x, H // K, 2) if x.shape[2] != H else x, 2, 1).reshape(
+            B * H, n, hd)
+
+    o = np.asarray(jax_flash_ref(bh(q, S), bh(k, T), bh(v, T), causal=causal), np.float32)
+    return np.moveaxis(o.reshape(B, H, S, hd), 1, 2)
+
+
+def _f32(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_matches_jax_sweep(shape, dtype):
+    B, S, H, K, hd = shape
+    (jq, jk, jv), (q, k, v) = _inputs(np.random.default_rng(S + H), B, S, S, H, K, hd, dtype)
+    got = flash_attention_ref(q, k, v, causal=True)
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, S, H, hd)
+    tol = TOL[dtype]
+    want_pallas = np.asarray(jax_flash_attention(jq, jk, jv), np.float32)
+    np.testing.assert_allclose(_f32(got), want_pallas, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(got), _jax_ref(jq, jk, jv, True), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("H,K", [(8, 1), (4, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_against_cache_slice_matches_jax(hd, H, K, dtype):
+    """S = 1 against the first pos+1 rows of a longer cache: the port's
+    non-causal call on the slice view equals JAX's t_valid-masked kernel
+    on the same slice and the JAX model's decode_mask attention."""
+    B, T, pos = 3, 160, 133
+    (jq, jk, jv), (q, k, v) = _inputs(np.random.default_rng(hd + H), B, 1, T, H, K, hd, dtype)
+    ks, vs = k[:, :pos + 1], v[:, :pos + 1]
+    assert not ks.is_contiguous()  # the decode input is a strided view
+    before = flash_attention.launches
+    got = flash_attention(q, ks, vs, causal=False)
+    assert flash_attention.launches == before  # CPU tensors never launch
+    assert torch.equal(got, flash_attention_ref(q, ks, vs, causal=False))
+    tol = TOL[dtype]
+    want = np.asarray(jax_flash_attention(jq, jk[:, :pos + 1], jv[:, :pos + 1], causal=False),
+                      np.float32)
+    np.testing.assert_allclose(_f32(got), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(got), _jax_ref(jq, jk[:, :pos + 1], jv[:, :pos + 1], False),
+                               rtol=tol, atol=tol)
+    model_attn = np.asarray(jax_gqa_attention(jq, jk, jv, jax_decode_mask(T, pos)), np.float32)
+    np.testing.assert_allclose(_f32(got), model_attn, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+def test_wrapper_on_cpu_tensors_returns_the_plain_result(shape):
+    B, S, H, K, hd = shape
+    _, (q, k, v) = _inputs(np.random.default_rng(1), B, S, S, H, K, hd, "float32")
+    before = flash_attention.launches
+    for causal in (True, False):
+        assert torch.equal(flash_attention(q, k, v, causal=causal),
+                           flash_attention_ref(q, k, v, causal=causal))
+    assert flash_attention.launches == before
+
+
+def test_causal_prefill_with_fewer_queries_than_keys():
+    """Query i keeps keys j ≤ i counted from 0 (the kernel's top-left
+    alignment), as JAX's kernel does when S < T."""
+    (jq, jk, jv), (q, k, v) = _inputs(np.random.default_rng(5), 2, 40, 72, 4, 2, 32, "float32")
+    got = flash_attention(q, k, v, causal=True)
+    want = np.asarray(jax_flash_attention(jq, jk, jv, causal=True), np.float32)
+    np.testing.assert_allclose(_f32(got), want, rtol=2e-3, atol=2e-3)
+
+
+def test_wrapper_rejects_bad_inputs():
+    q = torch.zeros(1, 4, 4, 16)
+    kv = torch.zeros(1, 4, 3, 16)
+    with pytest.raises(ValueError, match="H % K"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, torch.zeros(1, 4, 2, 16, dtype=torch.float64),
+                        torch.zeros(1, 4, 2, 16, dtype=torch.float64))
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, torch.zeros(1, 4, 2, 16), torch.zeros(1, 5, 2, 16))
+    with pytest.raises(ValueError, match="4 dims"):
+        flash_attention(q[0], kv[0], kv[0])

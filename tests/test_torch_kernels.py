@@ -226,8 +226,10 @@ def test_cpu_runs_never_count_as_launches():
     wrappers["fleet_score"](torch.ones(2, 13))
     wrappers["segment_aggsum"](gid, torch.ones(4, 2), 2)
     wrappers["corr_diff"](torch.ones(4), torch.zeros(4), torch.ones(4, dtype=torch.bool))
+    wrappers["flash_attention"](torch.ones(1, 2, 2, 16), torch.ones(1, 2, 1, 16),
+                                torch.ones(1, 2, 1, 16))
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
                            "fleet_merge", "fleet_moments", "fleet_score",
-                           "segment_aggsum", "corr_diff"}
+                           "segment_aggsum", "corr_diff", "flash_attention"}

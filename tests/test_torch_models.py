@@ -1,0 +1,206 @@
+"""The port's dense transformer against the JAX package.
+
+JAX's ``init`` makes the parameters; ``repro_torch.models.convert`` carries
+them (as numpy arrays) into the port, so both packages compute the same
+function.  Over the dense smoke configs (float32), the port's ``forward``
+logits, ``prefill`` logits and cache, and 8 ``decode_step``s (logits and
+cache) agree with JAX within rtol 1e-4, atol 2e-5: the two sum the
+matrix products and the attention in other orders (the port's attention
+is the flash kernel's plain version, JAX's the XLA softmax); the observed
+gap is ~1e-6 on logits of magnitude ~1.  The port's own decode path
+agrees with its forward within the same tolerance, and each layer
+function agrees with JAX's on the same inputs (masks exactly).
+``param_counts`` equals JAX's exactly for the four dense full configs
+(meta device, no allocation).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.layers as JL
+import repro_torch.models.layers as TL
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.models import get_model as jax_get_model
+from repro.models.api import param_counts as jax_param_counts
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.models import get_model
+from repro_torch.models.api import param_counts
+from repro_torch.models.convert import from_jax_params
+
+DENSE = ["gemma-2b", "gemma-7b", "granite-3-2b", "phi3-mini-3.8b"]
+RTOL, ATOL = 1e-4, 2e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small CPU ops run faster on one thread than through the intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(arch, seed=0):
+    jm = jax_get_model(jax_get_smoke_config(arch))
+    jp = jm.init(jax.random.PRNGKey(seed))
+    cfg = get_smoke_config(arch)
+    params = from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, get_model(cfg, device="cpu"), params, cfg
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_layers_match_jax(act):
+    """Each layer function on the same numpy inputs: norms, rope, the
+    plain attention under each mask, the GLU MLP and the q/k/v split.
+    The masks are boolean-equal."""
+    rng = np.random.default_rng(0)
+    B, S, H, K, hd, d, F = 2, 12, 4, 2, 16, 32, 48
+
+    def pair(*shape):
+        a = rng.normal(size=shape).astype(np.float32)
+        return jnp.asarray(a), torch.from_numpy(a)
+
+    (jx, tx), (jw, tw) = pair(B, S, d), pair(d)
+    _close(TL.rmsnorm(tx, tw, 1e-6), JL.rmsnorm(jx, jw, 1e-6))
+    (jq, tq), (jk, tk), (jv, tv) = pair(B, S, H, hd), pair(B, S, K, hd), pair(B, S, K, hd)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32) + 5, (B, S))
+    _close(TL.apply_rope(tq, torch.from_numpy(pos.copy()), 1e4),
+           JL.apply_rope(jq, jnp.asarray(pos), 1e4))
+    masks = [(TL.causal_mask(S, S), JL.causal_mask(S, S)),
+             (TL.causal_mask(S, S, offset=3), JL.causal_mask(S, S, offset=3)),
+             (TL.local_mask(S, S, 4), JL.local_mask(S, S, 4)),
+             (TL.decode_mask(S, 7), JL.decode_mask(S, 7)),
+             (TL.decode_mask(S, 7, window=3), JL.decode_mask(S, 7, window=3)),
+             (None, None)]
+    for tm, jm in masks:
+        if tm is not None:
+            np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        _close(TL.gqa_attention(tq, tk, tv, tm), JL.gqa_attention(jq, jk, jv, jm))
+    (jg, tg), (ju, tu), (jd, td) = pair(d, F), pair(d, F), pair(F, d)
+    _close(TL.glu_mlp(tx, tg, tu, td, act), JL.glu_mlp(jx, jg, ju, jd, act))
+    (jwq, twq), (jwk, twk), (jwv, twv) = pair(d, H * hd), pair(d, K * hd), pair(d, K * hd)
+    for t, j in zip(TL.qkv_project(tx, twq, twk, twv, H, K, hd),
+                    JL.qkv_project(jx, jwq, jwk, jwv, H, K, hd)):
+        _close(t, j)
+
+
+def test_flash_attention_is_the_models_masked_attention():
+    """The transformer's two calls of flash_attention compute the model's
+    masked attention: causal over the prompt equals gqa_attention under
+    causal_mask, and the non-causal call on the cache slice [:, :pos+1]
+    equals gqa_attention under decode_mask(T, pos) on the whole cache."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator().manual_seed(0)
+    B, S, T, H, K, hd, pos = 2, 24, 40, 8, 2, 32, 29
+    q, k, v = (torch.randn(shape, generator=g) for shape in
+               ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    torch.testing.assert_close(flash_attention(q, k, v, causal=True),
+                               TL.gqa_attention(q, k, v, TL.causal_mask(S, S)),
+                               rtol=RTOL, atol=ATOL)
+    kc, vc = torch.randn(B, T, K, hd, generator=g), torch.randn(B, T, K, hd, generator=g)
+    torch.testing.assert_close(flash_attention(q[:, :1], kc[:, :pos + 1], vc[:, :pos + 1],
+                                               causal=False),
+                               TL.gqa_attention(q[:, :1], kc, vc, TL.decode_mask(T, pos)),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_prefill_and_decode_match_jax(arch):
+    jm, jp, tm, tp, cfg = _pair(arch)
+    rng = np.random.default_rng(0)
+    B, S, T = 2, 20, 32
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+
+    jl, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    tl, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert tuple(tl.shape) == (B, S, cfg.vocab) and tl.dtype == torch.float32
+    assert tuple(aux["moe_load"].shape) == (cfg.n_layers, 1)
+    _close(tl, jl)
+
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, cache_len=T)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, cache_len=T)
+    _close(tl, jl)
+    for leaf in ("k", "v"):
+        assert tuple(tc[leaf].shape) == (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.head_dim)
+        _close(tc[leaf], jc[leaf])
+        assert not tc[leaf][:, :, S:].any()  # padded past the prompt with zeros
+
+    for i in range(8):
+        tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.int32(S + i))
+        tl, tc = tm.decode_step(tp, tc, torch.from_numpy(tok), S + i)
+        assert tuple(tl.shape) == (B, 1, cfg.vocab)
+        _close(tl, jl)
+    for leaf in ("k", "v"):
+        _close(tc[leaf], jc[leaf])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_forward(arch):
+    """Token-by-token decode from an empty cache reproduces the
+    teacher-forced forward (the port's own paths, causal vs cache slice)."""
+    _, _, tm, tp, cfg = _pair(arch, seed=3)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (1, 8)).astype(np.int32))
+    full, _ = tm.forward(tp, {"tokens": toks})
+    cache = tm.init_cache(1, 8)
+    outs = []
+    for i in range(8):
+        lg, cache = tm.decode_step(tp, cache, toks[:, i:i + 1], i)
+        outs.append(lg[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_decode_rows_write_only_their_cache_rows():
+    """``rows`` writes the cache in place at those batch rows only: the
+    cache JAX's full-batch update plus the engine's masked merge gives, and
+    the decoded rows' logits equal JAX's."""
+    jm, jp, tm, tp, cfg = _pair("granite-3-2b")
+    rng = np.random.default_rng(4)
+    B, S, T = 3, 6, 16
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, cache_len=T)
+    _, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, cache_len=T)
+    before = {leaf: tc[leaf].clone() for leaf in ("k", "v")}
+    tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+    jl, jnew = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.int32(S))
+    tl, tc2 = tm.decode_step(tp, tc, torch.from_numpy(tok), S, rows=[0, 2])
+    assert tc2 is tc  # in place
+    keep = np.array([True, False, True])[None, :, None, None, None]
+    for leaf in ("k", "v"):
+        merged = np.where(keep, np.asarray(jnew[leaf]), np.asarray(jc[leaf]))
+        _close(tc[leaf], merged)
+        assert torch.equal(tc[leaf][:, 1], before[leaf][:, 1])
+    _close(tl[[0, 2]], np.asarray(jl)[[0, 2]])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_counts_equal_jax(arch):
+    assert param_counts(get_config(arch)) == jax_param_counts(jax_get_config(arch))
+
+
+def test_init_draws_from_the_generator():
+    cfg = get_smoke_config("gemma-2b")
+    m = get_model(cfg, device="cpu")
+    a, b = m.init(0), m.init(torch.Generator().manual_seed(0))
+    for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(pa, pb), name
+    assert not torch.equal(a.embed, m.init(1).embed)
+    assert torch.equal(a.layers[0].ln1, torch.ones(cfg.d_model))
+    assert abs(float(a.embed.std()) - 0.02) < 2e-3
+    assert abs(float(a.layers[0].w_gate.std()) - cfg.d_model ** -0.5) < 0.01
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
+def test_other_families_are_not_ported_yet(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
+        get_model(get_smoke_config(arch), device="cpu")
