@@ -120,6 +120,10 @@ SERVE_DEVICE_CPU_ATOL = 1e-4  # f32 smoke model, TF32 off
 # the kernel against its plain version: f32 sums in both; a bf16 output may
 # round to the neighbouring value
 FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+# and to the output's own scale: max |kernel - plain| at most one bf16 ulp
+# of the largest |plain| (at DECODE_32K's length the outputs are ~0.01, far
+# under FLASH_TOL's atol)
+FLASH_SCALED_TOL = 2.0 ** -7
 # (label, (B, S, T, H, K, hd), causal): DECODE_32K's length with gemma-2b's
 # heads, a long causal prefill, and the GQA head dims of granite-3-2b (64),
 # phi3-mini (96) and qwen2-vl-72b (128) at a small batch
@@ -372,7 +376,7 @@ def check_kernels(state, queries, m, seed, launches, iters):
     import torch
 
     from repro_torch.core.outliers import member_keys
-    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, overflow_counter
     from repro_torch.kernels.fused_clean.ref import fused_clean_ref
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
@@ -408,13 +412,18 @@ def check_kernels(state, queries, m, seed, launches, iters):
     # 2. fused_clean: η ∨ pin, per-group [count | Σbytes] at G = 2^20.
     # Counts are exact.  Both float32 sums (kernel and plain) are held to the
     # exact sums, taken in float64 over the same kept rows, within
-    # ``f32_sum_rtol``: the atomics add in no fixed order.
+    # ``f32_sum_rtol``: the atomics add in no fixed order.  The kernel's
+    # overflow counter says how many kept rows found no slot in their
+    # block's shared table.
     pin = state["pin"]
     pin_keys = (sentinel_where(pin.valid, pin.col("videoId")),)
     pin_mask = member_keys((vid,), pin_keys)
     vals = nbytes[:, None].contiguous()
     G = 1 << 20
+    overflow = overflow_counter(vid.device)
+    overflow.zero_()
     gc, gs = fused_clean_groupby(vid, vals, valid, m, seed, G, pin_mask=pin_mask)
+    overflow_rows = int(overflow.item())
     pc, ps = fused_clean_ref(vid, vals, valid, m, seed, G, pin_mask)
     if not torch.equal(gc, pc):
         fail("fused_clean counts differ from the plain version")
@@ -450,7 +459,8 @@ def check_kernels(state, queries, m, seed, launches, iters):
         cuda_ms(lambda: fused_clean_ref(vid, vals, valid, m, seed, G, pin_mask), iters),
         bytes_=R * (4 + 1 + 1) + kept * 4 + G * 2 * 4, ops=0,
         rows=R, groups=G, kept_rows=kept, hot_group_rows=float(pc.max()),
-        max_rel_err=rel_clean, plain_max_rel_err=rel_plain,
+        overflow_rows=overflow_rows, max_rel_err=rel_clean, plain_max_rel_err=rel_plain,
+        deterministic=False,
         max_bound_share=float((diff / bound.clamp(min=1e-300)).max()),
         index_add_ms=cuda_ms(index_add_only, iters),
         tolerance=("counts exact; float32 sums within gamma_{n-1}*sum|x| of the float64 "
@@ -902,7 +912,7 @@ def check_fleet_kernels(inputs, launches, iters):
         sort_by_key
     from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
     from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores
-    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby_fleet
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby_fleet, overflow_counter
     from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref
     from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
 
@@ -912,7 +922,10 @@ def check_fleet_kernels(inputs, launches, iters):
     # float32 bound of the float64 sums over the same kept rows
     gid, vals, valid, ms, seeds, G = inputs["fused"]
     V, R = gid.shape
+    overflow = overflow_counter(gid.device)
+    overflow.zero_()
     gc, gs = fused_clean_groupby_fleet(gid, vals, valid, ms, seeds, G)
+    overflow_rows = int(overflow.item())
     pc, ps = fused_clean_fleet_ref(gid, vals, valid, ms, seeds, G)
     if not torch.equal(gc, pc):
         fail("fused_clean_fleet counts differ from the plain version")
@@ -945,7 +958,11 @@ def check_fleet_kernels(inputs, launches, iters):
         cuda_ms(lambda: fused_clean_groupby_fleet(gid, vals, valid, ms, seeds, G), iters),
         cuda_ms(lambda: fused_clean_fleet_ref(gid, vals, valid, ms, seeds, G), iters),
         bytes_=V * R * (4 + 1) + kept * 4 * C + V * G * (1 + C) * 4, ops=0,
-        views=V, rows=R, groups=G, kept_rows=kept,
+        views=V, rows=R, groups=G, kept_rows=kept, hot_group_rows=float(pc.max()),
+        overflow_rows=overflow_rows,
+        max_rel_err=float((diff / exact.abs().clamp(min=1e-30)).max()),
+        plain_max_rel_err=float((diff_plain / exact.abs().clamp(min=1e-30)).max()),
+        deterministic=False,
         index_add_ms=cuda_ms(index_add_only, iters),
         max_bound_share=float((diff / bound.clamp(min=1e-300)).max()),
         tolerance=("counts exact; float32 sums within gamma_{n-1}*sum|x| of the float64 "
@@ -1784,17 +1801,23 @@ def flash_entry(label, q, k, v, causal, launches, iters, **extra):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import plan
 
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
+    pl = plan(q.dtype, B, S, T, H, K, hd, causal)
     with uncounted():
         got = flash_attention(q, k, v, causal)
         want = flash_attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
         tol = FLASH_TOL[str(q.dtype)]
         if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
             fail(f"flash_attention {label}: max abs diff {err} from the plain version beyond {tol}")
+        if err > FLASH_SCALED_TOL * scale:
+            fail(f"flash_attention {label}: max abs diff {err} beyond {FLASH_SCALED_TOL} of "
+                 f"max |plain| {scale}")
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal), iters)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal), iters)
 
@@ -1815,18 +1838,23 @@ def flash_entry(label, q, k, v, causal, launches, iters, **extra):
         ops_per_s=BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else FP32_OPS_PER_S,
         shape=label, B=B, S=S, T=T, H=H, K=K, hd=hd, causal=causal, dtype=str(q.dtype),
         strides={"q": list(q.stride()), "k": list(k.stride())},
+        kernel_route=pl.route, rows_per_tile=pl.rows_per_tile, keys_per_tile=pl.keys_per_tile,
+        key_splits=pl.nsplit,
         library_call="torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
         library_max_abs_diff_vs_plain=lib_err,
-        tolerance=f"|kernel - plain| <= {tol} + {tol}*|plain| (f32 scores, softmax and sums "
-                  "in both, in other orders; a bf16 output may round to the neighbouring value)",
+        max_abs_plain=scale, err_over_max_plain=err / scale if scale else 0.0,
+        tolerance=f"|kernel - plain| <= {tol} + {tol}*|plain| and max |kernel - plain| <= "
+                  f"{FLASH_SCALED_TOL} * max |plain| (f32 scores, softmax and sums in both, in "
+                  "other orders; a bf16 output may round to the neighbouring value)",
         **extra)
 
 
 def check_flash_kernels(serve_inputs, launches, iters, shapes=FLASH_SHAPES, device="cuda"):
     """flash_attention on the serve path's captured decode inputs (the
-    kernels-line entry), then at ``shapes``: DECODE_32K's length, a
-    4,096-token causal prefill, and the GQA head dims of granite, phi3 and
-    qwen2-vl."""
+    kernels-line entry; bf16, the tensor-core route), the same inputs in
+    float32 with the same strides (the CUDA-core route), then at
+    ``shapes``: DECODE_32K's length, a 4,096-token causal prefill, and the
+    GQA head dims of granite, phi3 and qwen2-vl."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1837,6 +1865,10 @@ def check_flash_kernels(serve_inputs, launches, iters, shapes=FLASH_SHAPES, devi
 
     out = [flash_entry("serve_path decode (layer 0, captured)", *serve_inputs, False, launches,
                        iters)]
+    f32 = [torch.empty_strided(t.shape, t.stride(), dtype=torch.float32, device=t.device).copy_(t)
+           for t in serve_inputs]
+    out.append(flash_entry("serve_path decode (layer 0, captured), float32", *f32, False,
+                           launches, iters))
     for label, shape, causal in shapes:
         out.append(flash_entry(label, *qkv(*shape), causal, launches, iters))
     return out

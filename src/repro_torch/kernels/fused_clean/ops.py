@@ -5,7 +5,10 @@ dispatches to when the cleaning plan's delta sub-aggregation has the
 canonical SVC shape.  CPU tensors take the plain version (``ref.py``);
 CUDA tensors launch ``csrc/fused_clean.cu`` or raise.
 ``fused_clean_groupby_fleet`` does the same for V views in one launch
-(the fleet refresh path, ``svc_refresh_many``).
+(the fleet refresh path, ``svc_refresh_many``).  Both launches add into
+one int64 counter per device (``overflow_counter``) the kept rows whose
+group found no slot in their block's shared-memory table and went straight
+to device memory.
 """
 
 from __future__ import annotations
@@ -19,7 +22,19 @@ from repro_torch.core.hashing import seed_mix
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref, fused_clean_ref
 
-_ARGS = (B.P, B.P, B.P, B.P, B.I64, B.I32, B.I64, B.U32, B.F32, B.P, B.P)
+_ARGS = (B.P, B.P, B.P, B.P, B.I64, B.I32, B.I64, B.U32, B.F32, B.P, B.P, B.P)
+_overflow = {}
+
+
+def overflow_counter(device: torch.device) -> torch.Tensor:
+    """The (1,) int64 count of kept rows that overflowed a block's table,
+    summed over every launch on ``device`` since it was last zeroed."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _overflow:
+        _overflow[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _overflow[device]
 
 
 def fused_clean_groupby(
@@ -51,7 +66,8 @@ def fused_clean_groupby(
         out = torch.zeros((num_groups, 1 + C), dtype=torch.float32, device=dev)
         B.launch("svc_fused_clean", _ARGS, gid.data_ptr(), valid.data_ptr(),
                  B.ptr(pin_mask), vals.data_ptr(), R, C, num_groups, seed_mix(seed),
-                 float(np.float32(m)), out.data_ptr(), B.stream())
+                 float(np.float32(m)), out.data_ptr(), overflow_counter(dev).data_ptr(),
+                 B.stream())
         fused_clean_groupby.launches += 1
         counts, sums = out[:, 0], out[:, 1:]
     return counts, (sums[:, 0] if squeeze else sums)
@@ -60,7 +76,7 @@ def fused_clean_groupby(
 fused_clean_groupby.launches = 0
 
 
-_FLEET_ARGS = (B.P, B.P, B.P, B.I64, B.I64, B.I32, B.I64, B.P, B.P, B.P, B.P)
+_FLEET_ARGS = (B.P, B.P, B.P, B.I64, B.I64, B.I32, B.I64, B.P, B.P, B.P, B.P, B.P)
 
 
 def fused_clean_groupby_fleet(
@@ -97,7 +113,7 @@ def fused_clean_groupby_fleet(
     out = torch.zeros((V, num_groups, 1 + C), dtype=torch.float32, device=dev)
     B.launch("svc_fused_clean_fleet", _FLEET_ARGS, gid.data_ptr(), valid.data_ptr(),
              vals.data_ptr(), V, R, C, num_groups, mixes.data_ptr(), thresh.data_ptr(),
-             out.data_ptr(), B.stream())
+             out.data_ptr(), overflow_counter(dev).data_ptr(), B.stream())
     fused_clean_groupby_fleet.launches += 1
     return out[:, :, 0], out[:, :, 1:]
 

@@ -76,7 +76,7 @@ class Block(nn.Module):
     """One transformer block: ``full`` over a sequence (JAX ``_layer_full``),
     ``decode`` for one token against the cache (``_layer_decode``)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         d, F, dt = cfg.d_model, cfg.d_ff, compute_dtype(cfg)
@@ -127,7 +127,7 @@ class Transformer(nn.Module):
     """Parameters as in ``init_params`` (names and (in, out) orientation),
     the stacked ``layers`` leaves split into one ``Block`` per layer."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg

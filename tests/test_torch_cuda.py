@@ -492,3 +492,170 @@ def test_smoke_model_on_the_card_matches_the_cpu(dev):
         lc, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:, i:i + 1], i)
         lg, c_card = card.decode_step(p_card, c_card, toks[:, i:i + 1].to(dev), i, rows=None)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# fused_clean, redesigned: per-block tables instead of one atomic per row.
+# Counts exact; sums within γ_{n−1}·Σ|x| of the float64 sums over the same
+# kept rows (the bound of a float32 sum in any order).
+# ---------------------------------------------------------------------------
+
+def _grow_log_keys(rng, n, n_videos):
+    """visitView's delta keys as ``grow_log`` draws them: half Zipf(1.6)
+    over all videos (video 1 alone ~22% of those), half uniform over the
+    newest 10%, in arrival order."""
+    hot = rng.random(n) < 0.5
+    newest = rng.integers(int(n_videos * 0.9), n_videos, n)
+    zipf = (rng.zipf(1.6, size=n) % n_videos).astype(np.int64)
+    return np.where(hot, newest, zipf).astype(np.int32)
+
+
+def _hold_to_f64(counts, sums, gid, vals, keep, G, dev):
+    g = torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    x = torch.where(keep[:, None], vals.double(), torch.zeros_like(vals, dtype=torch.float64))
+    exact = torch.zeros((G + 1, vals.shape[1]), dtype=torch.float64, device=dev).index_add_(
+        0, g, x)[:G]
+    abs_sum = torch.zeros((G + 1, vals.shape[1]), dtype=torch.float64, device=dev).index_add_(
+        0, g, x.abs())[:G]
+    n = torch.bincount(g, minlength=G + 1)[:G]
+    assert torch.equal(counts.double(), n.double())
+    assert bool(((sums.double() - exact).abs() <= _gamma_bound(n.double())[:, None] * abs_sum).all())
+
+
+@pytest.mark.parametrize("keys", ["grow_log", "sorted", "one_group", "uniform_2^20"])
+@pytest.mark.parametrize("C", [0, 1, 3])
+@pytest.mark.parametrize("pin", [False, True])
+def test_fused_clean_tables_hold_skewed_and_uniform_keys(dev, keys, C, pin):
+    from repro_torch.kernels.fused_clean.ops import overflow_counter
+
+    rng = np.random.default_rng(C + 7 * pin)
+    R, G, m, seed = 1_000_003, 1 << 20, 0.3, 4
+    if keys == "uniform_2^20":
+        gid = rng.integers(0, G, R).astype(np.int32)
+    elif keys == "one_group":
+        cand = torch.arange(1000, dtype=torch.int32)
+        gid = np.full(R, int(cand[hash_threshold_ref((cand,), m, seed)][0]), np.int32)
+    else:
+        gid = _grow_log_keys(rng, R, G)
+        if keys == "sorted":
+            gid = np.sort(gid)
+    gid[:4] = [-1, G, G + 5, -7]  # out of range: dropped
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    gid_t, valid = t(gid), t(rng.uniform(size=R) < 0.95)
+    vals = t(rng.uniform(-20.0, 100.0, (R, C)).astype(np.float32))
+    pin_mask = t(rng.uniform(size=R) < 0.05) if pin else None
+    ovf = overflow_counter(dev)
+    ovf.zero_()
+    before = fused_clean_groupby.launches
+    counts, sums = fused_clean_groupby(gid_t, vals, valid, m, seed, G, pin_mask=pin_mask)
+    torch.cuda.synchronize()
+    assert fused_clean_groupby.launches == before + 1
+    pc, _ = fused_clean_ref(gid_t, vals, valid, m, seed, G, pin_mask)
+    assert torch.equal(counts, pc)
+    keep = hash_threshold_ref((gid_t,), m, seed)
+    if pin:
+        keep = keep | pin_mask
+    keep = keep & valid & (gid_t >= 0) & (gid_t < G)
+    _hold_to_f64(counts, sums, gid_t, vals, keep, G, dev)
+    spilled = int(ovf.item())
+    assert 0 <= spilled <= int(keep.sum())
+    if keys == "one_group":
+        assert spilled == 0  # one slot a block
+    if keys == "uniform_2^20":
+        assert spilled > 0  # ~2.9k kept groups a chunk against 2,048 slots
+
+
+def test_fused_clean_fleet_with_a_hot_group_per_view(dev):
+    rng = np.random.default_rng(5)
+    V, R, C, G = 5, 300_001, 2, 1 << 16
+    ms, seeds = (0.1, 0.25, 0.5, 1.0, 0.3), (0, 1, 2, 3, 4)
+    gid = np.stack([_grow_log_keys(rng, R, G) for _ in range(V)])
+    for v in range(V):  # a sampled hot group per view: 30% of its rows
+        cand = torch.arange(100, dtype=torch.int32)
+        hot = int(cand[hash_threshold_ref((cand,), ms[v], seeds[v])][0])
+        gid[v, rng.uniform(size=R) < 0.3] = hot
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    gid_t, valid = t(gid), t(rng.uniform(size=(V, R)) < 0.9)
+    vals = t(rng.uniform(0.5, 100.0, (V, R, C)).astype(np.float32))
+    counts, sums = fused_clean_groupby_fleet(gid_t, vals, valid, ms, seeds, G)
+    pc, _ = fused_clean_fleet_ref(gid_t, vals, valid, ms, seeds, G)
+    assert torch.equal(counts, pc)
+    for v in range(V):
+        keep = hash_threshold_ref((gid_t[v],), ms[v], seeds[v]) & valid[v] & (gid_t[v] >= 0) \
+            & (gid_t[v] < G)
+        _hold_to_f64(counts[v], sums[v], gid_t[v], vals[v], keep, G, dev)
+        assert float(counts[v].max()) > 0.25 * R * 0.9
+
+
+# ---------------------------------------------------------------------------
+# flash_attention, redesigned: bf16 on the tensor cores (one launch, the key
+# split merged in place), f32 on the CUDA cores.  Same tolerances as above.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("S,T", [(200, 333), (333, 333)])
+def test_flash_bf16_causal_every_head_dim(dev, hd, S, T):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    q, k, v = _qkv(2, S, T, 8, 2, hd, torch.bfloat16, dev, seed=hd)
+    assert plan(torch.bfloat16, 2, S, T, 8, 2, hd, True).route == "tensor_cores"
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("T", [1, 31, 249, 4097])
+def test_flash_bf16_decode(dev, G, T):
+    """One query per sequence against T keys of a strided (B, 1024+, K, hd)
+    cache slice, G query heads per KV head."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    B, K, hd = 3, 2, 128
+    gen = torch.Generator(device=dev).manual_seed(G * 7 + T)
+    cache = torch.randn(2, B, max(T, 1024) + 3, K, hd, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(B, 1, G * K, hd, generator=gen, device=dev).to(torch.bfloat16)
+    ks, vs = cache[0, :, :T], cache[1, :, :T]
+    before = flash_attention.launches
+    got = flash_attention(q, ks, vs, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, ks, vs, causal=False)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 4097, 8, 1, 256, False), (1, 1024, 1024, 2, 2, 64, True)])
+def test_flash_bf16_key_split_merges_in_place_twice(dev, shape):
+    """Split keys merged by the last block to arrive: two calls in a row
+    (and a third on other data) agree with the plain version, so the
+    arrival counters were reset; causal splits past a tile's last query
+    hold no keys."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    B_, S, T, H, K, hd, causal = shape
+    assert plan(torch.bfloat16, B_, S, T, H, K, hd, causal).nsplit > 1
+    tol = FLASH_TOL[torch.bfloat16]
+    for seed in (0, 0, 1):
+        q, k, v = _qkv(B_, S, T, H, K, hd, torch.bfloat16, dev, seed=seed)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v, causal).float(),
+                                   rtol=tol, atol=tol)
+
+
+def test_flash_f32_stays_on_the_cuda_cores(dev):
+    """float32 at the serve decode's shape takes the CUDA-core route (two
+    launches when split) within its 1e-4."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import plan
+
+    pl = plan(torch.float32, 8, 1, 249, 8, 1, 256, False)
+    assert pl.route == "cuda_cores" and pl.nsplit > 1
+    cache = torch.randn(2, 8, 1024, 1, 256, device=dev)
+    q = torch.randn(8, 1, 8, 256, device=dev)
+    got = flash_attention(q, cache[0, :, :249], cache[1, :, :249], causal=False)
+    want = flash_attention_ref(q, cache[0, :, :249], cache[1, :, :249], causal=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

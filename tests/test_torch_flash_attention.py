@@ -134,3 +134,101 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q, torch.zeros(1, 4, 2, 16), torch.zeros(1, 5, 2, 16))
     with pytest.raises(ValueError, match="4 dims"):
         flash_attention(q[0], kv[0], kv[0])
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's host-side plan (route, tiles, key split, workspace), a pure
+# function of the shapes: what a CUDA launch would be given
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    HEAD_DIMS, SMEM_PER_SM, plan, tc_smem_bytes, workspace)
+
+# (B, S, T, H, K, hd, causal): the smoke's shapes and the serve decode
+PLAN_SHAPES = [
+    (8, 1, 249, 8, 1, 256, False), (32, 1, 32768, 8, 1, 256, False),
+    (1, 4096, 4096, 8, 1, 256, True), (2, 1024, 1024, 32, 8, 64, True),
+    (2, 1024, 1024, 32, 32, 96, True), (4, 1, 4096, 64, 8, 128, False),
+    (3, 1, 1, 16, 1, 64, False), (2, 40, 72, 4, 2, 96, True), (1, 2, 4097, 16, 2, 32, False)]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"),
+                                         (torch.float32, "cuda_cores")])
+def test_plan_routes_by_dtype(dtype, route):
+    assert plan(dtype, 8, 1, 249, 8, 1, 256, False).route == route
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        plan(torch.float16, 8, 1, 249, 8, 1, 256, False)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_plan_tiles_per_head_dim(hd):
+    """bf16: a 16-row decode tile (≤ 16 rows) against 64-key tiles, else
+    64 rows against 64 keys (32 at hd 256); f32 keeps 8/32 rows × 32 keys."""
+    dec = plan(torch.bfloat16, 4, 1, 500, 16, 1, hd, False)
+    pre = plan(torch.bfloat16, 1, 300, 300, 8, 2, hd, True)
+    assert (dec.rows_per_tile, dec.keys_per_tile) == (16, 64)
+    assert (pre.rows_per_tile, pre.keys_per_tile) == (64, 32 if hd == 256 else 64)
+    assert pre.row_tiles == -(-300 * 4 // 64)
+    f32 = [plan(torch.float32, 4, s, 500, 8, 1, hd, s > 1) for s in (1, 2)]
+    assert [(p.rows_per_tile, p.keys_per_tile) for p in f32] == [(8, 32), (32, 32)]
+    for rows in (16, 64):
+        assert tc_smem_bytes(hd, rows) <= SMEM_PER_SM
+
+
+def test_tc_shared_memory_matches_the_source():
+    """tc::Cfg's stages: three unless two blocks of the prefill tile would
+    no longer fit an SM (hd 128, 256); decode always three."""
+    assert tc_smem_bytes(256, 64) == 2 * 2 * 32 * 264 * 2 + 64 * 264 * 2
+    assert tc_smem_bytes(128, 64) == 2 * 2 * 64 * 136 * 2 + 64 * 136 * 2
+    assert tc_smem_bytes(96, 64) == 3 * 2 * 64 * 104 * 2 + 64 * 104 * 2
+    assert tc_smem_bytes(256, 16) == 3 * 2 * 64 * 264 * 2 + 16 * 264 * 2
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_splits_cover_the_keys(shape, dtype):
+    """Every split holds keys, the splits cover the key span, a chunk is a
+    whole number of tiles, the workspace holds the partials, and the
+    tensor-core route has one arrival counter per (b·kv, row tile)."""
+    B_, S, T, H, K, hd, causal = shape
+    p = plan(dtype, B_, S, T, H, K, hd, causal)
+    span = min(T, S) if causal else T
+    rows = S * (H // K)
+    assert p.chunk % p.keys_per_tile == 0
+    assert p.chunk * (p.nsplit - 1) < span <= p.chunk * p.nsplit or (p.nsplit == 1 and span <= p.chunk)
+    assert p.row_tiles == -(-rows // p.rows_per_tile)
+    if p.nsplit == 1:
+        assert p.workspace_bytes == p.counters == 0
+    else:
+        assert p.workspace_bytes == 4 * p.nsplit * B_ * K * rows * (2 + hd)
+        assert p.counters == (p.row_tiles * B_ * K if dtype == torch.bfloat16 else 0)
+
+
+def test_plan_fills_the_card_at_decode_only():
+    """The serve decode and DECODE_32K split their keys to fill the SMs in
+    one wave; a long prefill has blocks enough and does not split."""
+    serve = plan(torch.bfloat16, 8, 1, 249, 8, 1, 256, False)
+    assert (serve.chunk, serve.nsplit) == (64, 4)  # one 64-key tile per split
+    d32k = plan(torch.bfloat16, 32, 1, 32768, 8, 1, 256, False)
+    assert (d32k.chunk, d32k.nsplit) == (8192, 4)  # 32 × 4 = 128 blocks of 132 SMs
+    qwen = plan(torch.bfloat16, 4, 1, 4096, 64, 8, 128, False)
+    assert qwen.nsplit * 4 * 8 <= 2 * 132 and qwen.nsplit == 8  # two blocks per SM
+    assert plan(torch.bfloat16, 1, 4096, 4096, 8, 1, 256, True).nsplit == 1
+    # the f32 route: 8 splits of 32 keys, no counters
+    f32 = plan(torch.float32, 8, 1, 249, 8, 1, 256, False)
+    assert (f32.chunk, f32.nsplit, f32.counters) == (32, 8, 0)
+
+
+@pytest.mark.parametrize("kind,dtype", [("partials", torch.uint8), ("counters", torch.int32)])
+def test_workspace_grows_zeroed_and_is_reused(kind, dtype):
+    """Partials and counters are separate buffers: the f32 route's
+    partials never overwrite the tensor-core route's counters."""
+    dev = torch.device("cpu")
+    a = workspace(dev, 100, kind)
+    assert a.dtype == dtype and a.numel() >= 100 and not bool(a.any())
+    assert workspace(dev, 50, kind) is a
+    b = workspace(dev, a.numel() + 1, kind)
+    assert b.numel() >= 2 * a.numel() and not bool(b.any())
+    assert workspace(dev, 10, kind) is b
+    other = "counters" if kind == "partials" else "partials"
+    assert workspace(dev, 10, other).data_ptr() != b.data_ptr()

@@ -204,3 +204,22 @@ def test_init_draws_from_the_generator():
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A.14"):
         get_model(get_smoke_config(arch), device="cpu")
+
+
+def test_modules_build_on_the_card_unless_asked_for_the_cpu():
+    """``Block`` and ``Transformer`` default to the card, as ``get_model``
+    and ``from_jax_params`` do; ``device="cpu"`` still builds on the CPU."""
+    import inspect
+
+    from repro_torch.models.convert import from_jax_params as convert
+    from repro_torch.models.transformer import Block, Transformer
+
+    for fn in (Block.__init__, Transformer.__init__, get_model, convert):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    cfg = get_smoke_config("gemma-2b")
+    assert {p.device.type for p in Transformer(cfg, "cpu").parameters()} == {"cpu"}
+    params = get_model(cfg, device="cpu").init(0)
+    assert {p.device.type for p in params.parameters()} == {"cpu"}
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            Transformer(cfg)
