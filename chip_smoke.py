@@ -136,8 +136,8 @@ FLASH_SHAPES = (
 )
 
 # the kernels each path must launch
-SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "multi_agg_two",
-                    "multi_agg_one")
+SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
+                    "multi_agg_two", "multi_agg_one")
 FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score")
 STREAM_KERNELS = ("fused_clean", "multi_agg_two", "multi_agg_one")
 API_KERNELS = ("segment_aggsum", "corr_diff")
@@ -189,6 +189,29 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
+def device_launches(fn, calls: int = 4, tries: int = 3) -> float:
+    """Kernels, copies and memsets the card ran per call of ``fn``: the
+    profiler's device rows over ``calls`` calls after one warm-up step,
+    divided by ``calls``, the largest of ``tries`` profiles (a profile late
+    in this process at times dropped a call's kernels; none adds one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    best = 0.0
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+            for _ in range(calls + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and not e.key.startswith("ProfilerStep")) / calls)
+    return best
+
+
 def profile_ops(fn, top: int = 10) -> dict:
     """One call of ``fn`` under ``torch.profiler``: self host and device
     milliseconds in all, the ``top`` operators by each, and the calls of
@@ -210,9 +233,14 @@ def profile_ops(fn, top: int = 10) -> dict:
                      "self_device_ms": dev_us / 1e3})
     runtime = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize",
                "cudaDeviceSynchronize")
+    sort = [r for r in rows if r["op"] == "aten::sort"]
     return {
         "self_cpu_ms": sum(r["self_cpu_ms"] for r in rows),
         "self_device_ms": sum(r["self_device_ms"] for r in rows),
+        "device_launches": sum(e.count for e in prof.key_averages()
+                               if e.device_type == torch.autograd.DeviceType.CUDA),
+        "sort_calls": sum(r["calls"] for r in sort),
+        "sort_device_ms": sum(r["self_device_ms"] for r in sort),
         "top_cpu": sorted(rows, key=lambda r: -r["self_cpu_ms"])[:top],
         "top_device": sorted(rows, key=lambda r: -r["self_device_ms"])[:top],
         "runtime_calls": {r["op"]: r["calls"] for r in rows if r["op"] in runtime},
@@ -321,9 +349,20 @@ def run_svc_loop(vm, view, log, video, delta, groups, m, k, queries):
     t["svc_refresh_fused_s"] = vm.svc_refresh(name)
     auto, t["query_batch_auto_s"] = wall(lambda: vm.query_batch(name, queries))
     aqp, t["query_batch_aqp_s"] = wall(lambda: vm.query_batch(name, queries, prefer="aqp"))
+    from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
+
     _, t["register_outlier_index_s"] = wall(
         lambda: vm.register_outlier_index(name, "Log", "bytes", k=k))
+    before = pinned_hash.launches, digest_table.launches
     t["svc_refresh_pinned_s"] = vm.svc_refresh(name)
+    # the pinned refresh: its pinned hashes and table builds, then the same
+    # refresh again (same deltas, same sample) under the profiler
+    pinned_refresh = {"wall_s": t["svc_refresh_pinned_s"],
+                      "pinned_hash_launches": pinned_hash.launches - before[0],
+                      "table_builds": digest_table.launches - before[1]}
+    prof = profile_ops(lambda: vm.svc_refresh(name))
+    pinned_refresh["warm_profile"] = {k: prof[k] for k in (
+        "self_cpu_ms", "self_device_ms", "device_launches", "runtime_calls")}
     pinned, t["query_batch_pinned_s"] = wall(lambda: vm.query_batch(name, queries))
     fused_sample = vm.views[name].clean_sample
     t["svc_refresh_unfused_s"] = vm.svc_refresh(name, fused=False)
@@ -335,6 +374,7 @@ def run_svc_loop(vm, view, log, video, delta, groups, m, k, queries):
         "pin": vm.views[name].outlier_pin,
         "index": vm.views[name].outlier_index,
         "materialized": vm.views[name].materialized,
+        "pinned_refresh": pinned_refresh,
     }
     t["ivm_s"], t["maintain_all_s"] = wall(vm.maintain_all)
     return t, {"auto": auto, "aqp": aqp, "pinned": pinned}, state
@@ -382,8 +422,13 @@ def check_kernels(state, queries, m, seed, launches, iters):
     from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two, selector_indices
     from repro_torch.kernels.multi_agg.ref import K_D, K_NEW, K_OLD, S_D, S_NEW, S_OLD, multi_agg_ref
-    from repro_torch.kernels.outlier_member.ops import outlier_codes
-    from repro_torch.kernels.outlier_member.ref import outlier_codes_ref
+    from repro_torch.core.outliers import pin_set
+    from repro_torch.kernels.outlier_member.ops import digest_table, outlier_codes, pinned_hash
+    from repro_torch.kernels.outlier_member.ref import (
+        outlier_codes_ref,
+        pinned_hash_ref,
+        sorted_digest_table,
+    )
     from repro_torch.query import QueryBatch, build_correspondence_cache, sample_columns
     from repro_torch.relational.relation import sentinel_where
 
@@ -416,7 +461,7 @@ def check_kernels(state, queries, m, seed, launches, iters):
     # overflow counter says how many kept rows found no slot in their
     # block's shared table.
     pin = state["pin"]
-    pin_keys = (sentinel_where(pin.valid, pin.col("videoId")),)
+    pin_keys = pin.keys
     pin_mask = member_keys((vid,), pin_keys)
     vals = nbytes[:, None].contiguous()
     G = 1 << 20
@@ -467,30 +512,83 @@ def check_kernels(state, queries, m, seed, launches, iters):
                    "sum, n the group's kept rows, gamma_k = k*2^-24/(1 - k*2^-24)"),
     ))
 
-    # 3. outlier_member: η ∨ digest membership against the index's K keys,
-    # and at the main path's own shape (view rows vs the pin table)
+    # 3. outlier_member: the pinned hash (validity ∧ (η ∨ member) and the
+    # __outlier flag in one launch) against its plain version, on the delta
+    # rows with the index's K keys as the table (in shared memory) and at
+    # the main path's own shape, the view's rows against its pin's table;
+    # both again with the pin's full key arena as the table (in device
+    # memory).  The codes entry (table build + probe) against
+    # outlier_codes_ref, and the digest entry against the plain table.
     idx = state["index"]
     keys_k = (sentinel_where(idx.records.valid, idx.records.col("videoId")),)
+    table_k = digest_table(keys_k)
+    mat = state["materialized"]
+    mat_cols = (mat.col("videoId"),)
+    full_table = digest_table(pin_keys)
+    for what, cols, ok, tab in (("delta rows, index table", (vid,), valid, table_k),
+                                ("view rows, pin table", mat_cols, mat.valid, pin.table),
+                                ("delta rows, full pin arena", (vid,), valid, full_table),
+                                ("view rows, full pin arena", mat_cols, mat.valid, full_table)):
+        got_v, got_f = pinned_hash(cols, ok, m, seed, tab)
+        want_v, want_f = pinned_hash_ref(cols, ok, m, seed, tab)
+        if not (torch.equal(got_v, want_v) and torch.equal(got_f, want_f)):
+            fail(f"outlier_member pinned hash differs from the plain version ({what})")
     got = outlier_codes((vid,), keys_k, m, seed)
     if not torch.equal(got, outlier_codes_ref((vid,), keys_k, m, seed)):
         fail("outlier_member codes differ from the plain version (K in shared memory)")
-    mat = state["materialized"]
     probe = (sentinel_where(mat.valid, mat.col("videoId")),)
     got_g = outlier_codes(probe, pin_keys, m, seed)
     if not torch.equal(got_g, outlier_codes_ref(probe, pin_keys, m, seed)):
         fail("outlier_member codes differ from the plain version (table in device memory)")
-    K = int(keys_k[0].shape[0])
+    K = int(table_k.shape[0])
+    KP, RV = int(pin.table.shape[0]), int(mat.valid.shape[0])
     out.append(kernel_entry(
         "outlier_member", "cuda", "src/repro_torch/csrc/outlier_member.cu",
         "src/repro/kernels/outlier_member/kernel.py:74", launches["outlier_member"], 0.0,
-        cuda_ms(lambda: outlier_codes((vid,), keys_k, m, seed), iters),
-        cuda_ms(lambda: outlier_codes_ref((vid,), keys_k, m, seed), iters),
-        bytes_=R * (4 + 4) + K * 4, ops=0, rows=R, keys=K,
+        cuda_ms(lambda: pinned_hash((vid,), valid, m, seed, table_k), iters),
+        cuda_ms(lambda: pinned_hash_ref((vid,), valid, m, seed, table_k), iters),
+        bytes_=R * (4 + 1 + 1 + 1) + K * 8, ops=0, rows=R, keys=K,
+        launches_per_call=device_launches(lambda: pinned_hash((vid,), valid, m, seed, table_k)),
         main_path_shape={
-            "rows": int(probe[0].shape[0]), "keys": int(pin_keys[0].shape[0]),
-            "ms": cuda_ms(lambda: outlier_codes(probe, pin_keys, m, seed), iters),
-            "plain_ms": cuda_ms(lambda: outlier_codes_ref(probe, pin_keys, m, seed), iters),
+            "rows": RV, "keys": KP,
+            "ms": cuda_ms(lambda: pinned_hash(mat_cols, mat.valid, m, seed, pin.table), iters),
+            "plain_ms": cuda_ms(lambda: pinned_hash_ref(mat_cols, mat.valid, m, seed, pin.table),
+                                iters),
+            "bound_ms": (RV * (4 + 1 + 1 + 1) + KP * 8) / HBM_BYTES_PER_S * 1e3,
         },
+        full_pin_arena_table={
+            "keys": int(full_table.shape[0]),
+            "ms": cuda_ms(lambda: pinned_hash(mat_cols, mat.valid, m, seed, full_table), iters),
+        },
+        table_build_ms=cuda_ms(lambda: pin_set(pin.relation), iters),
+        codes={"ms": cuda_ms(lambda: outlier_codes((vid,), keys_k, m, seed), iters),
+               "plain_ms": cuda_ms(lambda: outlier_codes_ref((vid,), keys_k, m, seed), iters),
+               "launches_per_call": device_launches(lambda: outlier_codes((vid,), keys_k, m,
+                                                                          seed))},
+        tolerance="equal validity, flags and codes",
+    ))
+    # the digest entry at the pin's own table keys (its valid keys and one
+    # SENTINEL tuple, as core.outliers.pin_set digests them)
+    rows = torch.cat([pin.relation.valid.nonzero().flatten(),
+                      (~pin.relation.valid).nonzero()[:1].flatten()])
+    tkeys = tuple(c[rows].contiguous() for c in pin_keys)
+    got_t = digest_table(tkeys)
+    if not torch.equal(got_t, pin.table) or not torch.equal(got_t, sorted_digest_table(tkeys)):
+        fail("outlier_digest table differs from the plain sorted_digest_table")
+    if not torch.equal(full_table, sorted_digest_table(pin_keys)):
+        fail("outlier_digest table of the full pin arena differs from the plain one")
+    NP = int(pin_keys[0].shape[0])
+    out.append(kernel_entry(
+        "outlier_digest", "cuda", "src/repro_torch/csrc/outlier_member.cu",
+        "src/repro/kernels/outlier_member/ops.py:50", launches["outlier_digest"], 0.0,
+        cuda_ms(lambda: digest_table(tkeys), iters),
+        cuda_ms(lambda: sorted_digest_table(tkeys), iters),
+        bytes_=KP * (4 + 8), ops=0, keys=KP,
+        launches_per_call=device_launches(lambda: digest_table(tkeys)),
+        full_pin_arena={"keys": NP, "ms": cuda_ms(lambda: digest_table(pin_keys), iters),
+                        "plain_ms": cuda_ms(lambda: sorted_digest_table(pin_keys), iters),
+                        "bound_ms": NP * (4 + 8) / HBM_BYTES_PER_S * 1e3},
+        tolerance="equal tables",
     ))
 
     # 4. multi_agg: the dashboard over the correspondence panel (two-sided)
@@ -908,8 +1006,13 @@ def check_fleet_kernels(inputs, launches, iters):
     panel) and fleet_score (the last epoch's feature panel)."""
     import torch
 
-    from repro_torch.kernels.fleet_merge import fleet_merge, fleet_merge_ref, merge_unsorted, \
-        sort_by_key
+    from repro_torch.kernels.fleet_merge import (
+        fleet_merge,
+        fleet_merge_rank_ref,
+        fleet_merge_ref,
+        sort_by_key,
+        sort_stale,
+    )
     from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
     from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby_fleet, overflow_counter
@@ -969,7 +1072,9 @@ def check_fleet_kernels(inputs, launches, iters):
                    "sum, n the group's kept rows"),
     ))
 
-    # 2. fleet_merge: bit-equal to the plain version (keys, values, validity)
+    # 2. fleet_merge: bit-equal to the plain version of its rank computation
+    # and to the oracle, the stable sort of the unsorted rows (keys, values,
+    # validity)
     args = inputs["merge"]
     V, R = args[0].shape
     G, A = args[3].shape[1], args[2].shape[2]
@@ -978,22 +1083,26 @@ def check_fleet_kernels(inputs, launches, iters):
     n_stale, n_ins, n_del = (int(args[i].sum()) for i in (1, 3, 5))
     got = fleet_merge(*args)
     want = sort_by_key(*fleet_merge_ref(*args))
-    for gt, wt, what in zip(got, want, ("keys", "vals", "valid")):
-        same = torch.equal(gt.view(torch.int32), wt.view(torch.int32)) if gt.dtype == torch.float32 \
-            else torch.equal(gt, wt)
-        if not same:
-            fail(f"fleet_merge {what} differ from the plain version")
+    rank = fleet_merge_rank_ref(*args)
+    for gt, rk, wt, what in zip(got, rank, want, ("keys", "vals", "valid")):
+        for x, by in ((gt, "the kernel"), (rk, "the plain rank version")):
+            same = torch.equal(x.view(torch.int32), wt.view(torch.int32)) \
+                if x.dtype == torch.float32 else torch.equal(x, wt)
+            if not same:
+                fail(f"fleet_merge {what} of {by} differ from the sorted plain rows")
     out.append(kernel_entry(
         "fleet_merge", "cuda", "src/repro_torch/csrc/fleet_merge.cu",
         "src/repro/kernels/fleet_merge/kernel.py:73", launches["fleet_merge"], 0.0,
         cuda_ms(lambda: fleet_merge(*args), iters),
-        cuda_ms(lambda: sort_by_key(*fleet_merge_ref(*args)), iters),
+        cuda_ms(lambda: fleet_merge_rank_ref(*args), iters),
         bytes_=V * R * (4 + 1) + (n_stale + n_ins + n_del) * 4 * A + 2 * V * G
         + V * (R + G) * (4 + 1 + 4 * A),
         ops=2 * n_stale * A,
         views=V, stale_rows=R, groups=G, aggs=A, valid_stale_rows=n_stale,
         live_insert_groups=n_ins, live_delete_groups=n_del,
-        kernel_only_ms=cuda_ms(lambda: merge_unsorted(*args), iters),
+        launches_per_call=device_launches(lambda: fleet_merge(*args)),
+        stale_sort_ms=cuda_ms(lambda: sort_stale(args[0], args[1], G), iters),
+        sorted_plain_ms=cuda_ms(lambda: sort_by_key(*fleet_merge_ref(*args)), iters),
         plain_unsorted_ms=cuda_ms(lambda: fleet_merge_ref(*args), iters),
         tolerance="bit-equal (keys, values and validity)",
     ))
@@ -1987,7 +2096,7 @@ def main(argv=None) -> int:
           "log_capacity": log.capacity, "delta_rows": N_DELTA, "m": M, "k": K,
           "queries": len(queries), "setup_s": setup_s, "wall_s": times,
           "peak_device_gb": peak_gb, "launches": launches,
-          "fused_vs_unfused": fused_vs_unfused, "stale_eq_exact_fresh_after_ivm": True,
+          "pinned_refresh": state["pinned_refresh"], "fused_vs_unfused": fused_vs_unfused, "stale_eq_exact_fresh_after_ivm": True,
           "svc_rel_err_vs_fresh": errs, "card": smi})
 
     table = check_kernels(state, queries, M, SEED, launches, ITERS)

@@ -15,8 +15,10 @@ from repro_torch.core.maintenance import (
 from repro_torch.core.pushdown import push_down, fully_pushed, pushdown_report
 from repro_torch.core.outliers import (
     OutlierIndex,
+    PinSet,
     apply_hash_with_outliers,
     build_outlier_index,
+    pin_set,
     propagate_outlier_keys,
     update_outlier_index,
 )

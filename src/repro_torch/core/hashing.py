@@ -87,16 +87,15 @@ def hash_threshold_mask(cols: Sequence[torch.Tensor], m: float, seed: int = 0) -
 def apply_hash(rel, cols: Tuple[str, ...], m: float, seed: int = 0, pin=None):
     """Apply η to a Relation: narrow validity to the hash sample.
 
-    ``pin`` (a Relation of key values, or None) pins outlier-index rows into
-    the sample with weight 1, flagged in ``__outlier`` (Def. 5 / §6.2), via
-    the one fused scan of ``outliers.apply_hash_with_outliers``.
+    ``pin`` (a ``core.outliers.PinSet``, or None) pins outlier-index rows
+    into the sample with weight 1, flagged in ``__outlier`` (Def. 5 /
+    §6.2), via the one fused scan of ``outliers.apply_hash_with_outliers``
+    against the pin's digest table.
     """
     if pin is None:
         mask = hash_threshold_mask([rel.columns[c] for c in cols], m, seed)
         return rel.replace(valid=rel.valid & mask)
 
     from repro_torch.core.outliers import apply_hash_with_outliers
-    from repro_torch.relational.relation import sentinel_where
 
-    pin_keys = tuple(sentinel_where(pin.valid, pin.col(c)) for c in pin.schema.pk)
-    return apply_hash_with_outliers(rel, cols, m, seed, pin_keys)
+    return apply_hash_with_outliers(rel, cols, m, seed, pin.table)

@@ -320,8 +320,7 @@ def _eval_fused_groupby(spec: _FusedSpec, env: Mapping[str, Relation]) -> Option
     pin_mask = None
     pin = env.get(spec.pin_name) if spec.pin_name is not None else None
     if pin is not None:
-        pin_keys = tuple(sentinel_where(pin.valid, pin.col(c)) for c in pin.schema.pk)
-        pin_mask = member_keys((sentinel_where(valid, keys),), pin_keys)
+        pin_mask = member_keys((sentinel_where(valid, keys),), pin.keys)
 
     sum_cols = tuple(val for _o, fn, val in spec.node.aggs if fn == "sum")
     vals = (

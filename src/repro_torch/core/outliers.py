@@ -7,6 +7,10 @@ exactly.  The sample predicate becomes ``hash(key) ≤ m OR key ∈
 outlier_groups``; pinned rows carry weight 1 and an ``__outlier`` flag
 (§6.2), and the estimators merge the deterministic stratum through the
 per-row weight (§6.3).
+
+A view's pushed-up pin is a ``PinSet``: the pinned key relation together
+with the sorted digest table that the pinned hash probes, built once where
+the pin is built and dropped with it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,36 @@ class OutlierIndex:
     capacity: int
     records: Relation  # the indexed base records (≤ capacity valid rows)
     threshold: torch.Tensor  # 0-dim f32
+
+
+@dataclasses.dataclass(frozen=True)
+class PinSet:
+    """A view's outlier pin set (Def. 5) and its membership table.
+
+    ``relation`` holds the pinned view keys, ``keys`` its pk columns with
+    SENTINEL_KEY on invalid rows, and ``table`` the sorted 64-bit digests
+    (``kernels/outlier_member.digest_table``) that every pinned hash of the
+    pin probes.  Built by ``pin_set`` where the pin is built; the table is
+    not cached anywhere else."""
+
+    relation: Relation
+    keys: Tuple[torch.Tensor, ...]
+    table: torch.Tensor
+
+
+def pin_set(pin: Relation) -> PinSet:
+    """The pin relation with its digest table (one table build).
+
+    The table digests the valid pinned keys and, when the pin has invalid
+    rows, one all-SENTINEL tuple: membership over it is membership over
+    the SENTINEL-masked key columns, whose invalid rows all share that
+    tuple.  A pushed-up pin holds a few valid keys in an arena of the view's
+    group capacity, so the table stays small enough for shared memory."""
+    from repro_torch.kernels.outlier_member import ops as _om
+
+    keys = tuple(sentinel_where(pin.valid, pin.col(c)) for c in pin.schema.pk)
+    rows = torch.cat([pin.valid.nonzero().flatten(), (~pin.valid).nonzero()[:1].flatten()])
+    return PinSet(pin, keys, _om.digest_table(tuple(k[rows].contiguous() for k in keys)))
 
 
 def outlier_index_from_arrays(
@@ -166,13 +200,12 @@ def member_keys(probe: Tuple[torch.Tensor, ...], keys: Tuple[torch.Tensor, ...])
     return _om.outlier_member(probe, keys)
 
 
-def flag_outliers(rel: Relation, pin: Relation | None) -> Relation:
+def flag_outliers(rel: Relation, pin: PinSet | None) -> Relation:
     """(Re)compute the view-level ``__outlier`` flag: pk ∈ pin."""
     if pin is None:
         return rel
-    pin_keys = tuple(sentinel_where(pin.valid, pin.col(c)) for c in pin.schema.pk)
     probe = tuple(sentinel_where(rel.valid, rel.col(c)) for c in rel.schema.pk)
-    omask = member_keys(probe, pin_keys)
+    omask = member_keys(probe, pin.keys)
     new_cols = dict(rel.columns)
     new_cols["__outlier"] = (omask & rel.valid).to(torch.int8)
     return Relation(new_cols, rel.valid, rel.schema.with_columns(tuple(new_cols)))
@@ -183,18 +216,18 @@ def apply_hash_with_outliers(
     cols: Tuple[str, ...],
     m: float,
     seed: int,
-    outlier_keys: Tuple[torch.Tensor, ...],
+    table: torch.Tensor,
 ) -> Relation:
     """η ∨ outlier-membership; flags pinned rows with __outlier (weight 1).
 
-    One fused scan through kernels/outlier_member: the η hash, the 64-bit
-    membership digest, the flag and the validity narrowing in one pass.
+    One launch of kernels/outlier_member's pinned hash against the pin's
+    digest ``table``: the η hash, the 64-bit membership digest, the flag
+    and the validity narrowing in one pass.
     """
     from repro_torch.kernels.outlier_member import ops as _om
 
-    probe = tuple(sentinel_where(rel.valid, rel.col(c)) for c in cols)
-    keep, omask = _om.fused_hash_member(probe, m, seed, outlier_keys)
+    valid, flag = _om.pinned_hash(tuple(rel.col(c) for c in cols), rel.valid, m, seed, table)
     new_cols = dict(rel.columns)
-    new_cols["__outlier"] = (omask & rel.valid).to(torch.int8)
+    new_cols["__outlier"] = flag
     schema = rel.schema.with_columns(tuple(new_cols))
-    return Relation(new_cols, rel.valid & keep, schema)
+    return Relation(new_cols, valid, schema)

@@ -9,7 +9,10 @@ can show that the main path went through the kernels.
 
   hash_threshold  — η_{a,m} mask
   fused_clean     — η + per-group count/sum over delta rows in one pass
-  outlier_member  — η ∨ outlier-index digest membership in one pass
+  outlier_member  — the pinned hash: η ∨ outlier-index digest membership,
+                    narrowed validity and the __outlier flag in one pass
+  outlier_digest  — the sorted digest table of a pin's keys, built once
+                    per pin (outlier_member's digest entry)
   multi_agg       — all Q queries' moments in one panel scan (two kernels:
                     two-sided clean ∥ stale ∥ diff, and one-sided)
   fused_clean_fleet — fused_clean for V views in one launch (svc_refresh_many)
@@ -39,13 +42,14 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
-    from repro_torch.kernels.outlier_member.ops import outlier_codes
+    from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
     from repro_torch.kernels.segment_aggsum.ops import segment_sum
 
     return {
         "hash_threshold": hash_threshold,
         "fused_clean": fused_clean_groupby,
-        "outlier_member": outlier_codes,
+        "outlier_member": pinned_hash,
+        "outlier_digest": digest_table,
         "multi_agg_two": multi_agg_two,
         "multi_agg_one": multi_agg_one,
         "fused_clean_fleet": fused_clean_groupby_fleet,

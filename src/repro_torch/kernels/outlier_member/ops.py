@@ -1,12 +1,15 @@
-"""Fused η ∨ outlier-index membership: int32 codes, bit0 keep, bit1 member.
+"""Fused η ∨ outlier-index membership over a sorted digest table.
 
-``fused_hash_member`` is the op core/outliers dispatches to for the §6.2
-sample predicate (η ∨ membership + the ``__outlier`` flag) and
-``outlier_member`` the membership-only probe behind ``member_keys`` for
-multi-column keys.  Torch glue digests and sorts the index keys (K log K,
-K ≪ rows, as the JAX package's ``_sorted_digests``); the per-row work is
-the kernel.  CPU tensors take the plain version (``ref.py``); CUDA tensors
-launch ``csrc/outlier_member.cu`` — one kernel for every K — or raise.
+``digest_table`` builds the table once for an index's key tuples: one
+launch digests them (``svc_outlier_digest``), one torch sort orders them
+(as the JAX package's ``_sorted_digests``).  ``core.outliers.PinSet`` owns
+the table of a view's pin, so the pinned hash builds none per call.
+``pinned_hash`` is the pinned clean's one launch: η ∨ membership narrowed
+to the relation's validity, and the ``__outlier`` flag.  ``outlier_codes``
+(int32 codes, bit0 keep, bit1 member) and the membership-only
+``outlier_member`` build the table from key columns first.  CPU tensors
+take the plain versions (``ref.py``); CUDA tensors launch
+``csrc/outlier_member.cu`` or raise.
 """
 
 from __future__ import annotations
@@ -18,25 +21,89 @@ import torch
 
 from repro_torch.core.hashing import DIGEST_SEED_HI, DIGEST_SEED_LO, seed_mix
 from repro_torch.kernels import _build as B
-from repro_torch.kernels.outlier_member.ref import outlier_codes_ref, sorted_digest_table
+from repro_torch.kernels.outlier_member.ref import (
+    outlier_codes_ref,
+    pinned_hash_ref,
+    sorted_digest_table,
+)
 
 MAX_COLS = 4
-# Tables up to this many keys (16 KiB of hi/lo lanes) are staged in shared
+# Tables up to this many keys (16 KiB of digests) are staged in shared
 # memory by the kernel; larger ones are searched in device memory.
 MAX_SMEM_KEYS = 2048
-_ARGS = (B.P, B.P, B.P, B.P, B.I32, B.I64, B.P, B.P, B.I64, B.U32, B.U32, B.U32, B.F32,
-         B.P, B.P)
+_DIGEST_ARGS = (B.P, B.P, B.P, B.P, B.I32, B.I64, B.U32, B.U32, B.P, B.P)
+_CODES_ARGS = (B.P, B.P, B.P, B.P, B.I32, B.I64, B.P, B.I64, B.U32, B.U32, B.U32, B.F32,
+               B.P, B.P)
+_PINNED_ARGS = (B.P, B.P, B.P, B.P, B.I32, B.P, B.I64, B.P, B.I64, B.U32, B.U32, B.U32, B.F32,
+                B.P, B.P, B.P)
 
 
-def _as_i32_bits(x: torch.Tensor) -> torch.Tensor:
-    """uint32 values held in int64 → int32 tensor with the same bits."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).contiguous()
+def _check_cols(cols, what: str) -> Tuple[torch.device, int]:
+    if not 1 <= len(cols) <= MAX_COLS:
+        raise ValueError(f"need 1..{MAX_COLS} {what} columns, got {len(cols)}")
+    dev = cols[0].device
+    n = cols[0].shape[0]
+    for i, c in enumerate(cols):
+        B.check(c, f"{what}[{i}]", torch.int32, dev, (n,))
+    return dev, n
 
 
-def digest_lanes(key_cols: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's table: sorted (hi, lo) digest lanes as int32 bit patterns."""
-    table = sorted_digest_table(key_cols)
-    return _as_i32_bits((table >> 32) + 2**31), _as_i32_bits(table & 0xFFFFFFFF)
+def _col_ptrs(cols):
+    return [c.data_ptr() for c in cols] + [None] * (MAX_COLS - len(cols))
+
+
+def _check_table(table: torch.Tensor, dev: torch.device) -> int:
+    if table.dim() != 1:
+        raise ValueError("the digest table is one-dimensional")
+    B.check(table, "table", torch.int64, dev)
+    return table.shape[0]
+
+
+def digest_table(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Packed (hi, lo) digests of the K key tuples, sorted ascending: (K,) int64."""
+    key_cols = tuple(key_cols)
+    dev, K = _check_cols(key_cols, "key_cols")
+    if dev.type == "cpu":
+        return sorted_digest_table(key_cols)
+    B.check_cuda(dev)
+    out = torch.empty(K, dtype=torch.int64, device=dev)
+    if K:
+        B.launch("svc_outlier_digest", _DIGEST_ARGS, *_col_ptrs(key_cols), len(key_cols), K,
+                 seed_mix(DIGEST_SEED_HI), seed_mix(DIGEST_SEED_LO), out.data_ptr(), B.stream())
+        digest_table.launches += 1
+    return torch.sort(out).values
+
+
+digest_table.launches = 0
+
+
+def pinned_hash(
+    cols: Sequence[torch.Tensor], valid: torch.Tensor, m: float, seed: int, table: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pinned hash of a relation in one pass: (valid ∧ (η ∨ member) bool,
+    member ∧ valid as the int8 ``__outlier`` flag).
+
+    cols: its 1-D int32 key columns; valid: its validity; table: the pin's
+    ``digest_table``.  A row whose first key is SENTINEL_KEY is never a
+    member."""
+    cols = tuple(cols)
+    dev, R = _check_cols(cols, "cols")
+    B.check(valid, "valid", torch.bool, dev, (R,))
+    K = _check_table(table, dev)
+    if dev.type == "cpu":
+        return pinned_hash_ref(cols, valid, m, seed, table)
+    B.check_cuda(dev)
+    out_valid = torch.empty(R, dtype=torch.bool, device=dev)
+    out_flag = torch.empty(R, dtype=torch.int8, device=dev)
+    B.launch("svc_outlier_pinned", _PINNED_ARGS, *_col_ptrs(cols), len(cols), valid.data_ptr(),
+             R, table.data_ptr(), K, seed_mix(seed), seed_mix(DIGEST_SEED_HI),
+             seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out_valid.data_ptr(),
+             out_flag.data_ptr(), B.stream())
+    pinned_hash.launches += 1
+    return out_valid, out_flag
+
+
+pinned_hash.launches = 0
 
 
 def outlier_codes(
@@ -48,22 +115,19 @@ def outlier_codes(
     marks invalid rows); key_cols: the index key columns, same arity.
     """
     cols, key_cols = tuple(cols), tuple(key_cols)
-    if not 1 <= len(cols) <= MAX_COLS or len(key_cols) != len(cols):
-        raise ValueError(f"need 1..{MAX_COLS} probe columns and as many key columns")
-    dev = cols[0].device
-    R, K = cols[0].shape[0], key_cols[0].shape[0]
-    for i, c in enumerate(cols):
-        B.check(c, f"cols[{i}]", torch.int32, dev, (R,))
-    for i, c in enumerate(key_cols):
-        B.check(c, f"key_cols[{i}]", torch.int32, dev, (K,))
+    if len(key_cols) != len(cols):
+        raise ValueError("need as many key columns as probe columns")
+    dev, R = _check_cols(cols, "cols")
+    _check_cols(key_cols, "key_cols")
+    if key_cols[0].device != dev:
+        raise ValueError(f"key_cols: on {key_cols[0].device}, expected {dev}")
     if dev.type == "cpu":
         return outlier_codes_ref(cols, key_cols, m, seed)
     B.check_cuda(dev)
-    khi, klo = digest_lanes(key_cols)
+    table = digest_table(key_cols)
     out = torch.empty(R, dtype=torch.int32, device=dev)
-    ptrs = [c.data_ptr() for c in cols] + [None] * (MAX_COLS - len(cols))
-    B.launch("svc_outlier_member", _ARGS, *ptrs, len(cols), R, khi.data_ptr(),
-             klo.data_ptr(), K, seed_mix(seed), seed_mix(DIGEST_SEED_HI),
+    B.launch("svc_outlier_member", _CODES_ARGS, *_col_ptrs(cols), len(cols), R,
+             table.data_ptr(), table.shape[0], seed_mix(seed), seed_mix(DIGEST_SEED_HI),
              seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out.data_ptr(), B.stream())
     outlier_codes.launches += 1
     return out

@@ -6,6 +6,9 @@ into one int64 whose signed order is the unsigned lexicographic (hi, lo)
 order, so the plain version is one sort of the K index digests plus a
 ``searchsorted`` per probe row — O(R log K), like the JAX package's XLA
 path.  Rows whose FIRST key column is ``SENTINEL_KEY`` are never members.
+``pinned_hash_ref`` is the pinned hash as ``core.outliers`` composed it
+before the kernel did it in one pass: SENTINEL-masked probe keys, η ∨
+membership narrowed to the validity, and the int8 ``__outlier`` flag.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.core.hashing import key_digest
 from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
-from repro_torch.relational.relation import SENTINEL_KEY
+from repro_torch.relational.relation import SENTINEL_KEY, sentinel_where
 
 
 def pack_digest(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -52,3 +55,14 @@ def outlier_codes_ref(
     """int32 codes: bit0 = keep (η ∨ member), bit1 = member."""
     keep, member = fused_hash_member_ref(cols, m, seed, key_cols)
     return keep.to(torch.int32) | (member.to(torch.int32) << 1)
+
+
+def pinned_hash_ref(
+    cols: Sequence[torch.Tensor], valid: torch.Tensor, m: float, seed: int, table: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(valid ∧ (η ∨ member), (member ∧ valid) as int8) against a sorted
+    digest table."""
+    probe = tuple(sentinel_where(valid, c) for c in cols)
+    member = digest_member(probe, table)
+    keep = hash_threshold_ref(probe, m, seed) | member
+    return valid & keep, (member & valid).to(torch.int8)

@@ -90,8 +90,9 @@ class DifferenceNode(Plan):
 class HashNode(Plan):
     """η_{a,m}(R): keep rows whose key-hash ≤ m (§4.4).
 
-    ``pin_name`` optionally references an env relation of key values whose
-    rows are *always* kept (the outlier-index push-up, Def. 5): the sample
+    ``pin_name`` optionally references an env ``core.outliers.PinSet`` of
+    key values whose rows are *always* kept (the outlier-index push-up,
+    Def. 5): the sample
     predicate becomes ``hash(a) ≤ m ∨ a ∈ pin``.  Membership on the same key
     columns obeys exactly the same commutation rules as η itself.
     """

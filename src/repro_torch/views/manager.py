@@ -60,8 +60,10 @@ from repro_torch.core.maintenance import (
 from repro_torch.core.minmax import svc_minmax
 from repro_torch.core.outliers import (
     OutlierIndex,
+    PinSet,
     build_outlier_index,
     flag_outliers,
+    pin_set,
     propagate_outlier_keys,
     update_outlier_index,
 )
@@ -101,7 +103,12 @@ class ManagedView:
     sample_capacity: int
     delta_bases: Tuple[str, ...]
     outlier_index: Optional[OutlierIndex] = None
-    outlier_pin: Optional[Relation] = None  # view-key pin set from push-up
+    # view-key pin set from push-up, with the digest table its pinned hash
+    # probes; ``pin_source`` is what it was derived from (the index object
+    # and the manager's base epoch), so a refresh rebuilds it only when
+    # either moved
+    outlier_pin: Optional[PinSet] = None
+    pin_source: Optional[Tuple[object, int]] = None
     # per-refresh-window correspondence cache (query.engine), built lazily
     # on the first query of a window and dropped by refresh/maintain
     corr_cache: Optional[object] = None
@@ -148,6 +155,7 @@ class ViewManager:
         # instruments of configure_streaming land here too
         self.metrics = MetricsRegistry()
         self.base: Dict[str, Relation] = {}
+        self._base_epoch = 0  # bumped whenever a base relation is replaced
         self.views: Dict[str, ManagedView] = {}
         # pending deltas as an ordered SEGMENT log (one DeltaSet per ingest
         # batch) with per-view cursors; a segment is applied to the base
@@ -196,6 +204,7 @@ class ViewManager:
     # -- registration --------------------------------------------------------
     def register_base(self, name: str, rel: Relation) -> None:
         self.base[name] = rel.to(self.device)
+        self._base_epoch += 1
 
     def register_view(
         self,
@@ -260,15 +269,24 @@ class ViewManager:
         mv.outlier_index = build_outlier_index(self.base[base], base, attr, k)
         self._refresh_pin(mv)
 
-    def _pin_relation(self, mv: ManagedView) -> Relation:
+    def _build_pin(self, mv: ManagedView) -> None:
+        """Push the index up to the view's keys and build their digest table."""
         keys = propagate_outlier_keys(mv.view.plan, self.base, mv.outlier_index)
         pin_cols = {c: keys[i] for i, c in enumerate(mv.view.pk)}
-        return from_columns(pin_cols, pk=mv.view.pk, valid=keys[0] != int(SENTINEL_KEY))
+        mv.outlier_pin = pin_set(
+            from_columns(pin_cols, pk=mv.view.pk, valid=keys[0] != int(SENTINEL_KEY)))
+        mv.pin_source = (mv.outlier_index, self._base_epoch)
+
+    def _pin_is_current(self, mv: ManagedView) -> bool:
+        """The pin still derives from the view's index and the bases as they are."""
+        src = mv.pin_source
+        return (mv.outlier_pin is not None and src is not None and src[0] is mv.outlier_index
+                and src[1] == self._base_epoch)
 
     def _refresh_pin(self, mv: ManagedView) -> None:
         if mv.outlier_index is None:
             return
-        mv.outlier_pin = self._pin_relation(mv)
+        self._build_pin(mv)
         # re-derive both samples with the pin so strata stay consistent
         mv.stale_sample = compact(
             hashing.apply_hash(mv.materialized, mv.view.pk, mv.m, mv.seed, pin=mv.outlier_pin),
@@ -410,7 +428,8 @@ class ViewManager:
             retuned = True
         if mv.outlier_index is not None:
             self._flush_outlier_offers(mv)
-            mv.outlier_pin = self._pin_relation(mv)
+            if not self._pin_is_current(mv):
+                self._build_pin(mv)
         extra = dict(self.base)
         pin_name = None
         if mv.outlier_pin is not None:
@@ -690,9 +709,11 @@ class ViewManager:
             grown = max(self.base[b].capacity,
                         next_pow2(int(self.base[b].valid.sum()) + rel.capacity))
             self.base[b] = upsert(self.base[b], rel, capacity=grown)
+            self._base_epoch += 1
             self._base_applied_rows[b] = self._base_applied_rows.get(b, 0) + int(rel.valid.sum())
         for b, rel in seg.deletes.items():
             self.base[b] = delete_keys(self.base[b], rel)
+            self._base_epoch += 1
             self._base_applied_rows[b] = self._base_applied_rows.get(b, 0) + int(rel.valid.sum())
 
     # -- query API ------------------------------------------------------------

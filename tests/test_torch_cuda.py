@@ -24,7 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.fleet_merge import fleet_merge, fleet_merge_ref, sort_by_key
+from repro_torch.kernels.fleet_merge import (
+    SORT_MAX,
+    fleet_merge,
+    fleet_merge_rank_ref,
+    fleet_merge_ref,
+    sort_by_key,
+)
 from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
 from repro_torch.kernels.fleet_score import N_FEATURES, fleet_score_ref, fleet_scores
 from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
@@ -33,8 +39,17 @@ from repro_torch.kernels.hash_threshold.ops import hash_threshold
 from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
 from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
 from repro_torch.kernels.multi_agg.ref import K_D, K_NEW, K_OLD, S_D, S_NEW, S_OLD, multi_agg_ref
-from repro_torch.kernels.outlier_member.ops import outlier_codes
-from repro_torch.kernels.outlier_member.ref import outlier_codes_ref
+from repro_torch.kernels.outlier_member.ops import (
+    MAX_SMEM_KEYS,
+    digest_table,
+    outlier_codes,
+    pinned_hash,
+)
+from repro_torch.kernels.outlier_member.ref import (
+    outlier_codes_ref,
+    pinned_hash_ref,
+    sorted_digest_table,
+)
 from repro_torch.relational.relation import SENTINEL_KEY
 
 pytestmark = pytest.mark.cuda
@@ -49,12 +64,34 @@ def dev():
     return torch.device("cuda")
 
 
+def _device_launches(fn, calls: int = 3, tries: int = 3) -> float:
+    """Kernels, copies and memsets the card ran per call of ``fn``: the
+    profiler's device rows over ``calls`` calls after one warm-up step, the
+    largest of ``tries`` profiles (the profiler at times drops a call's
+    kernels, never adds one)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    best = 0.0
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+            for _ in range(calls + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and not e.key.startswith("ProfilerStep")) / calls)
+    return best
+
+
 def _keys(rng, n, ncols, dev, high=None):
     cols = []
     for _ in range(ncols):
         if high is None:
             k = rng.integers(I32.min, I32.max, n, dtype=np.int64, endpoint=True).astype(np.int32)
-            k[:5] = [0, 1, -1, I32.min, I32.max]
+            k[:5] = [0, 1, -1, I32.min, I32.max][:n]
         else:
             k = rng.integers(0, high, n).astype(np.int32)
         cols.append(torch.from_numpy(k).to(dev))
@@ -109,6 +146,71 @@ def test_outlier_member_kernel_matches_plain(dev, K, ncols):
         assert torch.equal(got, want)
         assert not bool((got[:10] & 2).any())
         assert bool((got & 2).any())
+
+
+@pytest.mark.parametrize("K", [0, 1, 1000, 2049, 50_000])
+@pytest.mark.parametrize("ncols", [1, 3])
+def test_digest_table_entry_equals_the_plain_table(dev, K, ncols):
+    keys = _keys(np.random.default_rng(K + ncols), K, ncols, dev)
+    before = digest_table.launches
+    got = digest_table(keys)
+    torch.cuda.synchronize()
+    assert digest_table.launches == before + (1 if K else 0)
+    assert torch.equal(got, sorted_digest_table(keys))
+
+
+@pytest.mark.parametrize("K", [1, 1000, MAX_SMEM_KEYS, MAX_SMEM_KEYS + 1, 50_000])
+@pytest.mark.parametrize("ncols", [1, 2])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_pinned_hash_is_one_launch_equal_to_the_plain_composition(dev, K, ncols, shift):
+    """Validity and ``__outlier`` of the masked probe against the plain
+    pinned hash, the table in shared memory (K ≤ 2,048) and in device
+    memory; rows four at a time with a tail of three (shift 0), and one at
+    a time from columns that start off a 16-byte boundary (shift 1)."""
+    rng = np.random.default_rng(K * 3 + ncols)
+    n = 300_003 + shift
+    keys = _keys(rng, K, ncols, dev, high=5000)
+    cols = list(_keys(rng, n, ncols, dev, high=5000))
+    hits = torch.from_numpy(rng.integers(0, K, 1000)).to(dev)
+    for c in range(ncols):
+        cols[c][10:1010] = keys[c][hits]  # planted members
+    cols[0][:5] = int(SENTINEL_KEY)  # valid rows keyed SENTINEL: never members
+    valid = torch.from_numpy(rng.uniform(size=n) < 0.8).to(dev)
+    valid[:5] = True
+    cols, valid = [c[shift:] for c in cols], valid[shift:]
+    table = digest_table(keys)
+    for m in (0.0, 0.2):
+        before = pinned_hash.launches
+        got_v, got_f = pinned_hash(cols, valid, m, 4, table)
+        torch.cuda.synchronize()
+        assert pinned_hash.launches == before + 1
+        want_v, want_f = pinned_hash_ref(cols, valid, m, 4, table)
+        assert torch.equal(got_v, want_v) and torch.equal(got_f, want_f)
+        assert got_f.dtype == torch.int8 and bool(got_f.any())
+        assert not bool(got_f[:5 - shift].any())
+        assert not bool((got_v & ~valid).any())
+    assert _device_launches(lambda: pinned_hash(cols, valid, 0.2, 4, table)) == 1
+
+
+def test_pinned_refresh_on_the_card_builds_the_table_once(dev):
+    """A pinned svc_refresh launches the pinned hash and builds no table;
+    the samples equal the CPU manager's."""
+    from repro_torch.relational.relation import to_host
+
+    vms = {d: _small_fleet(d) for d in ("cuda", "cpu")}
+    for vm in vms.values():
+        vm.register_outlier_index("v0", "Log0", "bytes", k=50)
+    builds, hashes = digest_table.launches, pinned_hash.launches
+    vms["cuda"].svc_refresh("v0")
+    torch.cuda.synchronize()
+    assert digest_table.launches == builds
+    assert pinned_hash.launches > hashes
+    vms["cpu"].svc_refresh("v0")
+    a, b = (to_host(vms[d].views["v0"].clean_sample) for d in ("cuda", "cpu"))
+    for col in ("videoId", "visits", "__outlier"):
+        assert np.array_equal(a[col], b[col]), col
+    assert a["__outlier"].sum() > 0
+    np.testing.assert_allclose(a["totalBytes"], b["totalBytes"], rtol=1e-5)
 
 
 def _panel(rng, R, C, dev):
@@ -174,8 +276,15 @@ def _bits(a, b):
         else (a == b).all())
 
 
-@pytest.mark.parametrize("V,R,G,A", [(16, 4096, 1024, 2), (3, 1000, 5000, 1), (1, 7, 3, 3)])
-def test_fleet_merge_kernel_is_bit_equal_to_plain(dev, V, R, G, A):
+# (16, 4096, 1024): one tile holds ~3,600 stale keys, more than the 2,048
+# staged in shared memory; (4, 8192, 65541): 17 tiles, the last partial;
+# (2, 20000, 300): R above the block sort's SORT_MAX (the torch sort) and
+# all 20,000 keys in one tile
+@pytest.mark.parametrize("V,R,G,A", [(16, 4096, 1024, 2), (3, 1000, 5000, 1), (1, 7, 3, 3),
+                                     (4, 8192, 65541, 2), (2, 20000, 300, 2)])
+@pytest.mark.parametrize("deletes", [True, False])
+def test_fleet_merge_kernel_is_bit_equal_to_plain(dev, V, R, G, A, deletes):
+    """Duplicate, negative, ≥ G and SENTINEL-keyed valid stale rows."""
     rng = np.random.default_rng(V + R + G)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     svalid = rng.uniform(size=(V, R)) < 0.7
@@ -186,13 +295,20 @@ def test_fleet_merge_kernel_is_bit_equal_to_plain(dev, V, R, G, A):
     args = (t(skeys), t(svalid), t(rng.normal(0, 1e3, (V, R, A)).astype(np.float32)),
             t(rng.uniform(size=(V, G)) < 0.4), t(rng.normal(0, 1e3, (V, G, A)).astype(np.float32)),
             t(rng.uniform(size=(V, G)) < 0.2), t(rng.normal(0, 1e3, (V, G, A)).astype(np.float32)))
+    if not deletes:
+        args = args[:5] + (torch.zeros_like(args[5]), torch.zeros_like(args[6]))
     before = fleet_merge.launches
-    got = fleet_merge(*args)
+    got = fleet_merge(*args) if deletes else fleet_merge(*args[:5])
     torch.cuda.synchronize()
     assert fleet_merge.launches == before + 1
     want = sort_by_key(*fleet_merge_ref(*args))
-    for g, w in zip(got, want):
+    for g, w, r in zip(got, want, fleet_merge_rank_ref(*args)):
         assert _bits(g, w)
+        assert _bits(r, w)
+    # sort, count and scatter: three launches and nothing else when the
+    # block sort takes R
+    if R <= SORT_MAX:
+        assert _device_launches(lambda: fleet_merge(*args)) == 3
 
 
 @pytest.mark.parametrize("V", [1, 16, 1000])

@@ -8,7 +8,10 @@ inputs as the JAX reference (``ref.py``) and the JAX op with
 fleet entry has no Pallas kernel, so its JAX op is the XLA pass).
 
 Tolerances: fleet_merge bit-equal to all three (its float order is the
-executor's ``(stale + ins) − del``).  fleet_score bit-equal to the JAX
+executor's ``(stale + ins) − del``); so is the plain version of its
+kernel's rank computation (``fleet_merge_rank_ref``: the stale sort, a
+prefix sum and a binary search instead of a sort of the output), also on
+stale panels with duplicate, negative, ≥ G and SENTINEL-keyed valid keys.  fleet_score bit-equal to the JAX
 ``ref.py`` run op by op, where every op rounds once as every torch op and
 the CUDA kernel do (the scorer feeds the knapsack's tie order); the jitted
 JAX paths (XLA and Pallas interpret) contract ``a·b + c`` into one fma on
@@ -31,7 +34,13 @@ from repro.kernels.fleet_moments import fleet_moments_ref as jax_fleet_moments_r
 from repro.kernels.fleet_score import fleet_score_ref as jax_fleet_score_ref
 from repro.kernels.fleet_score import fleet_scores as jax_fleet_scores
 from repro.kernels.fused_clean.ops import fused_clean_groupby_fleet as jax_fused_fleet
-from repro_torch.kernels.fleet_merge import fleet_merge, fleet_merge_ref, sort_by_key
+from repro_torch.kernels.fleet_merge import (
+    fleet_merge,
+    fleet_merge_rank_ref,
+    fleet_merge_ref,
+    merge_slots,
+    sort_by_key,
+)
 from repro_torch.kernels.fleet_moments import fleet_moments
 from repro_torch.kernels.fleet_score import (
     CORR_WINS,
@@ -94,6 +103,59 @@ def test_fleet_merge_plain_is_bit_equal_to_jax_ref_and_pallas(V, R, G, A):
     _assert_bits(got, jax_fleet_merge(**jp, use_pallas=True))
     _assert_bits(got, jax_fleet_merge(**jp, use_pallas=False))
     _assert_bits(sort_by_key(*fleet_merge_ref(**tp)), got)
+
+
+def _dup_panels(seed, V, R, G, A):
+    """Stale keys drawn with replacement (duplicates), below 0, at or past
+    G and SENTINEL on valid rows."""
+    p = _merge_panels(seed, V, R, G, A)
+    rng = np.random.default_rng(seed + 1)
+    keys = rng.integers(-4, G + 8, (V, R)).astype(np.int32)
+    keys[:, :4] = [SENTINEL, -1, G, G + 7]
+    keys[:, 4:8] = keys[:, 8:12]  # duplicates of other rows' keys
+    valid = rng.uniform(size=(V, R)) < 0.8
+    valid[:, :12] = True
+    p["stale_valid"] = valid
+    p["stale_keys"] = np.where(valid, keys, SENTINEL).astype(np.int32)
+    return p
+
+
+RANK_CASES = [("unique",) + s for s in MERGE_SHAPES] + [
+    ("duplicates", 3, 300, 40, 2), ("duplicates", 2, 64, 200, 1), ("duplicates", 1, 40, 9, 3)]
+
+
+@pytest.mark.parametrize("case,V,R,G,A", RANK_CASES)
+def test_fleet_merge_rank_plain_is_bit_equal_to_jax(case, V, R, G, A):
+    make = _merge_panels if case == "unique" else _dup_panels
+    p = make(V * 1000 + R + 17, V, R, G, A)
+    tp = {k: T(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    got = fleet_merge_rank_ref(**tp)
+    _assert_bits(got, jax_fleet_merge(**jp, use_pallas=True))
+    _assert_bits(got, jax_fleet_merge(**jp, use_pallas=False))
+    _assert_bits(got, sort_by_key(*fleet_merge_ref(**tp)))
+    _assert_bits(fleet_merge(**tp), got)  # the CPU wrapper's plain version
+    if case == "duplicates":
+        assert (np.diff(np.sort(p["stale_keys"][0][p["stale_valid"][0]])) == 0).any()
+
+
+@pytest.mark.parametrize("case,V,R,G,A", RANK_CASES[-3:] + [("empty", 2, 0, 12, 1)])
+def test_fleet_merge_slots_take_every_output_row_once(case, V, R, G, A):
+    if R:
+        p = _dup_panels(5, V, R, G, A)
+        sk, sv, iv, dv = (T(p[k]) for k in ("stale_keys", "stale_valid", "ins_valid",
+                                             "del_valid"))
+    else:  # an empty stale panel: every live group is delta-only
+        sk, sv = torch.zeros((V, 0), dtype=torch.int32), torch.zeros((V, 0), dtype=torch.bool)
+        iv = T(np.random.default_rng(5).uniform(size=(V, G)) < 0.5)
+        dv = torch.zeros((V, G), dtype=torch.bool)
+    perm, skeys, stale_slot, group_slot, only = merge_slots(sk, sv, iv, dv)
+    slots = torch.sort(torch.cat([stale_slot, group_slot], dim=1), dim=1).values
+    assert torch.equal(slots, torch.arange(R + G).expand(V, R + G))
+    assert torch.equal(skeys, torch.sort(skeys, dim=1).values)
+    # delta-only rows sit in [0, R + D), the padding after them
+    D = only.sum(dim=1, keepdim=True)
+    assert bool((group_slot[~only] >= (R + D).expand(V, G)[~only]).all())
 
 
 def test_fleet_merge_without_a_delete_side_matches_jax():

@@ -15,19 +15,27 @@ import pytest
 import torch
 
 from repro.core.hashing import key_digest as jax_key_digest
+from repro.core.outliers import apply_hash_with_outliers as jax_apply_hash_with_outliers
 from repro.kernels.fused_clean.ops import fused_clean_groupby as jax_fused_clean
 from repro.kernels.fused_clean.ref import fused_clean_ref as jax_fused_clean_ref
 from repro.kernels.multi_agg import multi_agg_moments as jax_multi_agg
 from repro.kernels.multi_agg.ref import multi_agg_ref as jax_multi_agg_ref
 from repro.kernels.outlier_member import fused_hash_member as jax_fused_hash_member
 from repro.kernels.outlier_member import outlier_member as jax_outlier_member
+from repro.kernels.outlier_member.ops import _sorted_digests as jax_sorted_digests
 from repro.kernels.outlier_member.ref import fused_hash_member_ref as jax_fused_hash_member_ref
 from repro_torch import kernels as port_kernels
 from repro_torch.kernels.fused_clean.ops import fused_clean_groupby
 from repro_torch.kernels.multi_agg.ops import multi_agg_moments, selector_indices
 from repro_torch.kernels.multi_agg.ref import K_D, K_NEW, K_OLD, S_D, S_NEW, S_OLD
-from repro_torch.kernels.outlier_member.ops import _as_i32_bits, fused_hash_member, outlier_member
+from repro_torch.kernels.outlier_member.ops import (
+    digest_table,
+    fused_hash_member,
+    outlier_member,
+    pinned_hash,
+)
 from repro_torch.kernels.outlier_member.ref import pack_digest, sorted_digest_table
+from repro.relational.relation import from_columns as jax_from_columns
 from repro_torch.relational.relation import SENTINEL_KEY
 
 T = torch.from_numpy
@@ -118,13 +126,46 @@ def test_digest_table_packing_is_lexicographic_unsigned():
     lo = torch.tensor([0, 2**32 - 1, 5, 0, 0, 2**32 - 1], dtype=torch.int64)
     packed = pack_digest(hi, lo)
     assert torch.equal(torch.sort(packed).values, packed)  # already in (hi, lo) order
-    # the kernel's int32 lanes carry the same bits back out of the table
+    # the table carries both lanes, and the kernel packs a probe digest to
+    # the same int64: the bits (hi ^ 2^31)·2^32 | lo in two's complement
     assert torch.equal(((packed >> 32) + 2**31), hi)
     assert torch.equal(packed & 0xFFFFFFFF, lo)
-    bits = _as_i32_bits(hi)
-    assert bits.dtype == torch.int32 and torch.equal(bits.to(torch.int64) & 0xFFFFFFFF, hi)
+    for h, lw, p in zip(hi.tolist(), lo.tolist(), packed.tolist()):
+        u = ((h ^ 2**31) << 32) | lw
+        assert p == (u - 2**64 if u >= 2**63 else u)
     table = sorted_digest_table((torch.tensor([3, 1, 2], dtype=torch.int32),))
     assert torch.equal(torch.sort(table).values, table)
+
+
+@pytest.mark.parametrize("k,ncols", [(1, 1), (257, 2), (3000, 3)])
+def test_digest_table_holds_jax_sorted_digest_lanes(k, ncols):
+    _probe, keys = _member_inputs(np.random.default_rng(k + ncols), 1, k, ncols)
+    table = digest_table([T(c) for c in keys])
+    hi, lo = jax_sorted_digests(tuple(jnp.asarray(c) for c in keys))
+    assert np.array_equal(((table >> 32) + 2**31).numpy(), np.asarray(hi).astype(np.int64))
+    assert np.array_equal((table & 0xFFFFFFFF).numpy(), np.asarray(lo).astype(np.int64))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (5001, 257), (3000, 3000)])
+@pytest.mark.parametrize("ncols", [1, 2])
+@pytest.mark.parametrize("m", [0.0, 0.3])
+def test_pinned_hash_plain_matches_jax_apply_hash_with_outliers(n, k, ncols, m):
+    """Validity ∧ (η ∨ member) and the int8 ``__outlier`` flag, from the
+    raw key columns and validity, against JAX's composition over the
+    SENTINEL-masked probe."""
+    rng = np.random.default_rng(n + k + ncols)
+    probe, keys = _member_inputs(rng, n, k, ncols)
+    valid = rng.uniform(size=n) < 0.8
+    valid[-1] = True  # a valid row keyed SENTINEL: never a member
+    names = tuple(f"k{c}" for c in range(ncols))
+    rel = jax_from_columns({nm: p for nm, p in zip(names, probe)}, pk=names, valid=valid)
+    want = jax_apply_hash_with_outliers(rel, names, m, 9,
+                                        tuple(jnp.asarray(c) for c in keys))
+    got_valid, got_flag = pinned_hash([T(p) for p in probe], T(valid), m, 9,
+                                      digest_table([T(c) for c in keys]))
+    assert np.array_equal(got_valid.numpy(), np.asarray(want.valid))
+    assert np.array_equal(got_flag.numpy(), np.asarray(want.col("__outlier")))
+    assert got_flag.dtype == torch.int8 and not got_flag[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +263,8 @@ def test_cpu_runs_never_count_as_launches():
                                   torch.ones(1, 4, dtype=torch.bool), (1.0,), (0,), 2)
     wrappers["fleet_merge"](gid[None], torch.ones(1, 4, dtype=torch.bool), torch.ones(1, 4, 1),
                             torch.ones(1, 2, dtype=torch.bool), torch.ones(1, 2, 1))
+    table = wrappers["outlier_digest"]((gid,))
+    wrappers["outlier_member"]((gid,), torch.ones(4, dtype=torch.bool), 0.5, 0, table)
     wrappers["fleet_moments"](*[torch.ones(2, 4)] * 8)
     wrappers["fleet_score"](torch.ones(2, 13))
     wrappers["segment_aggsum"](gid, torch.ones(4, 2), 2)
@@ -229,7 +272,7 @@ def test_cpu_runs_never_count_as_launches():
     wrappers["flash_attention"](torch.ones(1, 2, 2, 16), torch.ones(1, 2, 1, 16),
                                 torch.ones(1, 2, 1, 16))
     assert port_kernels.launch_counts() == before
-    assert set(before) == {"hash_threshold", "fused_clean", "outlier_member",
+    assert set(before) == {"hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
                            "fleet_merge", "fleet_moments", "fleet_score",
                            "segment_aggsum", "corr_diff", "flash_attention"}
