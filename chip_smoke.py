@@ -178,6 +178,21 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_enqueue_us(fn, iters: int) -> float:
+    """Mean host microseconds a call of ``fn`` takes to return, calls back to
+    back with no synchronize between them (the enqueue, not the device)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def wall(fn):
     """(result, host seconds) of ``fn`` ending in a device synchronize."""
     import torch
@@ -592,11 +607,14 @@ def check_kernels(state, queries, m, seed, launches, iters):
     ))
 
     # 4. multi_agg: the dashboard over the correspondence panel (two-sided)
-    # and over the materialized view (one-sided exact scan)
+    # and over the materialized view (one-sided exact scan), each called as
+    # the engine calls it: with the batch's host-decoded selector indices
     clean, stale = state["unfused_sample"], state["stale_sample"]
     cache = build_correspondence_cache(clean, stale, m)
     batch = QueryBatch.encode(queries, sample_columns(clean), clean.device)
-    sel_idx = selector_indices(batch.sel, len(batch.columns))
+    sel_idx = batch.sel_idx
+    if not torch.equal(sel_idx, selector_indices(batch.sel, len(batch.columns))):
+        fail("QueryBatch.sel_idx differs from selector_indices(sel)")
     used = int(torch.unique(sel_idx[sel_idx >= 0]).numel())
     P = sel_idx.shape[0] - 1
     Q = sel_idx.shape[1]
@@ -615,32 +633,54 @@ def check_kernels(state, queries, m, seed, launches, iters):
             fail(f"{what}: moments beyond 1e-5 relative (max abs {float(err.max()):.3e})")
         return float(err.max()), float((err / scale.clamp(min=1e-30)).max())
 
-    got = multi_agg_two(*new, batch.sel, batch.meta, *old)
+    def same_bits(call, got, what):
+        if not torch.equal(call(), got):
+            fail(f"{what}: a repeated call gave other bits")
+        if not torch.equal(call(decode=True), got):
+            fail(f"{what}: the call without sel_idx gave other bits")
+
+    def two(decode=False):
+        return multi_agg_two(*new, batch.sel, batch.meta, *old,
+                             sel_idx=None if decode else sel_idx)
+
+    got = two()
     err2, rel2 = compare(got, multi_agg_ref(*new, batch.sel, batch.meta, *old), "multi_agg_two")
+    same_bits(two, got, "multi_agg_two")
     RJ = int(cache.x_new.shape[0])
     out.append(kernel_entry(
         "multi_agg_two", "cuda", "src/repro_torch/csrc/multi_agg.cu",
         "src/repro/kernels/multi_agg/kernel.py:128", launches["multi_agg_two"], err2,
-        cuda_ms(lambda: multi_agg_two(*new, batch.sel, batch.meta, *old), iters),
+        cuda_ms(two, iters),
         cuda_ms(lambda: multi_agg_ref(*new, batch.sel, batch.meta, *old), iters),
         bytes_=2 * RJ * (4 * used + 1 + 4 + 4), ops=RJ * Q * (2 * (8 + 4 * P) + 9),
         rows=RJ, queries=Q, predicate_slots=P, max_rel_err=rel2,
-        tolerance="counts exact; moments 1e-5 relative (S_D: of S_NEW + S_OLD)",
+        valid_rows=[int(cache.valid_new.sum()), int(cache.valid_old.sum())],
+        launches_per_call=device_launches(two), host_enqueue_us=host_enqueue_us(two, iters),
+        tolerance="counts exact; moments 1e-5 relative (S_D: of S_NEW + S_OLD); "
+                  "repeats and the call without sel_idx bit-equal",
     ))
     x = torch.stack([mat.col(c).to(torch.float32) for c in batch.columns], dim=1)
     ones = torch.ones(mat.valid.shape, dtype=torch.float32, device=x.device)
-    one = (x, mat.valid, ones, torch.zeros_like(ones))
-    got = multi_agg_one(*one, batch.sel, batch.meta)
-    err1, rel1 = compare(got, multi_agg_ref(*one, batch.sel, batch.meta), "multi_agg_one")
+    view = (x, mat.valid, ones, torch.zeros_like(ones))
+
+    def one(decode=False):
+        return multi_agg_one(*view, batch.sel, batch.meta, sel_idx=None if decode else sel_idx)
+
+    got = one()
+    err1, rel1 = compare(got, multi_agg_ref(*view, batch.sel, batch.meta), "multi_agg_one")
+    same_bits(one, got, "multi_agg_one")
     RV = int(x.shape[0])
     out.append(kernel_entry(
         "multi_agg_one", "cuda", "src/repro_torch/csrc/multi_agg.cu",
         "src/repro/kernels/multi_agg/kernel.py:159", launches["multi_agg_one"], err1,
-        cuda_ms(lambda: multi_agg_one(*one, batch.sel, batch.meta), iters),
-        cuda_ms(lambda: multi_agg_ref(*one, batch.sel, batch.meta), iters),
+        cuda_ms(one, iters),
+        cuda_ms(lambda: multi_agg_ref(*view, batch.sel, batch.meta), iters),
         bytes_=RV * (4 * used + 1 + 4 + 4), ops=RV * Q * (8 + 4 * P),
         rows=RV, queries=Q, predicate_slots=P, max_rel_err=rel1,
-        tolerance="counts exact; moments 1e-5 relative",
+        valid_rows=int(mat.valid.sum()),
+        launches_per_call=device_launches(one), host_enqueue_us=host_enqueue_us(one, iters),
+        tolerance="counts exact; moments 1e-5 relative; "
+                  "repeats and the call without sel_idx bit-equal",
     ))
     return out
 

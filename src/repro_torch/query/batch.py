@@ -10,6 +10,10 @@ tensors — so one kernels/multi_agg pass evaluates a whole ``QueryBatch``:
        conjunctive predicate term.
   meta (2+4P, Q) f32 — rows [is_count; is_avg] then (ge, gt, le, lt)
        bounds per term, ±inf for unconstrained sides.
+  sel_idx (1+P, Q) int32 — ``sel`` decoded on the host: each block's
+       column index, −1 for an all-zero selector.  The CUDA kernel reads
+       it, so a batched scan makes no device→host read (a port-only
+       detail: the answers are those of ``sel``).
 
 Lowerable predicates are conjunctions of comparisons between a column and
 a numeric literal (``ge/gt/le/lt/eq``, either operand order); terms on the
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.estimators import Query
+from repro_torch.kernels.multi_agg.ops import selector_indices
 from repro_torch.relational.expr import Boolean, Cmp, Col, Expr, Lit
 
 SAMPLE_MEAN_AGGS = ("sum", "count", "avg")
@@ -131,6 +136,7 @@ class QueryBatch:
     columns: Tuple[str, ...]
     sel: torch.Tensor  # ((1+P)*C, Qp) f32
     meta: torch.Tensor  # (2+4P, Qp) f32
+    sel_idx: torch.Tensor  # (1+P, Qp) int32, sel decoded on the host
     n_pred: int
     is_avg: np.ndarray  # (Q,) bool, host copy for estimate assembly
     is_count: np.ndarray  # (Q,) bool
@@ -143,8 +149,9 @@ class QueryBatch:
         """Encode ``queries`` against the ordered column panel ``columns``.
 
         Raises ``UnsupportedQueryError`` if any query falls outside the
-        encodable class; use ``is_encodable`` to pre-filter.  ``sel`` and
-        ``meta`` are built on the host and placed on ``device``.
+        encodable class; use ``is_encodable`` to pre-filter.  ``sel``,
+        ``meta`` and ``sel_idx`` are built on the host and placed on
+        ``device``.
         """
         columns = tuple(columns)
         colidx = {c: i for i, c in enumerate(columns)}
@@ -186,6 +193,8 @@ class QueryBatch:
             columns=columns,
             sel=torch.as_tensor(sel, device=device),
             meta=torch.as_tensor(meta, device=device),
+            sel_idx=(selector_indices(torch.from_numpy(sel), C) if C else
+                     torch.full((1 + P, Qp), -1, dtype=torch.int32)).to(device),
             n_pred=P,
             is_avg=is_avg,
             is_count=is_count,

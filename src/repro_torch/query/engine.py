@@ -147,6 +147,7 @@ def panel_moments(cache: CorrespondenceCache, batch: QueryBatch) -> np.ndarray:
         cache.x_new, cache.valid_new, cache.w_new, cache.ompi_new,
         batch.sel, batch.meta,
         cache.x_old, cache.valid_old, cache.w_old, cache.ompi_old,
+        sel_idx=batch.sel_idx,
     )
     return mom.cpu().numpy()[:, :len(batch)]
 
@@ -155,8 +156,8 @@ def exact_batch(view: Relation, batch: QueryBatch) -> np.ndarray:
     """One batched scan of a full view → (Q,) exact sum/count/avg answers."""
     x = torch.stack([view.col(c).to(torch.float32) for c in batch.columns], dim=1)
     ones = torch.ones(view.valid.shape, dtype=torch.float32, device=view.device)
-    mom = multi_agg_moments(x, view.valid, ones, torch.zeros_like(ones),
-                            batch.sel, batch.meta).cpu().numpy()[:, :len(batch)]
+    mom = multi_agg_moments(x, view.valid, ones, torch.zeros_like(ones), batch.sel, batch.meta,
+                            sel_idx=batch.sel_idx).cpu().numpy()[:, :len(batch)]
     s, k = mom[S_NEW], mom[K_NEW]
     return np.where(batch.is_avg, s / np.maximum(k, 1.0), s)
 
@@ -274,7 +275,8 @@ def run_batch_aqp(
     """AQP-only batch: one one-sided scan of the clean sample, no
     correspondence join, no stale-view access."""
     x, valid, w, ompi = sample_panel(clean_sample, batch.columns, m)
-    mom = multi_agg_moments(x, valid, w, ompi, batch.sel, batch.meta).cpu().numpy()
+    mom = multi_agg_moments(x, valid, w, ompi, batch.sel, batch.meta,
+                            sel_idx=batch.sel_idx).cpu().numpy()
     mom = mom[:, :len(batch)]
     kn, sn, ssn, htn = mom[K_NEW], mom[S_NEW], mom[SS_NEW], mom[HT_NEW]
     g = _gamma(confidence)

@@ -37,7 +37,12 @@ from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean
 from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref, fused_clean_ref
 from repro_torch.kernels.hash_threshold.ops import hash_threshold
 from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
-from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
+from repro_torch.kernels.multi_agg.ops import (
+    TILE,
+    multi_agg_one,
+    multi_agg_two,
+    selector_indices,
+)
 from repro_torch.kernels.multi_agg.ref import K_D, K_NEW, K_OLD, S_D, S_NEW, S_OLD, multi_agg_ref
 from repro_torch.kernels.outlier_member.ops import (
     MAX_SMEM_KEYS,
@@ -258,6 +263,128 @@ def test_multi_agg_kernels_match_plain(dev, R):
     _close(one, multi_agg_ref(*new, sel, meta))
     assert bool((one[4:] == 0).all())
     assert torch.equal(multi_agg_two(*new, sel, meta, *old), multi_agg_two(*new, sel, meta, *old))
+
+
+@pytest.mark.parametrize("R", [1, TILE - 1, TILE + 1, 1_000_003])
+@pytest.mark.parametrize("Q", [8, 16, 32, 64])
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
+def test_multi_agg_kernel_over_tile_edges(dev, R, Q, P, C):
+    rng = np.random.default_rng(R + 7 * Q + 31 * P + C)
+    new, old = _panel(rng, R, C, dev), _panel(rng, R, C, dev)
+    sel, meta = _batch(rng, C, Q, P, dev)
+    idx = selector_indices(sel, C)
+    two = multi_agg_two(*new, sel, meta, *old, sel_idx=idx)
+    _close(two, multi_agg_ref(*new, sel, meta, *old))
+    assert torch.equal(two, multi_agg_two(*new, sel, meta, *old))
+    one = multi_agg_one(*new, sel, meta, sel_idx=idx)
+    _close(one, multi_agg_ref(*new, sel, meta))
+    assert bool((one[4:] == 0).all())
+
+
+@pytest.mark.parametrize("R", [1000, 300_001])
+def test_multi_agg_kernel_reads_terms_past_four_from_the_table(dev, R):
+    rng = np.random.default_rng(R)
+    C, Q, P = 8, 16, 8
+    new, old = _panel(rng, R, C, dev), _panel(rng, R, C, dev)
+    sel, meta = _batch(rng, C, Q, P, dev)
+    idx = selector_indices(sel, C)
+    assert int((idx[1:] >= 0).sum(0).max()) > 4
+    _close(multi_agg_two(*new, sel, meta, *old, sel_idx=idx), multi_agg_ref(*new, sel, meta, *old))
+    _close(multi_agg_one(*new, sel, meta, sel_idx=idx), multi_agg_ref(*new, sel, meta))
+
+
+@pytest.mark.parametrize("layout", ["front", "holes", "none"])
+def test_multi_agg_kernel_skips_tiles_without_valid_rows(dev, layout):
+    """Valid rows in front (as the engine's panels keep them), in random
+    runs with whole invalid tiles between, or none: the same answers."""
+    rng = np.random.default_rng(17)
+    R, C, Q, P = 1_000_003, 3, 16, 2
+    new, old = _panel(rng, R, C, dev), _panel(rng, R, C, dev)
+    keep = np.zeros(R, bool)
+    if layout == "front":
+        keep[: R // 20] = True
+    elif layout == "holes":
+        for start in rng.choice(R // TILE, 40, replace=False) * TILE:
+            keep[start:start + int(rng.integers(1, 3 * TILE))] = True
+    mask = torch.from_numpy(keep).to(dev)
+    new = (new[0], new[1] & mask, new[2], new[3])
+    old = (old[0], old[1] & mask, old[2], old[3])
+    sel, meta = _batch(rng, C, Q, P, dev)
+    idx = selector_indices(sel, C)
+    _close(multi_agg_two(*new, sel, meta, *old, sel_idx=idx), multi_agg_ref(*new, sel, meta, *old))
+    _close(multi_agg_one(*new, sel, meta, sel_idx=idx), multi_agg_ref(*new, sel, meta))
+
+
+def test_multi_agg_interval_bounds_are_exact(dev):
+    """Strict and closed bounds at, and one ulp beside, the row values;
+    infinite, NaN and denormal bounds and values: counts equal the plain
+    version's."""
+    f = np.float32
+    tiny, big = np.finfo(f).tiny * f(0.5), np.finfo(f).max
+    vals = np.array([-np.inf, -big, -1.0, np.nextafter(f(-1.0), f(0.0)), -0.0, 0.0, tiny,
+                     1.0, np.nextafter(f(1.0), f(2.0)), big, np.inf, np.nan], f)
+    x = np.tile(vals, 40)[:, None]
+    R = x.shape[0]
+    preds = [("gt", 1.0), ("ge", 1.0), ("lt", 1.0), ("le", 1.0), ("eq", 0.0), ("gt", -np.inf),
+             ("lt", np.inf), ("gt", np.inf), ("lt", -np.inf), ("ge", np.nan), ("le", np.nan),
+             ("gt", big), ("lt", -big), ("gt", 0.0), ("ge", -np.inf), ("le", np.inf),
+             ("gt", -1.0), ("lt", tiny), ("ge", np.inf), ("le", -np.inf), ("eq", np.inf)]
+    Q = 32
+    sel = np.zeros((2, Q), f)
+    meta = np.zeros((6, Q), f)
+    meta[0] = 1.0  # counts
+    meta[2], meta[3], meta[4], meta[5] = -np.inf, -np.inf, np.inf, np.inf
+    for q, (op, b) in enumerate(preds):
+        sel[1, q] = 1.0
+        rows = {"gt": (3,), "ge": (2,), "lt": (5,), "le": (4,), "eq": (2, 4)}[op]
+        for r in rows:
+            meta[r, q] = b
+    side = (torch.from_numpy(x).to(dev), torch.ones(R, dtype=torch.bool, device=dev),
+            torch.ones(R, device=dev), torch.zeros(R, device=dev))
+    sel_t, meta_t = torch.from_numpy(sel).to(dev), torch.from_numpy(meta).to(dev)
+    got = multi_agg_two(*side, sel_t, meta_t, *side)
+    want = multi_agg_ref(*side, sel_t, meta_t, *side)
+    assert torch.equal(got[K_NEW], want[K_NEW]) and torch.equal(got[S_NEW], want[S_NEW])
+    assert torch.equal(got[K_OLD], want[K_OLD]) and torch.equal(got[S_D], want[S_D])
+
+
+def test_multi_agg_is_one_launch_without_a_host_sync(dev):
+    rng = np.random.default_rng(5)
+    R, C, Q, P = 300_000, 3, 16, 2
+    new, old = _panel(rng, R, C, dev), _panel(rng, R, C, dev)
+    sel, meta = _batch(rng, C, Q, P, dev)
+    idx = selector_indices(sel, C)
+    assert _device_launches(lambda: multi_agg_two(*new, sel, meta, *old, sel_idx=idx)) == 1
+    assert _device_launches(lambda: multi_agg_one(*new, sel, meta, sel_idx=idx)) == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        multi_agg_two(*new, sel, meta, *old, sel_idx=idx)
+        multi_agg_one(*new, sel, meta, sel_idx=idx)
+        with pytest.raises(RuntimeError):  # the mode does catch the decode's read
+            multi_agg_two(*new, sel, meta, *old)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_multi_agg_tickets_reset_between_calls(dev):
+    """Many calls in a row, and two shapes interleaved (one of them four
+    query chunks), give the same bits: every launch leaves its tickets at 0."""
+    rng = np.random.default_rng(11)
+    shapes = []
+    for R, C, Q, P in ((400_000, 3, 16, 2), (5_000, 4, 64, 4)):
+        new, old = _panel(rng, R, C, dev), _panel(rng, R, C, dev)
+        sel, meta = _batch(rng, C, Q, P, dev)
+        idx = selector_indices(sel, C)
+        shapes.append(lambda new=new, old=old, sel=sel, meta=meta, idx=idx:
+                      multi_agg_two(*new, sel, meta, *old, sel_idx=idx))
+    first = [call() for call in shapes]
+    for _ in range(20):
+        assert torch.equal(shapes[0](), first[0])
+    for _ in range(5):
+        for call, want in zip(shapes, first):
+            assert torch.equal(call(), want)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

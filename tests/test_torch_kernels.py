@@ -254,6 +254,133 @@ def test_selector_indices_round_trip_and_reject_non_one_hot():
         selector_indices(T(half), C)
 
 
+def _dashboards():
+    """The query batches the port's engine parity tests encode (slice,
+    pin, streaming and serving dashboards), a wide batch (four columns, up
+    to four predicate slots), a batch past 16 queries and an empty one."""
+    from repro_torch.core import Query
+    from repro_torch.relational.expr import Cmp, Col, Lit, and_
+
+    vc, tb, vid = Col("visitCount"), Col("totalBytes"), Col("videoId")
+    slice_ = [
+        Query("count"), Query("sum", "visitCount"), Query("sum", "totalBytes"),
+        Query("avg", "totalBytes"), Query("avg", "visitCount"),
+        Query("count", pred=Cmp("gt", vc, Lit(30.0))),
+        Query("sum", "totalBytes", pred=Cmp("ge", vid, Lit(450.0))),
+        Query("count", pred=Cmp("ge", vid, Lit(450.0))),
+        Query("avg", "totalBytes", pred=Cmp("gt", vc, Lit(10.0))),
+        Query("sum", "visitCount", pred=and_(Cmp("ge", vid, Lit(0.0)), Cmp("lt", vid, Lit(250.0)))),
+        Query("sum", "totalBytes", pred=and_(Cmp("gt", vc, Lit(5.0)), Cmp("lt", vid, Lit(450.0)))),
+        Query("count", pred=and_(Cmp("ge", vc, Lit(2.0)), Cmp("le", vc, Lit(50.0)))),
+        Query("avg", "visitCount", pred=Cmp("lt", vid, Lit(100.0))),
+        Query("sum", "totalBytes", pred=Cmp("le", vc, Lit(3.0))),
+        Query("count", pred=Cmp("eq", vc, Lit(1.0))),
+        Query("avg", "totalBytes", pred=and_(Cmp("ge", vid, Lit(450.0)), Cmp("gt", vc, Lit(1.0)))),
+    ]
+    pin = [Query("count"), Query("sum", "totalBytes"),
+           Query("avg", "visitCount", pred=Cmp("gt", vc, Lit(5.0))),
+           Query("sum", "visitCount", pred=Cmp("lt", vid, Lit(150.0)))]
+    stream = [Query("count"), Query("sum", "totalBytes"), Query("avg", "visitCount")]
+    serving = [Query("sum", "totalBytes", pred=Cmp("lt", vid, Lit(10.0 * (i + 1))))
+               for i in range(5)]
+    ext = Col("extra")
+    wide = [Query("sum", "extra", pred=and_(Cmp("gt", vc, Lit(1.0)), Cmp("lt", tb, Lit(9.0)),
+                                            Cmp("ge", vid, Lit(2.0)))),
+            Query("count", pred=and_(Cmp("le", ext, Lit(4.0)), Cmp("gt", ext, Lit(-1.0)))),
+            Query("avg", "videoId", pred=Cmp("lt", Lit(3.0), tb))]
+    many = [Query("sum", "totalBytes", pred=Cmp("gt", vc, Lit(float(i)))) for i in range(20)]
+    cols = ("videoId", "visitCount", "totalBytes")
+    return {"slice": (slice_, cols), "pin": (pin, cols), "stream": (stream, cols),
+            "serving": (serving, cols), "wide": (wide, cols + ("extra",)),
+            "many": (many, cols), "empty": ([], cols)}
+
+
+@pytest.mark.parametrize("name", ["slice", "pin", "stream", "serving", "wide", "many", "empty"])
+def test_query_batch_sel_idx_is_the_decoded_selector(name):
+    from repro_torch.query import QueryBatch
+
+    queries, cols = _dashboards()[name]
+    batch = QueryBatch.encode(queries, cols, "cpu")
+    Qp, P = batch.sel.shape[1], batch.n_pred
+    assert batch.sel_idx.dtype == torch.int32 and batch.sel_idx.shape == (1 + P, Qp)
+    assert torch.equal(batch.sel_idx, selector_indices(batch.sel, len(cols)))
+
+
+def test_encode_still_accepts_and_rejects_what_it_did():
+    from repro_torch.core import Query
+    from repro_torch.query import QueryBatch, UnsupportedQueryError
+    from repro_torch.relational.expr import Cmp, Col, Lit, or_
+
+    vid = Col("videoId")
+    # no columns at all: a count needs none, and its selectors all read 0.0
+    batch = QueryBatch.encode([Query("count")], (), "cpu")
+    assert batch.sel.shape == (0, 8) and torch.equal(batch.sel_idx, torch.full((2, 8), -1,
+                                                                                dtype=torch.int32))
+    for bad in (Query("sum", "videoId", pred=Cmp("ne", vid, Lit(1.0))),
+                Query("sum", "videoId", pred=or_(Cmp("lt", vid, Lit(1.0)),
+                                                 Cmp("gt", vid, Lit(2.0)))),
+                Query("max", "videoId"), Query("sum", "nope")):
+        with pytest.raises(UnsupportedQueryError):
+            QueryBatch.encode([bad], ("videoId",), "cpu")
+
+
+@pytest.mark.parametrize("shape", [(64, 2, 3, 1), (300, 5, 9, 2), (1024, 3, 17, 1),
+                                   (500, 4, 24, 4)])
+def test_multi_agg_with_sel_idx_matches_without_and_jax(shape):
+    R, C, Q, P = shape
+    rng = np.random.default_rng(R + Q)
+    new, old = _panel(rng, R, C), _panel(rng, R, C)
+    sel, meta = _batch(rng, C, Q, P)
+    idx = selector_indices(T(sel), C)
+    tn, to = [T(a) for a in new], [T(a) for a in old]
+    jn, jo = [jnp.asarray(a) for a in new], [jnp.asarray(a) for a in old]
+    two = multi_agg_moments(*tn, T(sel), T(meta), *to, sel_idx=idx)
+    assert torch.equal(two, multi_agg_moments(*tn, T(sel), T(meta), *to))
+    _assert_moments(two, jax_multi_agg(*jn, jnp.asarray(sel), jnp.asarray(meta), *jo,
+                                       use_pallas=True))
+    one = multi_agg_moments(*tn, T(sel), T(meta), sel_idx=idx)
+    assert torch.equal(one, multi_agg_moments(*tn, T(sel), T(meta)))
+    _assert_moments(one, jax_multi_agg(*jn, jnp.asarray(sel), jnp.asarray(meta),
+                                       use_pallas=True))
+    with pytest.raises(TypeError):
+        multi_agg_moments(*tn, T(sel), T(meta), sel_idx=idx.to(torch.int64))
+    with pytest.raises(ValueError):
+        multi_agg_moments(*tn, T(sel), T(meta), sel_idx=idx[:, :-1].contiguous())
+
+
+def test_engine_passes_the_batch_sel_idx(monkeypatch):
+    from repro_torch.core import Query
+    from repro_torch.query import QueryBatch, engine
+    from repro_torch.relational.relation import from_columns
+
+    rng = np.random.default_rng(3)
+    rel = from_columns({"k": np.arange(50, dtype=np.int32),
+                        "a": rng.normal(5.0, 2.0, 50).astype(np.float32),
+                        "b": rng.integers(0, 9, 50).astype(np.int32)}, pk=("k",), device="cpu")
+    batch = QueryBatch.encode([Query("count"), Query("sum", "a"), Query("avg", "b")],
+                              ("a", "b"), "cpu")
+    seen = []
+
+    def spy(*args, sel_idx=None):
+        seen.append(sel_idx)
+        return multi_agg_moments(*args, sel_idx=sel_idx)
+
+    monkeypatch.setattr(engine, "multi_agg_moments", spy)
+    exact = engine.exact_batch(rel, batch)
+    engine.run_batch_aqp(rel, batch, 0.5)
+    assert len(seen) == 2 and all(s is batch.sel_idx for s in seen)
+    assert np.allclose(exact, [50.0, float(rel.col("a").sum()), float(rel.col("b").float().mean())],
+                       rtol=1e-6)
+
+
+def test_multi_agg_launch_plan():
+    from repro_torch.kernels.multi_agg.ops import grid_blocks, query_chunk
+
+    assert [query_chunk(q) for q in (1, 8, 9, 16, 64)] == [8, 8, 16, 16, 16]
+    assert grid_blocks(0, 132) == 1 and grid_blocks(1, 132) == 1
+    assert grid_blocks(257, 132) == 2 and grid_blocks(2_097_152, 132) == 264
+
+
 def test_cpu_runs_never_count_as_launches():
     before = port_kernels.launch_counts()
     gid = torch.zeros(4, dtype=torch.int32)
