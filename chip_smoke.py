@@ -6,13 +6,18 @@ size, through the entry points a user calls:
 
   1. the single-view SVC loop — the paper's running example visitView
      (§2.1, Conviva-shaped session logs, as in ``examples/quickstart.py``)
-     through ``ViewManager``;
+     through ``ViewManager``; every group-by (``register_view``, the
+     unfused clean, the IVM of ``maintain_all``) sums through
+     segment_aggsum's sorted kernel, whose int32 counts are held exact on
+     visitView's largest group (above 2^24 sessions);
   2. streaming ingest on the same manager — a 10M-session delta as 20
      out-of-order micro-batches through ``StreamingViewService`` (size and
      age watermarks, a spilling ring), answered through the service
      (dashboard, median/percentile/min/max, a select) before and checked
-     after ``maintain_all``; then ``segment_sum`` and ``corr_moments``, the
-     two library kernels, on that path's group-by ids and CORR join;
+     after ``maintain_all``; then ``segment_sum`` (over the sorted ids and
+     over their shuffle) and ``corr_moments``, the library kernels, on that
+     path's group-by ids and CORR join; then the group-by's kernel rows in
+     the profiles of one unfused clean and one warm ``maintain_all``;
   3. the fleet control plane — 16 group-by views over their own
      Conviva-shaped logs (``benchmarks/fig_planner_fleet.py`` at a real
      size): ``svc_refresh_many`` against per-view cleans, then 5 epochs of
@@ -137,10 +142,10 @@ FLASH_SHAPES = (
 
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
-                    "multi_agg_two", "multi_agg_one")
+                    "multi_agg_two", "multi_agg_one", "segment_aggsum")
 FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score")
 STREAM_KERNELS = ("fused_clean", "multi_agg_two", "multi_agg_one")
-API_KERNELS = ("segment_aggsum", "corr_diff")
+API_KERNELS = ("segment_aggsum", "segment_aggsum_unsorted", "corr_diff")
 # every layer's attention, and the telemetry view's cleans and dashboard
 SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
                  "multi_agg_one")
@@ -227,10 +232,11 @@ def device_launches(fn, calls: int = 4, tries: int = 3) -> float:
     return best
 
 
-def profile_ops(fn, top: int = 10) -> dict:
+def profile_ops(fn, top: int = 10, match: tuple = ()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: self host and device
-    milliseconds in all, the ``top`` operators by each, and the calls of
-    the CUDA runtime entries that launch kernels, copy or wait."""
+    milliseconds in all, the ``top`` operators by each, the calls of the
+    CUDA runtime entries that launch kernels, copy or wait, and every row
+    whose name holds one of ``match``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -259,6 +265,7 @@ def profile_ops(fn, top: int = 10) -> dict:
         "top_cpu": sorted(rows, key=lambda r: -r["self_cpu_ms"])[:top],
         "top_device": sorted(rows, key=lambda r: -r["self_device_ms"])[:top],
         "runtime_calls": {r["op"]: r["calls"] for r in rows if r["op"] in runtime},
+        "matching": [r for r in rows if any(m in r["op"] for m in match)],
     }
 
 
@@ -355,11 +362,17 @@ def same_sample(a, b, what: str) -> dict:
 def run_svc_loop(vm, view, log, video, delta, groups, m, k, queries):
     """register → ingest → refresh → query_batch(auto, aqp) → outlier index →
     refresh → query_batch → refresh(fused=False) → maintain_all."""
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
     name = view.name
     t = {}
+    groupby_launches = {}
+    n0 = segment_groupby.launches
     _, t["register_s"] = wall(lambda: (
         vm.register_base("Log", log), vm.register_base("Video", video),
         vm.register_view(view, delta_bases=("Log",), m=m, delta_group_capacity=groups)))
+    groupby_launches["register_view"] = segment_groupby.launches - n0
+    registered = vm.views[name].materialized
     _, t["ingest_s"] = wall(lambda: vm.ingest("Log", inserts=delta))
     t["svc_refresh_fused_s"] = vm.svc_refresh(name)
     auto, t["query_batch_auto_s"] = wall(lambda: vm.query_batch(name, queries))
@@ -380,19 +393,93 @@ def run_svc_loop(vm, view, log, video, delta, groups, m, k, queries):
         "self_cpu_ms", "self_device_ms", "device_launches", "runtime_calls")}
     pinned, t["query_batch_pinned_s"] = wall(lambda: vm.query_batch(name, queries))
     fused_sample = vm.views[name].clean_sample
+    n0 = segment_groupby.launches
     t["svc_refresh_unfused_s"] = vm.svc_refresh(name, fused=False)
+    groupby_launches["svc_refresh_unfused"] = segment_groupby.launches - n0
+    unfused_sample = vm.views[name].clean_sample
+    # the same clean again under the profiler: the group-by's kernel rows
+    unfused_profile = groupby_profile(lambda: vm.svc_refresh(name, fused=False),
+                                      "svc_refresh unfused")
     state = {
         "fused_sample": fused_sample,
-        "unfused_sample": vm.views[name].clean_sample,
+        "unfused_sample": unfused_sample,
         "stale_sample": vm.views[name].stale_sample,
         "arena": vm.pending.inserts["Log"],
         "pin": vm.views[name].outlier_pin,
         "index": vm.views[name].outlier_index,
         "materialized": vm.views[name].materialized,
         "pinned_refresh": pinned_refresh,
+        "registered": registered,
+        "unfused_profile": unfused_profile,
     }
+    n0 = segment_groupby.launches
     t["ivm_s"], t["maintain_all_s"] = wall(vm.maintain_all)
+    groupby_launches["maintain_all"] = segment_groupby.launches - n0
+    for step in ("register_view", "maintain_all"):
+        if groupby_launches[step] == 0:
+            fail(f"the group-by's kernel was never launched in {step}")
+    state["groupby_launches"] = groupby_launches
     return t, {"auto": auto, "aqp": aqp, "pinned": pinned}, state
+
+
+def groupby_profile(fn, what: str) -> dict:
+    """One call of ``fn`` under the profiler: its device ms, the group-by's
+    kernel rows (segment_aggsum's sorted kernel) and any ``index_add_``
+    row, which must be gone from the group-by."""
+    prof = profile_ops(fn, top=5, match=("segment_sorted", "index_add"))
+    kernel_rows = [r for r in prof["matching"] if "segment_sorted" in r["op"]]
+    index_add = [r for r in prof["matching"] if "index_add" in r["op"]]
+    if not kernel_rows:
+        fail(f"{what}: no row of the group-by's kernel in the profile")
+    if index_add:
+        fail(f"{what}: the profile still holds {[r['op'] for r in index_add]}")
+    return {"self_device_ms": prof["self_device_ms"], "device_launches": prof["device_launches"],
+            "groupby_kernel_rows": kernel_rows, "index_add_rows": index_add,
+            "top_device": prof["top_device"]}
+
+
+def check_int_count_lane(log, registered, groups, min_rows=2 ** 24) -> dict:
+    """visitView's largest group holds more than ``min_rows`` (2^24)
+    sessions: its int32 count from the group-by's entry (over the Log's
+    group ids) equals the count of the generator's ids, as every group's
+    does, and the view's float32 ``visitCount`` is each exact count rounded
+    once."""
+    import torch
+
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+    from repro_torch.relational import ops
+
+    exact = torch.bincount(log.col("videoId")[log.valid].long())
+    hot = int(exact.argmax())
+    n_hot = int(exact[hot])
+    if n_hot <= min_rows:
+        fail(f"int count lane: the largest group holds {n_hot} rows, not above {min_rows}")
+    _o, _sk, _sv, _st, gid = ops.group_ids(log, ("videoId",), groups)
+    with uncounted():
+        counts, _ = segment_groupby(gid, torch.empty((gid.shape[0], 0), device=gid.device),
+                                    groups)
+    present = exact[exact > 0]  # in video order, the group order
+    if not torch.equal(counts[:present.numel()].long(), present) or bool(
+            counts[present.numel():].any()):
+        fail("int count lane: segment_groupby's int32 counts differ from the generator's")
+    vid = registered.col("videoId")[registered.valid].long()
+    cnt = registered.col("visitCount")[registered.valid]
+    if not torch.equal(cnt, exact[vid].to(torch.float32)):
+        fail("int count lane: the view's visitCount is not each exact count rounded once")
+    return {"hot_video": hot, "hot_group_rows": n_hot, "int32_count": int(counts.max()),
+            "view_visitCount": float(cnt[vid == hot][0]),
+            "float32_of_exact": float(torch.tensor(n_hot, dtype=torch.float32)),
+            "groups": int(present.numel())}
+
+
+def profile_warm_maintain(vm, n_videos, n_logs, n_delta, seed) -> dict:
+    """A fresh ``grow_log`` delta ingested, then one warm ``maintain_all``
+    (the manager's third) under the profiler: the IVM's group-by rows."""
+    from repro_torch.data.synthetic import grow_log
+
+    delta = grow_log(np.random.default_rng(seed), n_videos, n_logs, n_delta, device=vm.device)
+    vm.ingest("Log", inserts=delta)
+    return groupby_profile(vm.maintain_all, "warm maintain_all")
 
 
 def rel_errors(ests, truth):
@@ -1455,14 +1542,15 @@ def run_stream_path(vm, view, n_videos, n_logs, n_delta, m, queries, cfg_kw, n_b
 
 
 # ---------------------------------------------------------------------------
-# kernel_api: segment_sum and corr_moments on the streaming path's tensors
+# kernel_api: segment_sum (both routes) and corr_moments on the streaming
+# path's tensors
 # ---------------------------------------------------------------------------
 
 def api_inputs(api):
     """The group-by's (gid, [bytes, 1]) over the streamed delta arena, as
-    ``relational.ops.groupby`` builds them (invalid rows in the overflow
-    slot G), and the joined ``__t_new``/``__t_old``/valid of SVC+CORR for
-    ``sum(totalBytes)``."""
+    ``relational.ops.groupby`` builds them (sorted ids, invalid rows in the
+    overflow slot G), the same rows in a seeded shuffle, and the joined
+    ``__t_new``/``__t_old``/valid of SVC+CORR for ``sum(totalBytes)``."""
     import torch
 
     from repro_torch.relational import ops
@@ -1471,22 +1559,29 @@ def api_inputs(api):
     order, _sk, _sv, _start, gid = ops.group_ids(arena, ("videoId",), G)
     vals = torch.stack([arena.col("bytes")[order],
                         torch.ones(arena.capacity, dtype=torch.float32, device=arena.device)], 1)
+    perm = torch.from_numpy(np.random.default_rng(SEED).permutation(arena.capacity)).to(
+        arena.device)
     j = api["join"]
-    return ((gid.to(torch.int32).contiguous(), vals.contiguous(), G),
+    return ((gid.contiguous(), vals.contiguous(), G),
+            (gid[perm].contiguous(), vals[perm].contiguous(), G),
             (j.col("__t_new").contiguous(), j.col("__t_old").contiguous(), j.valid.contiguous()))
 
 
-def drive_api(seg_args, corr_args):
-    """The kernels' own entry points: one call each."""
+def drive_api(seg_args, shuffled_args, corr_args):
+    """The kernels' own entry points: segment_sum over the sorted ids (the
+    group-by's kernel) and over their shuffle, and corr_moments."""
     from repro_torch.kernels.corr_diff import corr_moments
     from repro_torch.kernels.segment_aggsum import segment_sum
 
-    return segment_sum(*seg_args), corr_moments(*corr_args)
+    return (segment_sum(*seg_args, indices_are_sorted=True), segment_sum(*shuffled_args),
+            corr_moments(*corr_args))
 
 
-def hold_segment_sum(got, gid, vals, G, what):
-    """Counts (column 1) exact; sums within γ_{n−1}·Σ|x| of the float64 sum.
-    Returns (max abs error, max share of the bound)."""
+def hold_segment_sum(got, gid, vals, G, what, f64_sums=False):
+    """Counts (column 1) exact; sums around the float64 sums.  ``f64_sums``
+    (the sorted kernel, which sums each group in float64 and rounds once):
+    within F64_SUM_RTOL·Σ|x|; otherwise (float32 sums in any order): within
+    γ_{n−1}·Σ|x|.  Returns (max abs error, max share of the bound)."""
     import torch
 
     keep = (gid >= 0) & (gid < G)
@@ -1497,10 +1592,14 @@ def hold_segment_sum(got, gid, vals, G, what):
         0, g, vals.double().abs())[:G]
     if not torch.equal(got[:, 1].double(), exact[:, 1]):
         fail(f"{what}: segment_sum counts differ from the exact counts")
-    bound = torch.from_numpy(f32_sum_rtol(exact[:, 1].cpu().numpy())).to(gid.device) * abs_sum[:, 0]
+    if f64_sums:
+        bound = F64_SUM_RTOL * abs_sum[:, 0]
+    else:
+        bound = torch.from_numpy(f32_sum_rtol(exact[:, 1].cpu().numpy())).to(gid.device) * \
+            abs_sum[:, 0]
     diff = (got[:, 0].double() - exact[:, 0]).abs()
     if bool((diff > bound).any()):
-        fail(f"{what}: segment_sum sums beyond the float32 bound (max abs {float(diff.max()):.3e})")
+        fail(f"{what}: segment_sum sums beyond the bound (max abs {float(diff.max()):.3e})")
     return float(diff.max()), float((diff / bound.clamp(min=1e-300)).max())
 
 
@@ -1528,36 +1627,53 @@ def hold_corr_moments(got, t_new, t_old, mask, what, f64_sums):
     return max(errs), max(shares)
 
 
-def check_api_kernels(api, iters):
-    """kernel_api: reset the counters, drive both entry points on the path's
+def check_api_kernels(api, iters, main_launches):
+    """kernel_api: reset the counters, drive the entry points on the path's
     tensors, read the counters; then hold each kernel against its plain
-    version and against the path's own answer, and time it."""
+    version and against the path's own answer, and time it.
+    ``main_launches``: the main path's launches of the group-by's kernel,
+    which the sorted line reports as its own."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.core.estimators import _masked_moments, correspondence_diff_stratified
     from repro_torch.core import Query
     from repro_torch.kernels.corr_diff import corr_diff_ref, corr_moments
-    from repro_torch.kernels.segment_aggsum import segment_sum, segment_sum_ref
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_sum, segment_sum_ref
     from repro_torch.relational import ops
 
-    seg_args, corr_args = api_inputs(api)
+    seg_args, shuffled_args, corr_args = api_inputs(api)
     kernels.reset_launches()
-    seg, corr = drive_api(seg_args, corr_args)
+    seg, seg_sh, corr = drive_api(seg_args, shuffled_args, corr_args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     for k in API_KERNELS:
         if launches[k] == 0:
             fail(f"kernel_api: {k} never launched")
-    out, checks = [], {}
+    out = []
     gid, vals, G = seg_args
     R = int(gid.shape[0])
-    err, share = hold_segment_sum(seg, gid, vals, G, "kernel_api")
+    keep = (gid >= 0) & (gid < G)
+    kept = int(keep.sum())
+    g_idx = torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    exact_n = torch.bincount(g_idx, minlength=G + 1)[:G]
+    # the sorted route: counts exact, float64 sums rounded once, same bits
+    bytes_col = vals[:, :1].contiguous()  # the group-by's panel: one sum column
+    err, share = hold_segment_sum(seg, gid, vals, G, "kernel_api sorted", f64_sums=True)
+    with uncounted():
+        if not torch.equal(segment_sum(*seg_args, indices_are_sorted=True).view(torch.int32),
+                           seg.view(torch.int32)):
+            fail("kernel_api: the sorted segment_sum differs from run to run")
+        counts, sums = segment_groupby(gid, bytes_col, G)
+    if not torch.equal(counts.long(), exact_n):
+        fail("kernel_api: segment_groupby's int32 counts differ from the exact counts")
+    hold_segment_sum(torch.stack([sums[:, 0], counts.float()], 1), gid, vals, G,
+                     "kernel_api segment_groupby", f64_sums=True)
     plain = segment_sum_ref(gid, vals, G)
     hold_segment_sum(plain, gid, vals, G, "kernel_api plain")
     if not torch.equal(seg[:, 1], plain[:, 1]):
         fail("kernel_api: segment_sum counts differ from the plain version")
-    # the group-by's own sums over the same arena
+    # the group-by's own sums over the same arena (the same kernel inside)
     gb = ops.groupby(api["arena"], ("videoId",), {"totalBytes": ("sum", "bytes"),
                                                  "visitCount": ("count", None)}, G)
     if not torch.equal(seg[:, 1], gb.col("visitCount")):
@@ -1567,24 +1683,52 @@ def check_api_kernels(api, iters):
         gb.col("totalBytes").double().abs()
     if bool((gb_diff > gb_bound).any()):
         fail("kernel_api: segment_sum sums beyond 2*gamma of the group-by's")
-    kept = int(((gid >= 0) & (gid < G)).sum())
-    g_idx = torch.where((gid >= 0) & (gid < G), gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    bytes_ = R * 4 + kept * 2 * 4 + G * 2 * 4
+    library_call = "index_add_ of vals into a (G + 1, 2) zeroed tensor, gid remapped beforehand"
     out.append(kernel_entry(
         "segment_aggsum", "cuda", "src/repro_torch/csrc/segment_aggsum.cu",
-        "src/repro/kernels/segment_aggsum/kernel.py:48", launches["segment_aggsum"], err,
-        cuda_ms(lambda: segment_sum(gid, vals, G), iters),
+        "src/repro/kernels/segment_aggsum/kernel.py:48", main_launches, err,
+        cuda_ms(lambda: segment_sum(gid, vals, G, indices_are_sorted=True), iters),
         cuda_ms(lambda: segment_sum_ref(gid, vals, G), iters),
-        bytes_=R * 4 + kept * 2 * 4 + G * 2 * 4, ops=kept * 2,
+        bytes_=bytes_, ops=kept * 2,
         library_ms=cuda_ms(lambda: torch.zeros((G + 1, 2), dtype=torch.float32,
                                                device=gid.device).index_add_(0, g_idx, vals),
                            iters),
+        entry="segment_sum(gid, vals, G, indices_are_sorted=True): the group-by's kernel",
+        kernel_api_launches=launches["segment_aggsum"],
+        groupby_entry_ms=cuda_ms(lambda: segment_groupby(gid, bytes_col, G), iters),
+        groupby_entry="segment_groupby(gid, [bytes], G): int32 counts and the sum, as the "
+                      "group-by calls it",
         rows=R, columns=2, groups=G, kept_rows=kept, overflow_rows=R - kept,
-        hot_group_rows=float(seg[:, 1].max()), max_bound_share=share,
+        hot_group_rows=int(exact_n.max()), max_bound_share=share,
         max_rel_diff_vs_groupby=float((gb_diff / gb.col("totalBytes").double().abs()
                                        .clamp(min=1e-30)).max()),
-        library_call="index_add_ of vals into a (G + 1, 2) zeroed tensor, gid remapped beforehand",
-        tolerance=("counts exact (plain, group-by, float64); float32 sums within "
-                   "gamma_{n-1}*sum|x| of the float64 sum and 2*gamma of the group-by's"),
+        library_call=library_call,
+        tolerance=("counts exact (plain, group-by, float64, int32 from segment_groupby); "
+                   "sums within 1e-6*sum|x| of the float64 sum and 2*gamma of the group-by's; "
+                   "the same bits on a repeat"),
+    ))
+    # the unsorted route on the same rows shuffled
+    gid_sh, vals_sh, _ = shuffled_args
+    err_u, share_u = hold_segment_sum(seg_sh, gid_sh, vals_sh, G, "kernel_api unsorted")
+    if not torch.equal(seg_sh[:, 1], plain[:, 1]):
+        fail("kernel_api: the unsorted segment_sum's counts differ from the plain version")
+    g_sh = torch.where((gid_sh >= 0) & (gid_sh < G), gid_sh.long(),
+                       torch.full_like(gid_sh, G, dtype=torch.int64))
+    out.append(kernel_entry(
+        "segment_aggsum_unsorted", "cuda", "src/repro_torch/csrc/segment_aggsum.cu",
+        "src/repro/kernels/segment_aggsum/kernel.py:48", launches["segment_aggsum_unsorted"],
+        err_u,
+        cuda_ms(lambda: segment_sum(gid_sh, vals_sh, G), iters),
+        cuda_ms(lambda: segment_sum_ref(gid_sh, vals_sh, G), iters),
+        bytes_=bytes_, ops=kept * 2,
+        library_ms=cuda_ms(lambda: torch.zeros((G + 1, 2), dtype=torch.float32,
+                                               device=gid.device).index_add_(0, g_sh, vals_sh),
+                           iters),
+        entry="segment_sum(gid, vals, G): ids in any order, on a seeded shuffle of the rows",
+        rows=R, columns=2, groups=G, kept_rows=kept, max_bound_share=share_u,
+        library_call=library_call,
+        tolerance="counts exact (plain, float64); float32 sums within gamma_{n-1}*sum|x|",
     ))
     t_new, t_old, mask = corr_args
     n = int(t_new.shape[0])
@@ -1713,13 +1857,15 @@ def stream_device_vs_cpu(n_videos, n_logs, n_delta, m, seed, n_batches,
         if rel.max() > 1e-6:
             fail(f"stream device vs CPU: {q.agg} bootstrap stats rel {rel.max():.3e}")
 
-    seg_args, corr_args = api_inputs(gpu["api"])
+    seg_args, shuffled_args, corr_args = api_inputs(gpu["api"])
     with uncounted():
-        seg, corr = drive_api(seg_args, corr_args)
+        seg, seg_sh, corr = drive_api(seg_args, shuffled_args, corr_args)
     gid, vals, G = seg_args
-    seg_err = hold_segment_sum(seg, gid, vals, G, "stream small")[0]
-    if not torch.equal(seg[:, 1].cpu(), segment_sum_ref(gid.cpu(), vals.cpu(), G)[:, 1]):
-        fail("stream device vs CPU: segment_sum counts differ from the CPU's plain version")
+    seg_err = hold_segment_sum(seg, gid, vals, G, "stream small", f64_sums=gid.is_cuda)[0]
+    hold_segment_sum(seg_sh, *shuffled_args, "stream small unsorted")
+    for got in (seg, seg_sh):
+        if not torch.equal(got[:, 1].cpu(), segment_sum_ref(gid.cpu(), vals.cpu(), G)[:, 1]):
+            fail("stream device vs CPU: segment_sum counts differ from the CPU's plain version")
     corr_err = hold_corr_moments(torch.stack(corr), *corr_args, "stream small",
                                  f64_sums=corr_args[0].is_cuda)[0]
     if float(corr_diff_ref(*(t.cpu() for t in corr_args))[2]) != float(corr[2]):
@@ -2132,10 +2278,12 @@ def main(argv=None) -> int:
     # ground truth for the SVC estimates: the maintained view answers the
     # queries exactly over base + delta
     errs = {k: rel_errors(v, exact_after_ivm) for k, v in ests.items()}
+    int_lane = check_int_count_lane(log, state["registered"], groups)
     emit({"phase": "main_path", "n_videos": N_VIDEOS, "n_logs": args.n_logs,
           "log_capacity": log.capacity, "delta_rows": N_DELTA, "m": M, "k": K,
           "queries": len(queries), "setup_s": setup_s, "wall_s": times,
           "peak_device_gb": peak_gb, "launches": launches,
+          "groupby_launches": state["groupby_launches"], "int_count_lane": int_lane,
           "pinned_refresh": state["pinned_refresh"], "fused_vs_unfused": fused_vs_unfused, "stale_eq_exact_fresh_after_ivm": True,
           "svc_rel_err_vs_fresh": errs, "card": smi})
 
@@ -2155,11 +2303,16 @@ def main(argv=None) -> int:
     emit({"phase": "stream_path", "n_videos": N_VIDEOS, "n_logs": args.n_logs,
           "stream_rows": N_DELTA, "m": M, **stream,
           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
-    api_table, api_launches = check_api_kernels(api, ITERS)
+    api_table, api_launches = check_api_kernels(api, ITERS, launches["segment_aggsum"])
     del api
     emit({"phase": "kernel_api", "launches": api_launches, "card": smi})
     for entry in api_table:
         emit({"phase": "kernel", **entry, "card": smi})
+    # the group-by's kernel rows in one unfused clean and one warm maintain_all
+    emit({"phase": "groupby_profiles", "svc_refresh_unfused": state["unfused_profile"],
+          "maintain_all": profile_warm_maintain(vm, N_VIDEOS, args.n_logs + 2 * N_DELTA,
+                                                N_DELTA, SEED + 2),
+          "card": smi})
 
     small = device_vs_cpu(SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA, M, K, SEED)
     emit({"phase": "device_vs_cpu", "n_logs": SMALL_LOGS, **small})

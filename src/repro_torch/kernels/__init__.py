@@ -19,8 +19,11 @@ can show that the main path went through the kernels.
   fleet_merge     — every view's merge remainder (stale + ins) − del
   fleet_moments   — every view's planner moments from the fleet panel
   fleet_score     — every view's action scores for the planner's knapsack
-  segment_sum     — group-by segment sum, out-of-range gids dropped
-                    (segment_aggsum)
+  segment_aggsum  — the group-by's reduce-by-key over sorted ids: int32
+                    counts and float32 sums, out-of-range ids dropped
+                    (segment_groupby, and segment_sum with
+                    indices_are_sorted=True)
+  segment_aggsum_unsorted — segment_sum over ids in any order
   corr_moments    — the SVC+CORR moments (Σd, Σd², count) in one pass
                     (corr_diff)
   flash_attention — online-softmax GQA attention, causal or masked at T
@@ -43,7 +46,7 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
     from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
-    from repro_torch.kernels.segment_aggsum.ops import segment_sum
+    from repro_torch.kernels.segment_aggsum.ops import segment_groupby, segment_sum
 
     return {
         "hash_threshold": hash_threshold,
@@ -56,7 +59,8 @@ def wrappers() -> Dict[str, object]:
         "fleet_merge": fleet_merge,
         "fleet_moments": fleet_moments,
         "fleet_score": fleet_scores,
-        "segment_aggsum": segment_sum,
+        "segment_aggsum": segment_groupby,
+        "segment_aggsum_unsorted": segment_sum,
         "corr_diff": corr_moments,
         "flash_attention": flash_attention,
     }

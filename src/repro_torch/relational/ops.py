@@ -10,9 +10,8 @@ Conventions:
   * outer joins add ``__left_present`` / ``__right_present`` int8 columns and
     fill absent side values with 0 (exactly the Ø→0 convention of Def. 4);
   * group-by capacity is static; overflowing groups land in a discard slot
-    (``index_add_`` raises on out-of-range ids where ``segment_sum`` drops
-    them, so every scatter here targets ``num_groups + 1`` slots and slices
-    the last one off).
+    ``num_groups``: the segment sums drop it, and every scatter here targets
+    ``num_groups + 1`` slots and slices the last one off.
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
-from repro_torch.relational.expr import Expr, eval_expr
+from repro_torch.kernels.segment_aggsum import segment_groupby
+from repro_torch.relational.expr import Expr, eval_expr, expr_columns
 from repro_torch.relational.relation import (
     SENTINEL_KEY,
     Relation,
@@ -212,17 +212,34 @@ def outer_join_unique(
 def group_ids(rel: Relation, keys: Sequence[str], num_groups: int):
     """The group-by's row numbering: ``(order, sorted keys, sorted valid,
     group-start flags, gid)``.  Rows are stably sorted by key; ``gid`` is
-    each sorted row's dense group rank, and invalid rows and groups past
-    ``num_groups`` land in the overflow slot ``num_groups``."""
+    each sorted row's dense group rank (int32, non-decreasing), and invalid
+    rows and groups past ``num_groups`` land in the overflow slot
+    ``num_groups``."""
     kcols = tuple(sentinel_where(rel.valid, rel.col(c)) for c in keys)
     order = lexsort_indices(kcols)
     sk = tuple(k[order] for k in kcols)
     sv = rel.valid[order]
     first = torch.arange(rel.capacity, device=rel.device) == 0
     is_start = sv & (~keys_equal(sk, tuple(_shift_prev(k) for k in sk)) | first)
-    gid = torch.cumsum(is_start, 0) - 1
+    gid = torch.cumsum(is_start, 0, dtype=torch.int32) - 1
     gid = torch.where(sv, gid.clamp(0, num_groups), torch.full_like(gid, num_groups))
     return order, sk, sv, is_start, gid
+
+
+def _agg_columns(rel: Relation, aggs) -> Tuple[str, ...]:
+    """The columns of ``rel`` that the aggregates' values read: named
+    columns, and the ``__present`` flag of each ``IsNotNull`` operand."""
+    need, exprs = set(), False
+    for _fn, value in aggs.values():
+        if isinstance(value, str):
+            need.add(value)
+        elif isinstance(value, Expr):
+            exprs = True
+            for c in expr_columns(value):
+                need.update((c, c + "__present"))
+    cols = tuple(c for c in rel.schema.columns if c in need)
+    # an IsNotNull without its flag takes its shape from some column
+    return cols or (rel.schema.columns[:1] if exprs else ())
 
 
 def groupby(
@@ -235,6 +252,8 @@ def groupby(
 
     fn ∈ {sum, count, mean, min, max}.  Output capacity = ``num_groups``;
     groups beyond it land in the overflow slot ``num_groups`` and drop.
+    Counts and every sum and mean column come from one ``segment_groupby``
+    over the sorted group ids (the CUDA reduce-by-key on the card).
     """
     keys = tuple(keys)
     dev = rel.device
@@ -244,39 +263,45 @@ def groupby(
     out_cols: Dict[str, torch.Tensor] = {}
     # group keys: each group's start row writes its key; every other row
     # writes a scratch slot past the overflow slot (dropped below)
-    start_slot = torch.where(is_start, gid, torch.full_like(gid, nseg))
+    start_slot = torch.where(is_start, gid, torch.full_like(gid, nseg)).long()
     for c, k in zip(keys, sk):
         out = torch.empty(nseg + 1, dtype=k.dtype, device=dev)
         out.index_put_((start_slot,), k)
         out_cols[c] = out[:num_groups]
-    counts = torch.zeros(nseg, dtype=torch.int32, device=dev)
-    counts.index_add_(0, gid, sv.to(torch.int32))
-    counts = counts[:num_groups]
-    group_valid = counts > 0
 
-    sorted_cols = {c: rel.col(c)[order] for c in rel.schema.columns}
+    sorted_cols = {c: rel.col(c)[order] for c in _agg_columns(rel, aggs)}
+    values: Dict[str, torch.Tensor] = {}
     for out, (fn, value) in aggs.items():
         if fn == "count":
-            out_cols[out] = counts.to(torch.float32)
             continue
+        if fn not in ("sum", "mean", "min", "max"):
+            raise ValueError(fn)
         if value is None:
             raise ValueError(f"agg {fn} needs a value expression")
         v = sorted_cols[value] if isinstance(value, str) else eval_expr(value, sorted_cols)
-        v = as_column(v, dev).to(torch.float32).expand(sv.shape)
-        if fn in ("sum", "mean"):
-            s = torch.zeros(nseg, dtype=torch.float32, device=dev)
-            s.index_add_(0, gid, zeros_where(sv, v))
-            s = s[:num_groups]
+        values[out] = as_column(v, dev).to(torch.float32).expand(sv.shape)
+    # every sum and mean column as one (R, C) panel, invalid rows zeroed
+    summed = [out for out, (fn, _v) in aggs.items() if fn in ("sum", "mean")]
+    panel = torch.empty((sv.shape[0], len(summed)), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for j, out in enumerate(summed):
+        torch.where(sv, values[out], zero, out=panel[:, j])
+    counts, sums = segment_groupby(gid, panel, num_groups)
+    group_valid = counts > 0
+
+    for out, (fn, _value) in aggs.items():
+        if fn == "count":
+            out_cols[out] = counts.to(torch.float32)
+        elif fn in ("sum", "mean"):
+            s = sums[:, summed.index(out)]
             out_cols[out] = s if fn == "sum" else s / counts.clamp(min=1)
-        elif fn in ("min", "max"):
+        else:
+            v = values[out]
             init = float("inf") if fn == "min" else float("-inf")
             s = torch.full((nseg,), init, dtype=torch.float32, device=dev)
-            fill = torch.full_like(v, init)
-            s.scatter_reduce_(0, gid, torch.where(sv, v, fill),
+            s.scatter_reduce_(0, gid.long(), torch.where(sv, v, torch.full_like(v, init)),
                               "amin" if fn == "min" else "amax")
             out_cols[out] = zeros_where(group_valid, s[:num_groups])
-        else:
-            raise ValueError(fn)
 
     for c in keys:
         out_cols[c] = sentinel_where(group_valid, out_cols[c])

@@ -13,7 +13,10 @@ plus, for atomically accumulated group sums, the float32 bound
 fleet_merge and fleet_score must equal their plain versions bit for bit;
 fleet_moments within 1e-6 relative.  segment_sum's counts are exact and
 its sums within γ_{n−1}·Σ|x| of the float64 sums (the bound of a float32
-sum of n terms in any order); corr_moments' count is exact, its sums
+sum of n terms in any order); over sorted ids (segment_groupby, the
+group-by's) counts are exact in int32 and each sum is its float64 sum
+rounded once, within 2^-24·|S| + 1e-8·Σ|x| and 1e-6·Σ|x|, the same bits
+on every call; corr_moments' count is exact, its sums
 within 1e-6 of Σ|x| of the float64 sums, and the same bits run to run.
 flash_attention within 1e-4 in float32 (the same f32 sums in another
 order) and 1e-2 in bfloat16 (an output may round to the neighbouring bf16
@@ -623,6 +626,262 @@ def test_corr_moments_kernel_matches_plain_and_is_deterministic(dev, n, mask_dty
     bound = _gamma_bound(torch.tensor(float(n), device=dev)) * scale
     assert bool(((want[:2].double() - exact).abs() <= bound + 1e-30).all())
     assert torch.equal(got, torch.stack(corr_moments(t_new, t_old, mask)))  # same bits
+
+
+# ---------------------------------------------------------------------------
+# The sorted reduce-by-key (segment_groupby, segment_sum with
+# indices_are_sorted=True): counts exact, each sum its float64 sum rounded
+# once (within 2^-24·|S| + 1e-8·Σ|x| of the float64 sum, hence within
+# F64_SUM_RTOL·Σ|x| = 1e-6·Σ|x|), the same bits on every call
+# ---------------------------------------------------------------------------
+
+def _hold_sorted(counts, sums, gid, vals, G):
+    keep = (gid >= 0) & (gid < G)
+    g = torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    C = vals.shape[1]
+    exact_n = torch.zeros(G + 1, dtype=torch.int64, device=gid.device).index_add_(
+        0, g, torch.ones_like(g))[:G]
+    if counts is not None:
+        assert counts.dtype == torch.int32
+        assert torch.equal(counts.long(), exact_n)
+    exact = torch.zeros((G + 1, C), dtype=torch.float64, device=gid.device).index_add_(
+        0, g, vals.double())[:G]
+    abs_sum = torch.zeros((G + 1, C), dtype=torch.float64, device=gid.device).index_add_(
+        0, g, vals.double().abs())[:G]
+    err = (sums.double() - exact).abs()
+    assert bool((err <= 2.0 ** -24 * exact.abs() + 1e-8 * abs_sum).all()), float(err.max())
+    assert bool((err <= 1e-6 * abs_sum).all())
+    assert bool((sums[exact_n == 0] == 0).all())  # absent groups read 0
+
+
+def _sorted_ids(rng, R, G, kind):
+    if kind == "uniform":
+        return np.sort(rng.integers(-2, G + 3, R)).astype(np.int32)
+    if kind == "groupby":  # dense ranks, Zipf-sized, then the overflow slot
+        sizes = np.minimum(rng.zipf(1.6, G), R)
+        ids = np.repeat(np.arange(G), sizes)[: R - R // 4]
+        return np.concatenate([ids, np.full(R - len(ids), G)]).astype(np.int32)
+    if kind == "one_group":
+        return np.full(R, G // 2, np.int32)
+    if kind == "out_of_range":
+        return np.sort(np.where(rng.uniform(size=R) < 0.5, -1, G + 1)).astype(np.int32)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+@pytest.mark.parametrize("edge", ["one", "tile-1", "tile", "tile+1", "1000003"])
+@pytest.mark.parametrize("kind", ["uniform", "groupby"])
+def test_segment_groupby_kernel_over_tile_edges(dev, C, edge, kind):
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_groupby_ref
+
+    tile = 256 * (16 if C <= 2 else 8 if C <= 4 else 4)  # rows of a chunk (rows_per_thread)
+    R = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "1000003": 1_000_003}[edge]
+    G = max(1, R // 7)
+    rng = np.random.default_rng(R + C)
+    gid = torch.from_numpy(_sorted_ids(rng, R, G, kind)).to(dev)
+    vals = torch.from_numpy(rng.uniform(-50.0, 100.0, (R, C)).astype(np.float32)).to(dev)
+    before = segment_groupby.launches
+    counts, sums = segment_groupby(gid, vals, G)
+    torch.cuda.synchronize()
+    assert segment_groupby.launches == before + 1
+    _hold_sorted(counts, sums, gid, vals, G)
+    want_n, want_s = segment_groupby_ref(gid, vals, G)
+    assert torch.equal(counts, want_n)
+    assert bool(((sums.double() - want_s.double()).abs()
+                 <= (_gamma_bound(want_n[:, None].double()) + 1e-6)
+                 * segment_groupby_ref(gid, vals.abs(), G)[1].double()).all())
+    again = segment_groupby(gid, vals, G)
+    assert torch.equal(again[0], counts) and torch.equal(again[1].view(torch.int32),
+                                                         sums.view(torch.int32))
+
+
+@pytest.mark.parametrize("R,C", [(4096 * 300 + 17, 1), (1_000_003, 2), (200_000, 8)])
+def test_segment_groupby_one_group_spans_every_tile(dev, R, C):
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
+    rng = np.random.default_rng(R)
+    G = 5
+    gid = torch.from_numpy(_sorted_ids(rng, R, G, "one_group")).to(dev)
+    vals = torch.from_numpy(rng.gamma(2.0, 4e6, (R, C)).astype(np.float32)).to(dev)
+    counts, sums = segment_groupby(gid, vals, G)
+    _hold_sorted(counts, sums, gid, vals, G)
+    assert counts.tolist() == [0, 0, R, 0, 0]
+
+
+@pytest.mark.parametrize("C", [0, 1, 3])
+def test_segment_groupby_every_id_out_of_range(dev, C):
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
+    rng = np.random.default_rng(C)
+    R, G = 300_001, 1000
+    gid = torch.from_numpy(_sorted_ids(rng, R, G, "out_of_range")).to(dev)
+    vals = torch.from_numpy(rng.normal(size=(R, C)).astype(np.float32)).to(dev)
+    counts, sums = segment_groupby(gid, vals, G)
+    assert not bool(counts.any()) and not bool(sums.any())
+    assert tuple(sums.shape) == (G, C)
+
+
+def test_segment_groupby_empty_tail_reads_zero(dev):
+    """The group-by's capacity far above its groups: every slot past the
+    last group (and any left by a call before) must read 0."""
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
+    rng = np.random.default_rng(7)
+    R, G = 2_000_000, 1_500_000
+    gid = np.sort(rng.integers(0, 40_000, R)).astype(np.int32)
+    gid[-R // 3:] = G  # invalid rows in the overflow slot
+    gid_t = torch.from_numpy(gid).to(dev)
+    vals = torch.from_numpy(rng.normal(size=(R, 2)).astype(np.float32)).to(dev)
+    segment_groupby(torch.zeros(R, dtype=torch.int32, device=dev) + 39_999, vals, G)
+    counts, sums = segment_groupby(gid_t, vals, G)
+    _hold_sorted(counts, sums, gid_t, vals, G)
+    assert not bool(counts[40_000:].any()) and not bool(sums[40_000:].any())
+
+
+def test_segment_groupby_counts_one_group_past_2_24(dev):
+    """17,000,000 rows of one group: int32 counts stay exact where a float32
+    count column stops at 2^24."""
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
+    R = 17_000_000
+    gid = torch.full((R,), 3, dtype=torch.int32, device=dev)
+    vals = torch.ones((R, 1), dtype=torch.float32, device=dev)
+    counts, sums = segment_groupby(gid, vals, 4)
+    assert counts.tolist() == [0, 0, 0, R]
+    assert sums[:, 0].tolist() == [0.0, 0.0, 0.0, float(R)]  # 17,000,000 is a float32
+
+
+@pytest.mark.parametrize("C", [1, 2, 8, 11])
+def test_sorted_segment_sum_matches_plain_and_repeats_bit_equal(dev, C):
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_sum, segment_sum_ref
+
+    rng = np.random.default_rng(C)
+    R, G = 1_500_007, 200_000
+    gid = torch.from_numpy(_sorted_ids(rng, R, G, "groupby")).to(dev)
+    vals = torch.from_numpy(rng.normal(0.0, 1e3, (R, C)).astype(np.float32)).to(dev)
+    before = segment_groupby.launches, segment_sum.launches
+    got = segment_sum(gid, vals, G, indices_are_sorted=True)
+    torch.cuda.synchronize()
+    assert segment_groupby.launches == before[0] + -(-C // 8)  # one launch per 8 columns
+    assert segment_sum.launches == before[1]  # the unsorted route's counter
+    _hold_sorted(None, got, gid, vals, G)
+    plain = segment_sum_ref(gid, vals, G).double()
+    n = segment_sum_ref(gid, torch.ones_like(vals[:, :1]), G).double()
+    bound = (_gamma_bound(n) + 1e-6) * segment_sum_ref(gid, vals.abs(), G).double()
+    assert bool(((got.double() - plain).abs() <= bound).all())
+    for _ in range(3):
+        assert torch.equal(segment_sum(gid, vals, G, indices_are_sorted=True).view(torch.int32),
+                           got.view(torch.int32))
+    one = segment_sum(gid, vals[:, 0].contiguous(), G, indices_are_sorted=True)
+    assert one.shape == (G,)
+
+
+def test_sorted_segment_sum_ids_out_of_order_count_exactly(dev):
+    """The sorted route given shuffled ids: every row is still summed once
+    (counts exact, sums within the float32 bound); only the bits may vary."""
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
+    rng = np.random.default_rng(11)
+    R, G = 500_000, 3000
+    gid = torch.from_numpy(rng.permutation(_sorted_ids(rng, R, G, "uniform"))).to(dev)
+    vals = torch.from_numpy(rng.uniform(0.0, 10.0, (R, 2)).astype(np.float32)).to(dev)
+    counts, sums = segment_groupby(gid, vals, G)
+    keep = (gid >= 0) & (gid < G)
+    g = torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    exact = torch.zeros((G + 1, 2), dtype=torch.float64, device=dev).index_add_(
+        0, g, vals.double())[:G]
+    assert torch.equal(counts.long(), torch.bincount(g, minlength=G + 1)[:G])
+    bound = _gamma_bound(counts[:, None].double()) * exact  # values ≥ 0: Σ|x| = Σx
+    assert bool(((sums.double() - exact).abs() <= bound + 1e-6 * exact).all())
+
+
+def test_segment_groupby_is_one_kernel_after_two_memsets(dev):
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_sum
+
+    rng = np.random.default_rng(0)
+    R, G = 1_000_000, 50_000
+    gid = torch.from_numpy(_sorted_ids(rng, R, G, "groupby")).to(dev)
+    vals = torch.from_numpy(rng.normal(size=(R, 2)).astype(np.float32)).to(dev)
+    # counts and sums zeroed by memsets, then one launch
+    assert _device_launches(lambda: segment_groupby(gid, vals, G)) == 3
+    assert _device_launches(lambda: segment_sum(gid, vals, G, indices_are_sorted=True)) == 2
+
+
+@pytest.mark.parametrize("aggs_kind", ["sum_count", "all"])
+def test_groupby_on_the_card_matches_the_cpu(dev, aggs_kind):
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+    from repro_torch.relational import ops
+    from repro_torch.relational.expr import Bin, Col, Lit
+    from repro_torch.relational.relation import from_columns
+
+    rng = np.random.default_rng(5)
+    n, cap, nk = 3_000_000, 3_500_000, 200_000
+    cols = {"id": np.arange(n, dtype=np.int32),
+            "k": (rng.zipf(1.6, n) % nk).astype(np.int32),
+            "val": rng.gamma(2.0, 4e6, n).astype(np.float32),
+            "w": rng.normal(size=n).astype(np.float32)}
+    valid = rng.uniform(size=n) < 0.9
+    cpu = from_columns(cols, pk=["id"], valid=valid, capacity=cap, device="cpu")
+    card = from_columns(cols, pk=["id"], valid=valid, capacity=cap, device=dev)
+    aggs = {"n": ("count", None), "s": ("sum", "val")}
+    if aggs_kind == "all":
+        aggs.update({"mu": ("mean", "w"), "mn": ("min", "val"), "mx": ("max", "w"),
+                     "s2": ("sum", Bin("mul", Col("w"), Lit(3.0)))})
+    G = len(np.unique(cols["k"][valid])) // 2  # fewer slots than groups: the rest overflow
+    before = segment_groupby.launches
+    got = ops.groupby(card, ("k",), aggs, G)
+    torch.cuda.synchronize()
+    assert segment_groupby.launches == before + 1
+    want = ops.groupby(cpu, ("k",), aggs, G)
+    assert bool(want.valid.all())
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert torch.equal(got.col("k").cpu(), want.col("k"))
+    assert torch.equal(got.col("n").cpu(), want.col("n"))
+    for c in ("mn", "mx"):
+        if c in aggs:
+            assert torch.equal(got.col(c).cpu(), want.col(c))
+    # sums against the float64 sums of the CPU's own sorted rows
+    order, _sk, sv, _st, gid = ops.group_ids(cpu, ("k",), G)
+    for c, expr in (("s", cpu.col("val")), ("s2", cpu.col("w") * 3.0), ("mu", cpu.col("w"))):
+        if c not in aggs:
+            continue
+        x = torch.where(sv, expr[order].double(), torch.zeros((), dtype=torch.float64))
+        g = gid.long()
+        exact = torch.zeros(G + 1, dtype=torch.float64).index_add_(0, g, x)[:G]
+        abs_sum = torch.zeros(G + 1, dtype=torch.float64).index_add_(0, g, x.abs())[:G]
+        if c == "mu":
+            cnt = want.col("n").double().clamp(min=1)
+            exact, abs_sum = exact / cnt, abs_sum / cnt
+        err = (got.col(c).cpu().double() - exact).abs()
+        assert bool((err <= 1e-6 * abs_sum + 1e-30).all()), (c, float(err.max()))
+    prof = _kernel_rows(lambda: ops.groupby(card, ("k",), aggs, G))
+    assert any("segment_sorted" in k for k in prof)
+    assert not any("index_add" in k for k in prof)
+
+
+def _kernel_rows(fn):
+    """Names of the device rows (kernels, copies, memsets) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+def test_segment_groupby_raises_instead_of_falling_back(dev):
+    from repro_torch.kernels.segment_aggsum import segment_groupby
+
+    gid = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        segment_groupby(gid.long(), torch.ones(8, 2, device=dev), 4)
+    with pytest.raises(ValueError):
+        segment_groupby(gid, torch.ones(8, 2), 4)  # values on the CPU
+    with pytest.raises(ValueError):
+        segment_groupby(gid, torch.ones(2, 8, device=dev).t(), 4)  # not contiguous
 
 
 def test_new_wrappers_raise_instead_of_falling_back(dev):

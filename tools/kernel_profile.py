@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device and host time of the fleet_merge, outlier_member and multi_agg wrappers, per kernel.
+"""Device and host time of the fleet_merge, outlier_member, multi_agg, segment_aggsum and fleet_score wrappers, per kernel.
 
 Builds inputs of the shapes and densities that ``chip_smoke.py``'s paths
 give these wrappers (numpy, seeded): fleet_merge at 15 views × 4,096 stale
@@ -16,7 +16,14 @@ and the one-sided one over the 1,500,000-row view, each called as the
 query engine calls it (with the batch's decoded selector), once with half
 the rows valid at random and once with the smoke's shares of valid rows
 (1.1% and 0.65% of the panel's sides, 9.2% of the view) in front, as the
-engine's panels keep them.  For each wrapper it prints one
+engine's panels keep them; segment_aggsum at the smoke's ``kernel_api``
+shape (the group-by ids of a 10M-session ``grow_log`` delta in a
+16,777,216-row arena: 10M rows in range, the hot group ~2.19M rows, the
+rest in the overflow slot G = 1.5M; values ``[bytes, 1]``), through the
+sorted route (``segment_sum(..., indices_are_sorted=True)``), the
+group-by's entry (``segment_groupby`` on ``[bytes]``, counts in int32)
+and the unsorted route on a seeded shuffle of the same rows; fleet_score
+on the planner's (16, 13) feature panel.  For each wrapper it prints one
 JSON line: the host microseconds a call takes to enqueue (calls without a
 synchronize in between), the device microseconds of each kernel a call
 runs (``torch.profiler``, averaged over the calls) and their sum, the
@@ -25,7 +32,7 @@ calls.  The last line is the card's name and power limit.
 
 Run on a machine with a card, from the repository root:
 
-    python3 tools/kernel_profile.py [--iters 50] [--only multi_agg]
+    python3 tools/kernel_profile.py [--iters 50] [--only multi_agg|segment_aggsum|fleet_score]
 """
 
 from __future__ import annotations
@@ -165,7 +172,8 @@ def measure(name, fn, iters):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--only", choices=("fleet_merge", "outlier_member", "multi_agg"))
+    ap.add_argument("--only", choices=("fleet_merge", "outlier_member", "multi_agg",
+                                       "segment_aggsum", "fleet_score"))
     args = ap.parse_args(argv)
     import torch
 
@@ -180,6 +188,10 @@ def main(argv=None) -> int:
         profile_outlier_member(rng, args.iters)
     if args.only in (None, "multi_agg"):
         profile_multi_agg(np.random.default_rng(0), args.iters)
+    if args.only in (None, "segment_aggsum"):
+        profile_segment_aggsum(np.random.default_rng(0), args.iters)
+    if args.only in (None, "fleet_score"):
+        profile_fleet_score(np.random.default_rng(0), args.iters)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     return 0
@@ -211,6 +223,49 @@ def profile_outlier_member(rng, iters):
         measure(f"digest_table keys={keys}", lambda: digest_table(tkeys), iters)
     big = (torch.from_numpy(rng.integers(0, 1 << 30, 1_500_000).astype(np.int32)).cuda(),)
     measure("digest_table keys=1500000", lambda: digest_table(big), iters)
+
+
+def segment_inputs(rng, rows=16_777_216, kept=10_000_000, groups=1_500_000, videos=1_000_000):
+    """The group-by's ids and ``[bytes, 1]`` over a streamed delta arena:
+    ``grow_log``'s video ids (half the newest 10% uniform, half Zipf(1.6)),
+    sorted and ranked, then the arena's empty slots in the overflow slot."""
+    import torch
+
+    hot = rng.random(kept) < 0.5
+    vid = np.where(hot, rng.integers(int(videos * 0.9), videos, kept),
+                   rng.zipf(1.6, size=kept) % videos)
+    _keys, rank = np.unique(np.sort(vid), return_inverse=True)
+    gid = np.concatenate([rank, np.full(rows - kept, groups)]).astype(np.int32)
+    vals = np.stack([rng.gamma(2.0, 4e6, rows), np.ones(rows)], 1).astype(np.float32)
+    return torch.from_numpy(gid).cuda(), torch.from_numpy(vals).cuda(), groups
+
+
+def profile_segment_aggsum(rng, iters):
+    import torch
+
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_sum
+
+    gid, vals, G = segment_inputs(rng)
+    hot = int(torch.bincount(gid[gid < G].long()).max())
+    tag = f"rows={gid.shape[0]} groups={G} hot={hot}"
+    measure(f"segment_sum sorted {tag} C=2",
+            lambda: segment_sum(gid, vals, G, indices_are_sorted=True), iters)
+    bytes_ = vals[:, :1].contiguous()
+    measure(f"segment_groupby {tag} C=1 counts int32", lambda: segment_groupby(gid, bytes_, G),
+            iters)
+    perm = torch.from_numpy(rng.permutation(gid.shape[0])).cuda()
+    gid_sh, vals_sh = gid[perm].contiguous(), vals[perm].contiguous()
+    measure(f"segment_sum unsorted (shuffled) {tag} C=2",
+            lambda: segment_sum(gid_sh, vals_sh, G), iters)
+
+
+def profile_fleet_score(rng, iters):
+    import torch
+
+    from repro_torch.kernels.fleet_score import N_FEATURES, fleet_scores
+
+    feats = torch.from_numpy(rng.uniform(0.0, 10.0, (16, N_FEATURES)).astype(np.float32)).cuda()
+    measure(f"fleet_score V=16 F={N_FEATURES}", lambda: fleet_scores(feats), iters)
 
 
 if __name__ == "__main__":
