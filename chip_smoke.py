@@ -29,7 +29,9 @@ size, through the entry points a user calls:
      card against the CPU.  Every attention is the flash_attention kernel.
 
 Each path runs with the launch counters set to 0 just before it and read
-just after; every kernel is then held against its plain PyTorch version on
+just after (the main path and ``kernel_api`` also give, in ``routes``,
+the launches of hash_threshold and corr_moments by route: 16-byte vector
+or scalar); every kernel is then held against its plain PyTorch version on
 its path's own tensors.  One JSON object per phase; the line before the
 last two is the kernel table, the next the card's name and power limit as
 ``nvidia-smi`` reports them, and the last line is
@@ -196,6 +198,27 @@ def host_enqueue_us(fn, iters: int) -> float:
     us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Median device milliseconds of one call of ``fn`` that finds the L2
+    cache cold: a 256 MB buffer (five times the card's 50 MB L2) is written
+    before each call, and each call is timed by its own event pair.  The
+    L2 then holds the buffer's dirty lines, whose write-back the call pays
+    as a caller after a large write would."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    fn()
+    for start, end in pairs:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 def wall(fn):
@@ -543,17 +566,54 @@ def check_kernels(state, queries, m, seed, launches, iters):
     vid, nbytes, valid = vid[:R].contiguous(), nbytes[:R].contiguous(), valid[:R].contiguous()
     out = []
 
-    # 1. hash_threshold: η on the delta's view key
-    got = hash_threshold((vid,), m, seed)
+    # 1. hash_threshold: η on the delta's view key, bare and narrowing the
+    # delta's validity, and at the main path's own shape (register_view's
+    # apply_hash over the view's 1.5M rows): the fused-validity entry.
+    # Times back to back, and cold (the L2 flushed before each call), with
+    # each call's host enqueue and device launches.
+    mat = state["materialized"]
+    mat_cols = (mat.col("videoId"),)
     want = hash_threshold_ref((vid,), m, seed)
-    if not torch.equal(got, want):
-        fail("hash_threshold mask differs from its plain version")
+    want_mat = hash_threshold_ref(mat_cols, m, seed)
+    for what, got, exp in (
+            ("delta rows", hash_threshold((vid,), m, seed), want),
+            ("delta rows, validity", hash_threshold((vid,), m, seed, valid), valid & want),
+            ("view rows", hash_threshold(mat_cols, m, seed), want_mat),
+            ("view rows, validity", hash_threshold(mat_cols, m, seed, mat.valid),
+             mat.valid & want_mat)):
+        if not torch.equal(got, exp):
+            fail(f"hash_threshold differs from its plain version ({what})")
+    RV = int(mat.valid.shape[0])
+
+    def timings(fn, plain, bytes_):
+        return {"ms": cuda_ms(fn, iters), "cold_ms": cold_ms(fn, iters),
+                "plain_ms": cuda_ms(plain, iters),
+                "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+                "host_enqueue_us": host_enqueue_us(fn, iters),
+                "launches_per_call": device_launches(fn)}
+
+    bare = timings(lambda: hash_threshold((vid,), m, seed),
+                   lambda: hash_threshold_ref((vid,), m, seed), R * (4 + 1))
     out.append(kernel_entry(
         "hash_threshold", "cuda", "src/repro_torch/csrc/hash_threshold.cu",
         "src/repro/kernels/hash_threshold/kernel.py:45", launches["hash_threshold"], 0.0,
-        cuda_ms(lambda: hash_threshold((vid,), m, seed), iters),
-        cuda_ms(lambda: hash_threshold_ref((vid,), m, seed), iters),
-        bytes_=R * (4 + 1), ops=0, rows=R,
+        bare["ms"], bare["plain_ms"], bytes_=R * (4 + 1), ops=0, rows=R,
+        cold_ms=bare["cold_ms"], host_enqueue_us=bare["host_enqueue_us"],
+        launches_per_call=bare["launches_per_call"],
+        fused_validity={
+            "entry": "hash_threshold(cols, m, seed, valid): apply_hash's narrowed validity",
+            "rows": R, **timings(lambda: hash_threshold((vid,), m, seed, valid),
+                                 lambda: valid & hash_threshold_ref((vid,), m, seed),
+                                 R * (4 + 1 + 1))},
+        main_path_shape={
+            "entry": "the fused-validity entry over the view's rows, as register_view's "
+                     "apply_hash calls it",
+            "rows": RV, "valid_rows": int(mat.valid.sum()),
+            **timings(lambda: hash_threshold(mat_cols, m, seed, mat.valid),
+                      lambda: mat.valid & hash_threshold_ref(mat_cols, m, seed),
+                      RV * (4 + 1 + 1)),
+            "bare_ms": cuda_ms(lambda: hash_threshold(mat_cols, m, seed), iters)},
+        tolerance="equal masks and validities",
     ))
 
     # 2. fused_clean: η ∨ pin, per-group [count | Σbytes] at G = 2^20.
@@ -624,8 +684,6 @@ def check_kernels(state, queries, m, seed, launches, iters):
     idx = state["index"]
     keys_k = (sentinel_where(idx.records.valid, idx.records.col("videoId")),)
     table_k = digest_table(keys_k)
-    mat = state["materialized"]
-    mat_cols = (mat.col("videoId"),)
     full_table = digest_table(pin_keys)
     for what, cols, ok, tab in (("delta rows, index table", (vid,), valid, table_k),
                                 ("view rows, pin table", mat_cols, mat.valid, pin.table),
@@ -1647,6 +1705,7 @@ def check_api_kernels(api, iters, main_launches):
     seg, seg_sh, corr = drive_api(seg_args, shuffled_args, corr_args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    routes = kernels.route_counts()
     for k in API_KERNELS:
         if launches[k] == 0:
             fail(f"kernel_api: {k} never launched")
@@ -1755,6 +1814,8 @@ def check_api_kernels(api, iters, main_launches):
         cuda_ms(lambda: corr_moments(t_new, t_old, mask), iters),
         cuda_ms(lambda: corr_diff_ref(t_new, t_old, mask), iters),
         bytes_=n * (4 + 4 + 1) + 3 * 4, ops=5 * n, library_ms=None,
+        host_enqueue_us=host_enqueue_us(lambda: corr_moments(t_new, t_old, mask), iters),
+        launches_per_call=device_launches(lambda: corr_moments(t_new, t_old, mask)),
         rows=n, valid_rows=int(float(got[2])), svc_corr_k=float(k), svc_corr_s=float(s),
         max_bound_share=share_c,
         moments=[float(x) for x in got],
@@ -1764,7 +1825,7 @@ def check_api_kernels(api, iters, main_launches):
                    "within gamma_{n-1}*sum|x|; (gamma_{k-1} + 1e-6)*sum|x| of svc_corr's s, "
                    "k its live rows; the same bits run to run"),
     ))
-    return out, launches
+    return out, launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -2261,6 +2322,7 @@ def main(argv=None) -> int:
     kernels.reset_launches()
     times, ests, state = run_svc_loop(vm, view, log, video, delta, groups, M, K, queries)
     launches = kernels.launch_counts()
+    routes = kernels.route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     missing = [k for k in SVC_LOOP_KERNELS if launches[k] == 0]
     if missing:
@@ -2282,7 +2344,7 @@ def main(argv=None) -> int:
     emit({"phase": "main_path", "n_videos": N_VIDEOS, "n_logs": args.n_logs,
           "log_capacity": log.capacity, "delta_rows": N_DELTA, "m": M, "k": K,
           "queries": len(queries), "setup_s": setup_s, "wall_s": times,
-          "peak_device_gb": peak_gb, "launches": launches,
+          "peak_device_gb": peak_gb, "launches": launches, "routes": routes,
           "groupby_launches": state["groupby_launches"], "int_count_lane": int_lane,
           "pinned_refresh": state["pinned_refresh"], "fused_vs_unfused": fused_vs_unfused, "stale_eq_exact_fresh_after_ivm": True,
           "svc_rel_err_vs_fresh": errs, "card": smi})
@@ -2303,9 +2365,10 @@ def main(argv=None) -> int:
     emit({"phase": "stream_path", "n_videos": N_VIDEOS, "n_logs": args.n_logs,
           "stream_rows": N_DELTA, "m": M, **stream,
           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
-    api_table, api_launches = check_api_kernels(api, ITERS, launches["segment_aggsum"])
+    api_table, api_launches, api_routes = check_api_kernels(api, ITERS,
+                                                            launches["segment_aggsum"])
     del api
-    emit({"phase": "kernel_api", "launches": api_launches, "card": smi})
+    emit({"phase": "kernel_api", "launches": api_launches, "routes": api_routes, "card": smi})
     for entry in api_table:
         emit({"phase": "kernel", **entry, "card": smi})
     # the group-by's kernel rows in one unfused clean and one warm maintain_all

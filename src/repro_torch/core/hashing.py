@@ -77,11 +77,13 @@ def hash_u01(cols: Sequence[torch.Tensor], seed: int = 0) -> torch.Tensor:
     return h.to(torch.float32) * (1.0 / 4294967296.0)
 
 
-def hash_threshold_mask(cols: Sequence[torch.Tensor], m: float, seed: int = 0) -> torch.Tensor:
-    """η_{a,m}: boolean keep-mask, True where h(a) ≤ m."""
+def hash_threshold_mask(cols: Sequence[torch.Tensor], m: float, seed: int = 0,
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """η_{a,m}: boolean keep-mask, True where h(a) ≤ m; given ``valid``,
+    ``valid & keep`` from the same pass."""
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
 
-    return hash_threshold(tuple(cols), float(m), int(seed))
+    return hash_threshold(tuple(cols), float(m), int(seed), valid)
 
 
 def apply_hash(rel, cols: Tuple[str, ...], m: float, seed: int = 0, pin=None):
@@ -93,8 +95,8 @@ def apply_hash(rel, cols: Tuple[str, ...], m: float, seed: int = 0, pin=None):
     against the pin's digest table.
     """
     if pin is None:
-        mask = hash_threshold_mask([rel.columns[c] for c in cols], m, seed)
-        return rel.replace(valid=rel.valid & mask)
+        return rel.replace(valid=hash_threshold_mask([rel.columns[c] for c in cols], m, seed,
+                                                     rel.valid))
 
     from repro_torch.core.outliers import apply_hash_with_outliers
 

@@ -5,7 +5,9 @@ and ``ref.py`` (its plain PyTorch version).  A wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises — there is no fallback.  Every wrapper carries a plain
 integer ``launches`` that it bumps where it launches its kernel, so a run
-can show that the main path went through the kernels.
+can show that the main path went through the kernels; hash_threshold and
+corr_moments also count the launches of each of their kernel's two routes
+in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
 
   hash_threshold  — η_{a,m} mask
   fused_clean     — η + per-group count/sum over delta rows in one pass
@@ -69,7 +71,14 @@ def wrappers() -> Dict[str, object]:
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "routes", ()):
+            fn.routes[route] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """Launches by route (vector or scalar) of the wrappers that have two."""
+    return {name: dict(fn.routes) for name, fn in wrappers().items() if hasattr(fn, "routes")}

@@ -125,8 +125,18 @@ def launch(name: str, argtypes: tuple, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index`` (a persistent grid's bound)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream as a raw handle: the value of
+    ``torch.cuda.current_stream().cuda_stream`` without building a Stream
+    object, which costs more host time than a launch's ctypes call
+    (``tools/kernel_profile.py --only hash_threshold`` times both)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def ptr(t) -> int | None:

@@ -5,6 +5,14 @@ corr_moments``, a library call the JAX package exports (its ``svc_corr``
 takes the same moments with ``_masked_moments``, as the port's does).
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch
 ``csrc/corr_diff.cu`` or raise.
+
+The kernel's per-block partials and its ticket live in a persistent
+workspace per device and stream (the ticket zeroed once; every launch
+leaves it at 0), sized for the most blocks the card holds, so a call
+allocates only its output.  The wrapper takes the kernel's vector route
+when t_new and t_old are 16-byte aligned and the mask 4-byte aligned,
+else its scalar route; ``corr_moments.routes`` counts the launches of
+each.
 """
 
 from __future__ import annotations
@@ -14,8 +22,23 @@ import torch
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.corr_diff.ref import corr_diff_ref
 
-_ARGS = (B.P, B.P, B.P, B.I64, B.I32, B.P, B.P, B.P)
-_ROWS_PER_BLOCK = 4096  # 512 blocks at the smoke's 2^21 rows: every SM busy
+_ARGS = (B.P, B.P, B.P, B.I64, B.P, B.P, B.I32, B.I32, B.P, B.P)
+BLOCKS_PER_SM = 8  # the most 256-thread blocks an SM holds: the partials' bound
+
+_workspace: dict = {}
+
+
+def _partials(device: torch.device, stream: int):
+    """(ticket int32 (1,), partials float64 (3·blocks,), blocks) of the
+    device and stream, zeroed when first made."""
+    key = (device.index or 0, stream)
+    ws = _workspace.get(key)
+    if ws is None:
+        blocks = BLOCKS_PER_SM * B.sm_count(key[0])
+        ws = _workspace[key] = (torch.zeros(1, dtype=torch.int32, device=device),
+                                torch.zeros(3 * blocks, dtype=torch.float64, device=device),
+                                blocks)
+    return ws
 
 
 def corr_moments(t_new: torch.Tensor, t_old: torch.Tensor, mask: torch.Tensor):
@@ -32,15 +55,18 @@ def corr_moments(t_new: torch.Tensor, t_old: torch.Tensor, mask: torch.Tensor):
         return corr_diff_ref(t_new, t_old, mask)
     B.check_cuda(dev)
     if n == 0:
-        out = torch.zeros(3, dtype=torch.float32, device=dev)
-        return out[0], out[1], out[2]
-    out = torch.empty(3, dtype=torch.float32, device=dev)  # the finish writes all three
-    chunks = -(-n // _ROWS_PER_BLOCK)
-    partials = torch.empty((chunks, 3), dtype=torch.float64, device=dev)
-    B.launch("svc_corr_diff", _ARGS, t_new.data_ptr(), t_old.data_ptr(), mask.data_ptr(),
-             n, _ROWS_PER_BLOCK, partials.data_ptr(), out.data_ptr(), B.stream())
+        return torch.zeros(3, dtype=torch.float32, device=dev).unbind()
+    out = torch.empty(3, dtype=torch.float32, device=dev)  # the last block writes all three
+    stream = B.stream()
+    ticket, partials, blocks = _partials(dev, stream)
+    pn, po, pm = t_new.data_ptr(), t_old.data_ptr(), mask.data_ptr()
+    vec = pn % 16 == 0 and po % 16 == 0 and pm % 4 == 0
+    B.launch("svc_corr_diff", _ARGS, pn, po, pm, n, partials.data_ptr(), ticket.data_ptr(),
+             blocks, vec, out.data_ptr(), stream)
     corr_moments.launches += 1
-    return out[0], out[1], out[2]
+    corr_moments.routes["vector" if vec else "scalar"] += 1
+    return out.unbind()
 
 
 corr_moments.launches = 0
+corr_moments.routes = {"vector": 0, "scalar": 0}

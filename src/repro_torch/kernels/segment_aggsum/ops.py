@@ -18,7 +18,6 @@ two calls in flight on different streams would share it.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
@@ -35,16 +34,11 @@ BLOCKS_PER_SM = 8  # the most 256-thread blocks an SM holds: the records' bound
 _workspace: dict = {}
 
 
-@functools.lru_cache(maxsize=None)
-def _max_records(index: int) -> int:
-    return 2 * BLOCKS_PER_SM * torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _records(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The device's persistent (ticket + keys + counts int32, sums float64)."""
     ws = _workspace.get(device)
     if ws is None:
-        n = _max_records(device.index or 0)
+        n = 2 * BLOCKS_PER_SM * B.sm_count(device.index or 0)
         ws = _workspace[device] = (torch.zeros(1 + 2 * n, dtype=torch.int32, device=device),
                                    torch.zeros(n * MAX_COLS, dtype=torch.float64, device=device),
                                    n)

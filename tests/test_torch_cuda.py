@@ -117,6 +117,91 @@ def test_hash_threshold_kernel_matches_plain(dev, ncols, m):
     assert torch.equal(got, hash_threshold_ref(cols, m, 7))
 
 
+EDGE_SIZES = [1, 3, 4, 15, 16, 17, 100_003]
+
+
+def _at(t, offset):
+    """A copy of ``t`` viewed ``offset`` elements into a fresh buffer (its
+    data_ptr shifted by offset·itemsize from the allocator's alignment)."""
+    buf = torch.empty(t.shape[0] + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:]
+    view.copy_(t)
+    return view
+
+
+def _route_counts(wrapper, fn):
+    """(result, {route: launches}) of one call of ``fn``."""
+    before = dict(wrapper.routes)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: wrapper.routes[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("ncols", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_hash_threshold_routes_match_plain(dev, ncols, n, offset):
+    """Aligned columns take the vector route, columns viewed 4, 8 or 12
+    bytes into their storage the scalar one; both are bit-equal to the
+    plain version, bare and narrowing a validity, across the ragged tail."""
+    rng = np.random.default_rng(100 * ncols + n + offset)
+    cols = tuple(_at(c, offset) for c in _keys(rng, n, ncols, dev))
+    valid = _at(torch.from_numpy(rng.random(n) < 0.6).to(dev), offset)
+    route = "vector" if offset == 0 else "scalar"
+    want = hash_threshold_ref(cols, 0.3, 5)
+    got, counts = _route_counts(hash_threshold, lambda: hash_threshold(cols, 0.3, 5))
+    assert counts == {"vector": 0, "scalar": 0, route: 1}
+    assert torch.equal(got, want)
+    got, counts = _route_counts(hash_threshold, lambda: hash_threshold(cols, 0.3, 5, valid))
+    assert counts == {"vector": 0, "scalar": 0, route: 1}
+    assert torch.equal(got, valid & want)
+
+
+@pytest.mark.parametrize("offsets,valid_offset,route", [
+    ((0, 1, 2, 3), 0, "scalar"),   # four columns, four alignments
+    ((0, 4, 8), 0, "vector"),      # every column 16-byte aligned
+    ((0, 0), 1, "scalar"),         # the validity one byte off
+    ((0, 0), 2, "scalar"),
+    ((0, 0), 4, "vector"),         # the validity 4-byte aligned suffices
+    ((4, 2), 4, "scalar"),
+])
+@pytest.mark.parametrize("n", [4, 17, 1_000_003])
+def test_hash_threshold_columns_of_different_alignments(dev, offsets, valid_offset, route, n):
+    rng = np.random.default_rng(n + valid_offset)
+    cols = tuple(_at(c, o) for c, o in zip(_keys(rng, n, len(offsets), dev), offsets))
+    valid = _at(torch.from_numpy(rng.random(n) < 0.5).to(dev), valid_offset)
+    got, counts = _route_counts(hash_threshold, lambda: hash_threshold(cols, 0.6, 9, valid))
+    assert counts == {"vector": 0, "scalar": 0, route: 1}
+    assert torch.equal(got, valid & hash_threshold_ref(cols, 0.6, 9))
+
+
+def test_hash_threshold_of_no_rows_launches_nothing(dev):
+    cols = (torch.empty(0, dtype=torch.int32, device=dev),)
+    before = hash_threshold.launches
+    assert hash_threshold(cols, 0.5).shape == (0,)
+    assert hash_threshold.launches == before
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_apply_hash_without_a_pin_is_one_launch(dev, offset):
+    """η and the narrowed validity come from one kernel on the card."""
+    from repro_torch.core.hashing import apply_hash
+    from repro_torch.relational.relation import Relation, from_columns
+
+    rng = np.random.default_rng(offset)
+    n = 1_500_000
+    rel = from_columns({"k": rng.integers(0, 1 << 30, n).astype(np.int32),
+                        "j": rng.integers(-50, 50, n).astype(np.int32)},
+                       pk=["k", "j"], valid=rng.random(n) < 0.1, capacity=n + 7, device=dev)
+    if offset:
+        rel = Relation({c: _at(v, offset) for c, v in rel.columns.items()},
+                       _at(rel.valid, offset), rel.schema)
+    got = apply_hash(rel, ("k", "j"), 0.2, 3)
+    want = rel.valid & hash_threshold_ref((rel.col("k"), rel.col("j")), 0.2, 3)
+    assert torch.equal(got.valid, want)
+    assert _device_launches(lambda: apply_hash(rel, ("k", "j"), 0.2, 3)) == 1
+
+
 @pytest.mark.parametrize("pin", [False, True])
 @pytest.mark.parametrize("C", [0, 1, 3])
 def test_fused_clean_kernel_matches_plain(dev, pin, C):
@@ -626,6 +711,119 @@ def test_corr_moments_kernel_matches_plain_and_is_deterministic(dev, n, mask_dty
     bound = _gamma_bound(torch.tensor(float(n), device=dev)) * scale
     assert bool(((want[:2].double() - exact).abs() <= bound + 1e-30).all())
     assert torch.equal(got, torch.stack(corr_moments(t_new, t_old, mask)))  # same bits
+
+
+def _corr_inputs(rng, n, mask_dtype, dev, offsets=(0, 0, 0)):
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    t_new = t(rng.normal(5.0, 20.0, n).astype(np.float32))
+    t_old = t(rng.normal(4.0, 20.0, n).astype(np.float32))
+    mask = t(rng.uniform(size=n) < 0.7).to(mask_dtype)
+    if mask_dtype == torch.int8:
+        mask[: n // 3] *= 3  # int8 masks convert by value, as astype(float32) does
+    return tuple(_at(x, o) for x, o in zip((t_new, t_old, mask), offsets))
+
+
+def _hold_corr(got, t_new, t_old, mask):
+    """The count exact; Σd and Σd² within 1e-6·Σ|x| of the float64 sums."""
+    d = (t_new - t_old) * mask.to(torch.float32)  # per-row rounding as the kernel's
+    assert float(got[2]) == float(mask.to(torch.float64).sum())
+    exact = torch.stack([d.double().sum(), (d * d).double().sum()])
+    scale = torch.stack([d.double().abs().sum(), (d * d).double().sum()])
+    assert bool(((got[:2].double() - exact).abs() <= 1e-6 * scale + 1e-30).all())
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("offsets,route", [
+    ((0, 0, 0), "vector"),
+    ((1, 1, 1), "scalar"),
+    ((2, 2, 2), "scalar"),
+    ((3, 3, 3), "scalar"),
+    ((0, 0, 1), "scalar"),   # the mask one byte off
+    ((0, 0, 4), "vector"),   # a 4-byte aligned mask suffices
+    ((0, 2, 0), "scalar"),   # t_old 8 bytes off
+])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int8])
+def test_corr_moments_routes_match_plain(dev, n, offsets, route, mask_dtype):
+    from repro_torch.kernels.corr_diff import corr_moments
+
+    args = _corr_inputs(np.random.default_rng(n + sum(offsets)), n, mask_dtype, dev, offsets)
+    got, counts = _route_counts(corr_moments, lambda: torch.stack(corr_moments(*args)))
+    assert counts == {"vector": 0, "scalar": 0, route: 1}
+    _hold_corr(got, *args)
+    assert torch.equal(got, torch.stack(corr_moments(*args)))  # same bits
+
+
+@pytest.mark.parametrize("rows", ["inf_minus_inf", "inf_times_zero", "nan", "inf", "neg_inf"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int8])
+def test_corr_moments_non_finite_rows_as_plain(dev, rows, offset, mask_dtype):
+    """inf − inf and inf · 0 make the sums NaN, a lone ±inf makes them ±inf,
+    masked or not, as in the plain version (NaN-aware equality)."""
+    from repro_torch.kernels.corr_diff import corr_diff_ref, corr_moments
+
+    n = 100_003
+    t_new, t_old, mask = (x.clone() for x in
+                          _corr_inputs(np.random.default_rng(3), n, mask_dtype, dev))
+    i = 77_777  # inside the vector body
+    if rows == "inf_minus_inf":
+        t_new[i] = t_old[i] = float("inf")
+        mask[i] = 1
+    elif rows == "inf_times_zero":
+        t_new[i] = float("inf")
+        mask[i] = 0
+    elif rows == "nan":
+        t_old[n - 1] = float("nan")  # the ragged tail
+    else:
+        t_new[i] = float("inf") if rows == "inf" else float("-inf")
+        mask[i] = 1
+    args = tuple(_at(x, offset) for x in (t_new, t_old, mask))
+    got = torch.stack(corr_moments(*args))
+    want = torch.stack(corr_diff_ref(*args))
+    assert torch.equal(got.isnan(), want.isnan())
+    assert not bool(got[:2].isfinite().any())
+    inf = want.isinf()
+    assert torch.equal(got[inf], want[inf])
+    assert torch.equal(got[2], want[2])
+
+
+def test_corr_moments_repeats_bit_equal_across_grid_fills(dev):
+    """Sizes whose grids range from one block to every resident block, on
+    the current stream and on a second one (its own workspace), in turns:
+    each call gives the bits of its first, so each left its ticket at 0."""
+    from repro_torch.kernels.corr_diff import corr_moments
+
+    rng = np.random.default_rng(11)
+    sizes = [5, 4097, 100_003, 2_000_003, 20_000_001]
+    inputs = [_corr_inputs(rng, n, torch.bool, dev) for n in sizes]
+    first = [torch.stack(corr_moments(*a)) for a in inputs]
+    for a, f in zip(inputs, first):
+        _hold_corr(f, *a)
+    side = torch.cuda.Stream()
+    for _ in range(2):
+        for a, f in zip(reversed(inputs), reversed(first)):
+            assert torch.equal(torch.stack(corr_moments(*a)), f)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            again = [torch.stack(corr_moments(*a)) for a in inputs]
+        torch.cuda.current_stream().wait_stream(side)
+        assert all(torch.equal(g, f) for g, f in zip(again, first))
+
+
+def test_corr_moments_is_one_launch_and_allocates_only_its_output(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.corr_diff import corr_moments
+
+    args = _corr_inputs(np.random.default_rng(2), 2_097_152, torch.bool, dev)
+    assert _device_launches(lambda: corr_moments(*args)) == 1
+    corr_moments(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        corr_moments(*args)
+    empties = sum(e.count for e in prof.key_averages() if e.key in ("aten::empty", "aten::zeros"))
+    assert empties == 1
+    zero = corr_moments(*(a[:0] for a in args))
+    assert [float(x) for x in zero] == [0.0, 0.0, 0.0]
 
 
 # ---------------------------------------------------------------------------

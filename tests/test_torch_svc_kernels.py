@@ -125,6 +125,55 @@ def test_corr_moments_plain_matches_jax(n, density, mask_dtype):
                for x in corr_moments(T(a), T(b), T(mask)))
 
 
+@pytest.mark.parametrize("rows", ["inf_minus_inf", "inf_times_zero", "nan", "inf", "neg_inf"])
+@pytest.mark.parametrize("mask_dtype", [np.bool_, np.int8])
+def test_corr_moments_plain_matches_jax_with_non_finite_rows(rows, mask_dtype):
+    """Every row adds its terms, masked or not: inf − inf and inf · 0 give
+    NaN, a lone inf gives inf, as in JAX's kernel and reference."""
+    rng = np.random.default_rng(7)
+    n = 8193
+    a = rng.normal(size=n).astype(np.float32)
+    b = rng.normal(size=n).astype(np.float32)
+    mask = (rng.random(n) < 0.5).astype(mask_dtype)
+    i = 4100
+    if rows == "inf_minus_inf":
+        a[i] = b[i] = np.inf
+        mask[i] = 1
+    elif rows == "inf_times_zero":
+        a[i] = np.inf
+        mask[i] = 0
+    elif rows == "nan":
+        b[i] = np.nan
+    else:
+        a[i] = np.inf if rows == "inf" else -np.inf
+        mask[i] = 1
+    got = np.array([float(x) for x in corr_moments(T(a), T(b), T(mask))])
+    for want in (jax_corr_moments(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask)),
+                 jax_corr_diff_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask))):
+        want = np.array([float(x) for x in want])
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        assert got[2] == want[2] == float(mask.astype(np.float32).sum())
+        finite = np.isfinite(want)
+        assert np.array_equal(got[~finite & ~np.isnan(want)], want[~finite & ~np.isnan(want)])
+        assert not np.isfinite(got[:2]).any()
+
+
+def test_corr_moments_checks_its_inputs():
+    a = torch.zeros(8)
+    with pytest.raises(TypeError):
+        corr_moments(a.double(), a, torch.ones(8, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        corr_moments(a, a, torch.ones(8))
+    with pytest.raises(ValueError):
+        corr_moments(a, a[:7], torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        corr_moments(a, a, torch.ones(9, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        corr_moments(a.reshape(2, 4), a.reshape(2, 4), torch.ones(2, 4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        corr_moments(torch.zeros(16)[::2], a, torch.ones(8, dtype=torch.bool))
+
+
 def test_corr_moments_of_the_correspondence_join_equal_svc_corr_moments():
     """corr_moments over the joined ``__t_new``/``__t_old``/valid gives the
     (k, s) that ``_masked_moments`` gives svc_corr."""
