@@ -24,9 +24,32 @@ size, through the entry points a user calls:
      ``MaintenancePlanner`` under a Zipf query stream;
   4. LM serving — gemma-2b at full width in bf16 (random weights from a
      seed) through ``ServeEngine``: 16 requests on 8 slots, one telemetry
-     row per decode tick into a streaming SVC view, then ``dashboard()``;
-     prefill against token-by-token decode, and the smoke model on the
-     card against the CPU.  Every attention is the flash_attention kernel.
+     row per decode tick into a streaming SVC view, then ``dashboard()``
+     and ``dashboard("observatory")`` (a kernel profiler installed around
+     that call alone); prefill against token-by-token decode, and the
+     smoke model on the card against the CPU.  Every attention is the
+     flash_attention kernel.
+
+The observatory and the chaos layer ride on these paths:
+  * ``chaos_stream`` (after the streaming path): two fresh managers over
+    visitView's relations, each fed a new 10M-session delta as 20 shuffled
+    micro-batches through a service with admission on; one under a
+    hand-written FaultPlan (a duplicate and a corrupt copy, a slow drain, a
+    traffic spike, a poisoned cache, a backwards clock) with the tracer on.
+    Its exported trace and its observatory panel must reconcile, each fault
+    must show in its counter, and after a final refresh its dashboard must
+    equal the fault-free service's.
+  * ``chaos_fleet`` (after the fleet path): the fleet twice from the same
+    host logs, 5 planner epochs each, one twin under FaultPlan.random of
+    every action-path fault kind with the tracer on, then recovery epochs
+    and ``maintain_all``: its trace reconciles, every injected kernel_error
+    is a fleet_merge_failure, and the twins' views and samples agree.
+  * ``kprof``: a KernelProfiler over one warm pass of the main path (fused,
+    pinned and unfused refreshes, query_batch, the kernel_api entries) and
+    of the fleet (svc_refresh_many, a maintain, a planner epoch): no op
+    takes its plain version, every wrapper that launched dispatched, and
+    the ops' execute seconds fit in the window; with no profiler, the
+    median host enqueue of hash_threshold and fleet_scores.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after (the main path and ``kernel_api`` also give, in ``routes``,
@@ -107,6 +130,46 @@ STREAM_CONFIG = dict(max_rows=4_500_000, max_age_s=3600.0, max_batches=8)
 STREAM_BATCHES = 20
 STREAM_SEED = 1
 SMALL_STREAM_BATCHES = 4
+
+# The observatory and chaos layer.  kprof: a KernelProfiler over one warm
+# pass of the main path (on visitView, after a fresh 1M-session delta) and
+# of the fleet (one svc_refresh_many and one planner epoch); host enqueue
+# medians of KPROF_REPEATS loops of ITERS calls with no profiler installed.
+KPROF_DELTA = 1_000_000
+KPROF_REPEATS = 5  # tools/kernel_profile.py's REPEATS
+# chaos_fleet: the fleet twice from the same host logs, one twin under a
+# random plan of every action-path fault kind (FaultPlan.random(views,
+# epochs 1-5, rate 0.3, seed 0)); recovery epochs until nothing is
+# quarantined (at most CHAOS_RECOVERY_EPOCHS), then maintain_all
+CHAOS_FLEET_KINDS = ("refresh_error", "maintain_error", "kernel_error", "latency", "nan_panel")
+CHAOS_FLEET_RATE = 0.3
+CHAOS_RECOVERY_EPOCHS = 12
+# chaos_stream: a fresh 10M-session delta (seed 2) as 20 shuffled, keyed
+# micro-batches into two services over visitView's relations, one under a
+# hand-written plan: (kind, epoch, target, magnitude); an epoch is one
+# offer, followed by two dashboards (times any traffic spike), with a
+# forced refresh every fifth offer.  Admission is on with the defaults and
+# a 2 s drain-cost overload threshold: the 10 s slow drain at epoch 10
+# raises the drain EWMA (α = 0.3) to ~3 s, and the drains at 15 and 20
+# bring it back under 2 s before the final dashboard.
+CHAOS_STREAM_SEED = 2
+CHAOS_STREAM_FAULTS = (
+    ("duplicate_batch", 3, "Log", 0.0),
+    ("cache_poison", 4, "visitView", 0.0),
+    ("corrupt_batch", 6, "Log", 0.0),
+    ("traffic_spike", 7, "*", 10.0),
+    ("slow_drain", 10, "*", 10.0),
+    ("clock_skew", 16, "*", -30.0),
+)
+CORRUPT_EPOCH = next(e for k, e, _t, _m in CHAOS_STREAM_FAULTS if k == "corrupt_batch")
+CHAOS_STREAM_ADMISSION = dict(drain_overload_s=2.0)
+CHAOS_REFRESH_EVERY = 5
+CHAOS_SETTLE_S = 10.0  # clock seconds between the last offer and the final dashboard
+CHAOS_DASHBOARDS = 2
+# the fleet tolerance of float columns (tests/test_fleet_panel.py:257-261)
+FLEET_RTOL, FLEET_ATOL = 1e-6, 1e-4
+# two services' dashboards over samples within same_sample's bound
+CHAOS_ANSWER_RTOL = 1e-5
 
 # The LM serving path (src/repro/launch/serve.py's default --arch): gemma-2b
 # at full width in bf16 through ServeEngine, 16 requests of 16–256 prompt
@@ -881,10 +944,19 @@ def traffic_weights(n_views: int) -> np.ndarray:
     return w / w.sum()
 
 
-def build_fleet(device, n_views, n_videos, n_logs, groups, m, clock=None):
-    """``n_views`` group-by views, view i over its own log (seed i); views in
-    the upper half register ``with_deletes``, view 0 carries an outlier
-    index (k = K on ``bytes``) and so cleans per view."""
+def fleet_logs(n_views, n_videos, n_logs, device):
+    """Each fleet view's log (``make_log_video`` with seed i) on ``device``."""
+    from repro_torch.data.synthetic import make_log_video
+
+    return [make_log_video(np.random.default_rng(i), n_videos, n_logs, device=device)[0]
+            for i in range(n_views)]
+
+
+def build_fleet(device, n_views, n_videos, n_logs, groups, m, clock=None, logs=None):
+    """``n_views`` group-by views, view i over its own log (seed i, or
+    ``logs[i]`` when given, e.g. generated once on the host for two
+    managers); views in the upper half register ``with_deletes``, view 0
+    carries an outlier index (k = K on ``bytes``) and so cleans per view."""
     from repro_torch.core import ViewDef
     from repro_torch.data.synthetic import make_log_video
     from repro_torch.relational.plan import GroupByNode, Scan
@@ -893,9 +965,13 @@ def build_fleet(device, n_views, n_videos, n_logs, groups, m, clock=None):
     vm = ViewManager(device=device, **({"clock": clock} if clock else {}))
     names = []
     for i in range(n_views):
-        log, _video = make_log_video(np.random.default_rng(i), n_videos, n_logs, device=device)
+        if logs is None:
+            log, _video = make_log_video(np.random.default_rng(i), n_videos, n_logs,
+                                         device=device)
+            del _video
+        else:
+            log = logs[i]
         vm.register_base(f"FLog{i}", log)
-        del _video
         plan = GroupByNode(child=Scan(f"FLog{i}", pk=("sessionId",)), keys=("videoId",),
                            aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
                            num_groups=groups)
@@ -2058,6 +2134,18 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
         dash, dashboard_s = wall(engine.dashboard)
     launches = kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the observatory panel of the telemetry service, a profiler installed
+    # around this call alone (on the whole run it would synchronize every
+    # flash launch)
+    from repro_torch.obs.kprof import KernelProfiler
+
+    kernels.set_profiler(KernelProfiler())
+    try:
+        panel, observatory_s = wall(lambda: engine.dashboard("observatory"))
+    finally:
+        kernels.set_profiler(None)
+    if not panel["reconciliation"]["queries_ok"]:
+        fail(f"serve_path: the observatory panel does not reconcile: {panel['reconciliation']}")
     # one warm decode call of the whole pool at the longest prompt's last
     # position, alone and under the profiler
     cache = model.init_cache(max_batch, max_seq)
@@ -2108,6 +2196,10 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
         "telemetry_refreshes": svc.refresh_count,
         "dashboard": {k: float(v.value) for k, v in dash.items() if hasattr(v, "value")},
         "dashboard_pending_rows": dash["ticks"].staleness.pending_rows,
+        "observatory": {"reconciliation": panel["reconciliation"], "wall_s": observatory_s,
+                        "kernels": panel["kernels"], "trace": panel["trace"],
+                        "stream_refreshes": panel["metrics"].get("stream_refreshes"),
+                        "stream_queries": panel["metrics"].get("stream_queries")},
         "peak_device_gb": peak_gb, "launches": launches,
         "decode_call_s": decode_call_s, "decode_call_profile": decode_profile,
     }
@@ -2276,6 +2368,434 @@ def serve_device_vs_cpu(arch, prompt_lens, max_batch, max_seq, max_new, seed,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The observatory and the chaos layer: kprof, chaos_fleet, chaos_stream
+# ---------------------------------------------------------------------------
+
+def host_enqueue_median_us(fn, iters: int, repeats: int = KPROF_REPEATS) -> dict:
+    """The mean host µs of a call of ``fn`` in each of ``repeats`` loops of
+    ``iters`` calls back to back (no synchronize inside a loop), and their
+    median: the loop of ``tools/kernel_profile.py``'s host enqueue."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return {"median_us": float(np.median(runs)), "runs_us": runs}
+
+
+def profiled_window(fn, what: str) -> dict:
+    """``fn`` with a fresh ``KernelProfiler`` installed, then the checks: no
+    op took its plain version (``fallbacks == 0``), every wrapper whose
+    launches grew in the window dispatched under its op at least once, no
+    op compiled more often than it dispatched, and the ops' execute
+    seconds add to no more than the window's wall."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.obs.kprof import KernelProfiler
+
+    ops = kernels.op_names()
+    before = kernels.launch_counts()
+    prof = kernels.set_profiler(KernelProfiler())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        kernels.set_profiler(None)
+    wall_s = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+    summary = prof.summary()
+    for op, st in summary.items():
+        if st["fallbacks"]:
+            fail(f"kprof {what}: {op} took its plain version {st['fallbacks']} times on the card")
+        if st["compiles"] > st["dispatches"]:
+            fail(f"kprof {what}: {op} compiled {st['compiles']} times in {st['dispatches']}")
+    missing = sorted(k for k in launched if summary.get(ops[k], {}).get("dispatches", 0) < 1)
+    if missing:
+        fail(f"kprof {what}: wrappers launched with no profiled dispatch: {missing}")
+    if not launched:
+        fail(f"kprof {what}: the window launched no kernel")
+    execute_s = sum(st["execute_s"] for st in summary.values())
+    if execute_s > wall_s:
+        fail(f"kprof {what}: ops' execute {execute_s} s exceeds the window's {wall_s} s")
+    return {"wall_s": wall_s, "execute_s": execute_s,
+            "compile_s": sum(st["compile_s"] for st in summary.values()),
+            "launches": launched, "ops": summary}
+
+
+def kprof_svc_window(vm, name, queries, api, n_videos, start, n_delta, seed, iters):
+    """The single-view main path under the profiler, warm: after a fresh
+    ``n_delta``-session delta, a fused (and, visitView being pinned,
+    pinned) svc_refresh, the unfused one (the η mask and the group-by),
+    query_batch auto and AQP, and the kernel_api entry points; then, with
+    no profiler, hash_threshold's host enqueue over the view's rows.  The
+    delta is maintained in afterwards, outside the window."""
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.kernels.hash_threshold import hash_threshold
+
+    vm.ingest("Log", inserts=grow_log(np.random.default_rng(seed), n_videos, start, n_delta,
+                                      device=vm.device))
+    if vm.stream is not None:  # a streamed manager buffers it: drain it into the pending deltas
+        vm.stream.refresh()
+    api_args = api_inputs(api)
+
+    def window():
+        vm.svc_refresh(name)
+        vm.svc_refresh(name, fused=False)
+        vm.query_batch(name, queries)
+        vm.query_batch(name, queries, prefer="aqp")
+        drive_api(*api_args)
+
+    out = profiled_window(window, "svc")
+    del api_args
+    vm.maintain_all()
+    cols = (vm.views[name].materialized.col("videoId"),)
+    out["hash_threshold_host_enqueue"] = {
+        "rows": int(cols[0].shape[0]), **host_enqueue_median_us(
+            lambda: hash_threshold(cols, M, SEED), iters)}
+    return out
+
+
+def twin_samples(vm, names) -> dict:
+    """Each view's materialized view and sample on the host, sorted by key."""
+    return {n: {"view": sorted_sample(vm.views[n].materialized),
+                "sample": sorted_sample(vm.views[n].clean_sample)} for n in names}
+
+
+def same_twins(a: dict, b: dict, what: str) -> dict:
+    """Keys, counts, the outlier flag and sample membership exact; float
+    columns bit-equal, or else within the fleet tolerance (every producer
+    but the order of IVM's merges is deterministic on the card: twins that
+    maintained at other epochs add a view's deltas in another order)."""
+    bit_equal, worst = True, 0.0
+    for n in a:
+        for part in ("view", "sample"):
+            x, y = a[n][part], b[n][part]
+            if set(x) != set(y):
+                fail(f"{what} {n} {part}: columns {sorted(x)} != {sorted(y)}")
+            for col in x:
+                if x[col].shape != y[col].shape:
+                    fail(f"{what} {n} {part}: {x[col].shape[0]} != {y[col].shape[0]} rows")
+                if np.issubdtype(x[col].dtype, np.floating) and col != "visits":
+                    if not np.array_equal(x[col], y[col]):
+                        bit_equal = False
+                        if not np.allclose(x[col], y[col], rtol=FLEET_RTOL, atol=FLEET_ATOL):
+                            fail(f"{what} {n} {part}: {col} beyond the fleet tolerance")
+                        worst = max(worst, float(np.max(np.abs(
+                            x[col].astype(np.float64) - y[col].astype(np.float64)))))
+                elif not np.array_equal(x[col], y[col]):
+                    fail(f"{what} {n} {part}: column {col} differs")
+    return {"views": len(a), "floats": "bit-equal" if bit_equal else "within rtol 1e-6, atol 1e-4",
+            "max_abs_float_diff": worst}
+
+
+def run_chaos_twin(logs, n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs,
+                   prices, plan_seed=None, tracer=None, device="cuda"):
+    """One fleet twin over ``logs``: the fleet path's epoch-0 ingest, then
+    ``epochs`` planner epochs under the fleet path's Zipf query stream and
+    prices (no ratio adaptation; a budget of one maintain and every view's
+    clean), with a random fault plan when
+    ``plan_seed`` is given (and ``tracer`` installed around it), recovery
+    epochs until no view is quarantined, and ``maintain_all``."""
+    from repro_torch.core import Query
+    from repro_torch.obs import trace
+    from repro_torch.planner import MaintenancePlanner
+    from repro_torch.robustness import FaultPlan
+
+    vm, names = build_fleet(device, n_views, n_videos, n_logs, groups, m, logs=logs)
+    fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, 0, n_deletes)
+    plan = None
+    if plan_seed is not None:
+        plan = FaultPlan.random(names, epochs=range(1, epochs + 1), rate=CHAOS_FLEET_RATE,
+                                seed=plan_seed, kinds=CHAOS_FLEET_KINDS).attach(vm)
+    clock = EpochClock()
+    # every view's clean fits in an epoch's budget (besides one maintain),
+    # so each epoch touches every view and a scheduled fault meets its
+    # target whenever its action is the one the view takes
+    budget_s = prices["maintain_s"] + n_views * prices["clean_s"]
+    planner = MaintenancePlanner(vm, budget_s=budget_s, age_cap_s=FLEET_AGE_CAP_EPOCHS,
+                                 clock=clock)
+    planner.cost_model.pin_costs(refresh_s=prices["clean_s"], maintain_s=prices["maintain_s"],
+                                 retune_s=prices["retune_s"])
+    weights = traffic_weights(n_views)
+    t_rng = np.random.default_rng(31)
+    q = Query("sum", "totalBytes")
+    out = {"epochs": [], "recovery": []}
+    trace.set_tracer(tracer)
+    try:
+        t0 = time.perf_counter()
+        for epoch in range(1, epochs + 1):
+            clock.t = float(epoch)
+            if plan is not None:
+                plan.advance()
+            hits = t_rng.multinomial(FLEET_HITS, weights)
+            for i in range(n_views):
+                for _ in range(int(hits[i])):
+                    for e in vm.query_batch(names[i], [q] * FLEET_QUERIES_PER_HIT):
+                        if not math.isfinite(float(e.value)):
+                            fail(f"chaos fleet: non-finite estimate on {names[i]}")
+            fleet_ingest(vm, n_views, n_videos, n_logs, n_delta, epoch)
+            rep = planner.step()
+            out["epochs"].append({"epoch": epoch, "act_s": rep.act_s,
+                                  "actions": [(a.view, a.action, a.failed, a.overrun)
+                                              for a in rep.actions],
+                                  "quarantined": vm.health.quarantined()})
+        epoch = epochs
+        while vm.health.quarantined():
+            if epoch - epochs >= CHAOS_RECOVERY_EPOCHS:
+                fail(f"chaos fleet: still quarantined after {CHAOS_RECOVERY_EPOCHS} recovery "
+                     f"epochs: {vm.health.quarantined()}")
+            epoch += 1
+            clock.t = float(epoch)
+            if plan is not None:
+                plan.advance()
+            rep = planner.step()
+            out["recovery"].append({"epoch": epoch, "actions": [(a.view, a.action, a.failed)
+                                                                 for a in rep.actions],
+                                    "quarantined": vm.health.quarantined()})
+        vm.maintain_all()
+        sync(vm.device)
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        trace.set_tracer(None)
+    out["fleet_merge_failures"] = vm.fleet_merge_failures
+    return vm, names, plan, planner, out
+
+
+def run_chaos_fleet(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs, prices,
+                    iters, device="cuda"):
+    """chaos_fleet, then the fleet's kprof window on the fault-free twin (a
+    fresh epoch's delta, one svc_refresh_many, one maintain of an unpinned
+    view and two planner epochs: the second's fleet_moments and
+    fleet_score dispatches are the profiler's executes, the first's its
+    compiles).  Returns (the chaos report, the window)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.fleet_score import fleet_scores
+    from repro_torch.obs import load_jsonl, reconcile
+    from repro_torch.obs.trace import Tracer
+
+    t0 = time.perf_counter()
+    logs = fleet_logs(n_views, n_videos, n_logs, "cpu")  # generated once, registered twice
+    gen_s = time.perf_counter() - t0
+    args = (n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs, prices)
+    tracer = Tracer()
+    faulted, names, plan, _p, fout = run_chaos_twin(logs, *args, plan_seed=0, tracer=tracer,
+                                                    device=device)
+    # reconcile the faulted twin's trace as an exported file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "chaos_fleet.jsonl")
+        tracer.export_jsonl(path, meta={
+            "metrics": faulted.metrics.snapshot(), "pending": {},
+            "quarantines": sum(h.failures for h in faulted.health.views.values()),
+            "faults_injected": len(plan.injected)})
+        meta, records = load_jsonl(path)
+    rec = reconcile(meta, records)
+    n_fault = sum(r["kind"] == "event" and r["name"] == "fault" for r in records)
+    if not rec["ok"] or n_fault != len(plan.injected):
+        fail(f"chaos fleet: trace does not reconcile ({n_fault} fault events for "
+             f"{len(plan.injected)} injected): {rec['problems'][:5]}")
+    kinds = [s.kind for _e, s, _w in plan.injected]
+    if kinds.count("kernel_error") != faulted.fleet_merge_failures:
+        fail(f"chaos fleet: {kinds.count('kernel_error')} injected kernel_errors, "
+             f"{faulted.fleet_merge_failures} fleet_merge_failures")
+    # the pin of view 0 is rebuilt only at a clean, so the twins' last pins
+    # may come from different epochs' index: both re-derive it from their
+    # (equal) bases before the samples are compared
+    pinned_before = sorted_sample(faulted.views[names[0]].clean_sample)
+    faulted.register_outlier_index(names[0], "FLog0", "bytes", k=min(K, n_logs))
+    a = twin_samples(faulted, names)
+    del faulted
+    torch.cuda.empty_cache()
+    clean, _n, _plan, planner, cout = run_chaos_twin(logs, *args, device=device)
+    if cout["fleet_merge_failures"] or cout["recovery"]:
+        fail(f"chaos fleet: the fault-free twin failed: {cout}")
+    pinned_twin = sorted_sample(clean.views[names[0]].clean_sample)
+    pinned_same_before = set(pinned_before) == set(pinned_twin) and all(
+        np.array_equal(pinned_before[c], pinned_twin[c]) for c in pinned_twin)
+    clean.register_outlier_index(names[0], "FLog0", "bytes", k=min(K, n_logs))
+    comparison = same_twins(a, twin_samples(clean, names), "chaos fleet")
+    del a, logs
+    report = {
+        "views": n_views, "epochs": epochs, "plan": {"seed": 0, "rate": CHAOS_FLEET_RATE,
+                                                     "kinds": list(CHAOS_FLEET_KINDS)},
+        "host_generation_s": gen_s,
+        "injected": [(e, s.kind, s.target, w) for e, s, w in plan.injected],
+        "reconcile": {k: rec[k] for k in ("ok", "checks", "records")}, "fault_events": n_fault,
+        "fleet_merge_failures": fout["fleet_merge_failures"],
+        "quarantines": meta["quarantines"],
+        "faulted": fout, "fault_free": {k: cout[k] for k in ("epochs", "wall_s")},
+        "recovered_vs_fault_free": comparison,
+        "pinned_view_equal_before_repin": bool(pinned_same_before),
+    }
+    # kprof: the fleet's warm pass on the fault-free twin
+    fleet_ingest(clean, n_views, n_videos, n_logs, n_delta, epochs + 1)
+    epochs_before = planner.epoch
+    window = profiled_window(lambda: (clean.svc_refresh_many(names), clean.maintain(names[-1]),
+                                      planner.step(), planner.step()), "fleet")
+    if planner.epoch != epochs_before + 2:
+        fail("kprof fleet: the window did not run two planner epochs")
+    feats = torch.from_numpy(planner.cost_model.features()).to(clean.device)
+    window["fleet_score_host_enqueue"] = {"panel": list(feats.shape), **host_enqueue_median_us(
+        lambda: fleet_scores(feats), iters)}
+    window["planner_epoch_2"] = {"snapshot_s": planner.last_report.snapshot_s,
+                                 "schedule_s": planner.last_report.schedule_s,
+                                 "act_s": planner.last_report.act_s}
+    del clean, planner
+    torch.cuda.empty_cache()
+    return report, window
+
+
+def visit_twin(vm, view, m, groups):
+    """A fresh manager over ``vm``'s Log and Video (the same tensors) with
+    ``view`` registered as the main path registers it (no outlier index)."""
+    from repro_torch.views import ViewManager
+
+    twin = ViewManager(device=vm.device)
+    twin.register_base("Log", vm.base["Log"])
+    twin.register_base("Video", vm.base["Video"])
+    twin.register_view(view, delta_bases=("Log",), m=m, delta_group_capacity=groups)
+    return twin
+
+
+def chaos_stream_run(vm, view, batches, order, queries, plan=None, tracer=None):
+    """One service over ``vm``: admission on, STREAM_CONFIG's watermarks; an
+    epoch per offer (keyed by seq), a forced refresh every
+    CHAOS_REFRESH_EVERY offers, CHAOS_DASHBOARDS dashboards an epoch (times
+    the plan's traffic spike), a clock second an epoch (plus the plan's
+    skew); then, CHAOS_SETTLE_S clock seconds later, a final refresh and
+    dashboard."""
+    from repro_torch.obs import trace
+    from repro_torch.serving import AdmissionConfig
+    from repro_torch.streaming import StreamConfig
+
+    clock = StreamClock()
+    svc = vm.configure_streaming(
+        StreamConfig(**STREAM_CONFIG, admission=AdmissionConfig(**CHAOS_STREAM_ADMISSION)),
+        clock=clock)
+    if plan is not None:
+        plan.attach(vm)
+    trace.set_tracer(tracer)
+    verdicts = []
+    try:
+        for epoch, i in enumerate(order, start=1):
+            if plan is not None:
+                plan.advance()
+            clock.t += 1.0 + (plan.clock_skew_s() if plan is not None else 0.0)
+            # the producer keys its offers for at-least-once retries, but for
+            # the corrupt copy's epoch: a keyed copy would meet the key
+            # dedupe before ingest validation
+            key = None if epoch == CORRUPT_EPOCH else f"batch{int(i)}"
+            svc.offer("Log", inserts=batches[i], seq=int(i), key=key)
+            if epoch % CHAOS_REFRESH_EVERY == 0:
+                svc.refresh()
+            mult = plan.traffic_multiplier() if plan is not None else 1.0
+            for _ in range(max(1, int(round(CHAOS_DASHBOARDS * mult)))):
+                ans = svc.query_batch(view.name, queries)
+                tag = ans[0].estimate.method.rsplit("+", 1)[-1]
+                verdicts.append(tag if tag in ("throttled", "shed", "degraded") else "admitted")
+        clock.t += CHAOS_SETTLE_S  # the token buckets refill to their bursts
+        svc.refresh()
+        overloaded = svc.staleness().overloaded
+        final = svc.query_batch(view.name, queries)
+        sync(vm.device)
+    finally:
+        trace.set_tracer(None)
+    return svc, final, overloaded, verdicts
+
+
+def run_chaos_stream(vm, view, n_videos, start, n_delta, m, groups, queries, n_batches, seed):
+    """chaos_stream: the faulted service (traced) against a fault-free one,
+    each on a fresh twin over the visitView manager's relations."""
+    import tempfile
+
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.obs import (export_service_trace, load_jsonl, observatory_panel, reconcile,
+                                 trace)
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.robustness import FaultPlan, FaultSpec
+
+    rng = np.random.default_rng(seed)
+    delta = grow_log(rng, n_videos, start, n_delta, device=vm.device)
+    batches = micro_batches(delta, n_batches)
+    order = rng.permutation(n_batches)
+    plan = FaultPlan([FaultSpec(epoch=e, kind=k, target=t, magnitude=mg)
+                      for k, e, t, mg in CHAOS_STREAM_FAULTS])
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    a = visit_twin(vm, view, m, groups)
+    svc, final, overloaded, verdicts = chaos_stream_run(a, view, batches, order, queries, plan,
+                                                        tracer)
+    wall_s = time.perf_counter() - t0
+    trace.set_tracer(tracer)  # the service's trace and panel read the installed tracer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "chaos_stream.jsonl")
+            export_service_trace(svc, path)
+            meta, records = load_jsonl(path)
+        panel = observatory_panel(svc)
+    finally:
+        trace.set_tracer(None)
+    rec = reconcile(meta, records)
+    log = svc.logs["Log"]
+    st = svc.staleness()
+    counters = {"deduped_batches": log.deduped_batches, "deduped_rows": log.deduped_rows,
+                "corrupt_batches": st.corrupt_batches, "corrupt_rows": log.corrupt_rows,
+                "poison_rejected": svc.result_cache.poison_rejected,
+                "admitted": svc.admission.admitted, "throttled": svc.admission.throttled,
+                "shed": svc.admission.shed, "refreshes": svc.refresh_count}
+    if not rec["ok"]:
+        fail(f"chaos stream: trace does not reconcile: {rec['problems'][:5]}")
+    if not panel["reconciliation"]["queries_ok"]:
+        fail(f"chaos stream: observatory reconciliation {panel['reconciliation']}")
+    if counters["deduped_batches"] != 1 or counters["corrupt_batches"] != 1:
+        fail(f"chaos stream: the duplicate or the corrupt copy was not absorbed: {counters}")
+    if counters["poison_rejected"] < 1 or counters["shed"] < 1 or counters["throttled"] < 1:
+        fail(f"chaos stream: poison, shed or throttle never showed: {counters}")
+    if overloaded:
+        fail("chaos stream: still overloaded at the final dashboard")
+    fired = sorted({s.kind for _e, s, _w in plan.injected})
+    if fired != sorted(k for k, *_ in CHAOS_STREAM_FAULTS):
+        fail(f"chaos stream: faults fired {fired}")
+    b = visit_twin(vm, view, m, groups)
+    _svc, want, _o, _v = chaos_stream_run(b, view, batches, order, queries)
+    sample = same_sample(sorted_sample(a.views[view.name].clean_sample),
+                         sorted_sample(b.views[view.name].clean_sample), "chaos stream sample")
+    worst = 0.0
+    for q, x, y in zip(queries, final, want):
+        ex, ey = x.estimate, y.estimate
+        if ex.method != ey.method:
+            fail(f"chaos stream: {q} answered by {ex.method}, fault-free by {ey.method}")
+        for f in ("value", "ci_low", "ci_high"):
+            u, v = float(getattr(ex, f)), float(getattr(ey, f))
+            d = abs(u - v) / max(abs(v), 1e-30)
+            worst = max(worst, d)
+            if d > CHAOS_ANSWER_RTOL:
+                fail(f"chaos stream: {q} {f} {u} vs fault-free {v}")
+    del a, b, svc, _svc, delta, batches
+    return {"micro_batches": n_batches, "config": {**STREAM_CONFIG, "admission":
+                                                   CHAOS_STREAM_ADMISSION},
+            "faults": [list(f) for f in CHAOS_STREAM_FAULTS],
+            "injected": [(e, s.kind, w) for e, s, w in plan.injected],
+            "reconcile": {k: rec[k] for k in ("ok", "checks", "records")},
+            "observatory_reconciliation": panel["reconciliation"], "counters": counters,
+            "verdicts_by_dashboard": verdicts, "wall_s": wall_s,
+            "final_vs_fault_free": {"sample": sample, "max_rel_answer_diff": worst,
+                                    "rtol": CHAOS_ANSWER_RTOL}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-logs", type=int, default=N_LOGS,
@@ -2367,7 +2887,6 @@ def main(argv=None) -> int:
           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     api_table, api_launches, api_routes = check_api_kernels(api, ITERS,
                                                             launches["segment_aggsum"])
-    del api
     emit({"phase": "kernel_api", "launches": api_launches, "routes": api_routes, "card": smi})
     for entry in api_table:
         emit({"phase": "kernel", **entry, "card": smi})
@@ -2376,6 +2895,16 @@ def main(argv=None) -> int:
           "maintain_all": profile_warm_maintain(vm, N_VIDEOS, args.n_logs + 2 * N_DELTA,
                                                 N_DELTA, SEED + 2),
           "card": smi})
+    # the main path once more under the kernel profiler (its line follows
+    # the fleet's window), then the chaos layer on visitView's relations
+    kprof_svc = kprof_svc_window(vm, view.name, queries, api, N_VIDEOS,
+                                 args.n_logs + 3 * N_DELTA, KPROF_DELTA, SEED + 3, ITERS)
+    del api
+    torch.cuda.reset_peak_memory_stats()
+    chaos_stream = run_chaos_stream(vm, view, N_VIDEOS, args.n_logs + 4 * N_DELTA, N_DELTA, M,
+                                    groups, queries, STREAM_BATCHES, CHAOS_STREAM_SEED)
+    emit({"phase": "chaos_stream", **chaos_stream,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
 
     small = device_vs_cpu(SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA, M, K, SEED)
     emit({"phase": "device_vs_cpu", "n_logs": SMALL_LOGS, **small})
@@ -2410,6 +2939,15 @@ def main(argv=None) -> int:
     small_stream = stream_device_vs_cpu(SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA, M, SEED,
                                         SMALL_STREAM_BATCHES)
     emit({"phase": "stream_device_vs_cpu", **small_stream})
+    # the fleet under a random fault plan against its fault-free twin, then
+    # the fleet's kernel-profiler window on that twin
+    torch.cuda.reset_peak_memory_stats()
+    chaos_fleet, kprof_fleet = run_chaos_fleet(FLEET_VIEWS, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA,
+                                               FLEET_DELETES, FLEET_GROUPS, M, FLEET_EPOCHS,
+                                               fleet["prices"], ITERS)
+    emit({"phase": "chaos_fleet", **chaos_fleet,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    emit({"phase": "kprof", "svc": kprof_svc, "fleet": kprof_fleet, "card": smi})
 
     # the LM serving path, on a card the SVC paths have let go of
     del fleet, walls, small_fleet, small_stream

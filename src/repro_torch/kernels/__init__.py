@@ -30,11 +30,38 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
                     (corr_diff)
   flash_attention — online-softmax GQA attention, causal or masked at T
                     (the LM transformer's attention)
+
+Every wrapper dispatches through ``obs.kprof.profiled`` under the JAX
+package's op name where it has one (``op_names``); ``set_profiler`` /
+``get_profiler`` install and read the process's ``KernelProfiler``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+from repro_torch.obs.kprof import get_profiler, set_profiler
+
+__all__ = ["get_profiler", "launch_counts", "op_names", "reset_launches", "route_counts",
+           "set_profiler", "wrappers"]
+
+# kernel name (``wrappers()``) → the op its wrapper dispatches as
+_OPS = {
+    "hash_threshold": "hash_threshold",
+    "fused_clean": "fused_clean",
+    "outlier_member": "outlier_member",
+    "outlier_digest": "outlier_digest",
+    "multi_agg_two": "multi_agg",
+    "multi_agg_one": "multi_agg",
+    "fused_clean_fleet": "fused_clean_fleet",
+    "fleet_merge": "fleet_merge",
+    "fleet_moments": "fleet_moments",
+    "fleet_score": "fleet_score",
+    "segment_aggsum": "segment_aggsum",
+    "segment_aggsum_unsorted": "segment_aggsum",
+    "corr_diff": "corr_diff",
+    "flash_attention": "flash_attention",
+}
 
 
 def wrappers() -> Dict[str, object]:
@@ -66,6 +93,11 @@ def wrappers() -> Dict[str, object]:
         "corr_diff": corr_moments,
         "flash_attention": flash_attention,
     }
+
+
+def op_names() -> Dict[str, str]:
+    """Kernel name → the ``KernelProfiler`` op its wrapper's calls land in."""
+    return dict(_OPS)
 
 
 def reset_launches() -> None:

@@ -12,7 +12,8 @@ leaves it at 0), sized for the most blocks the card holds, so a call
 allocates only its output.  The wrapper takes the kernel's vector route
 when t_new and t_old are 16-byte aligned and the mask 4-byte aligned,
 else its scalar route; ``corr_moments.routes`` counts the launches of
-each.
+each.  Every call dispatches through ``obs.kprof.profiled`` as
+``"corr_diff"``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.corr_diff.ref import corr_diff_ref
+from repro_torch.obs.kprof import profiled
 
 _ARGS = (B.P, B.P, B.P, B.I64, B.P, B.P, B.I32, B.I32, B.P, B.P)
 BLOCKS_PER_SM = 8  # the most 256-thread blocks an SM holds: the partials' bound
@@ -52,8 +54,15 @@ def corr_moments(t_new: torch.Tensor, t_old: torch.Tensor, mask: torch.Tensor):
         raise TypeError(f"mask: dtype {mask.dtype}, expected torch.bool or torch.int8")
     B.check(mask, "mask", mask.dtype, dev, (n,))
     if dev.type == "cpu":
-        return corr_diff_ref(t_new, t_old, mask)
+        return profiled("corr_diff", corr_diff_ref, t_new, t_old, mask, fallback=True, rows=n,
+                        padded=n)
     B.check_cuda(dev)
+    return profiled("corr_diff", _launch, t_new, t_old, mask, rows=n, padded=n)
+
+
+def _launch(t_new: torch.Tensor, t_old: torch.Tensor, mask: torch.Tensor):
+    dev = t_new.device
+    n = t_new.shape[0]
     if n == 0:
         return torch.zeros(3, dtype=torch.float32, device=dev).unbind()
     out = torch.empty(3, dtype=torch.float32, device=dev)  # the last block writes all three

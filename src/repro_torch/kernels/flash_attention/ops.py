@@ -14,7 +14,9 @@ route, tile, key split and workspace sizes.  The key-split partials live
 in one persistent workspace per device, and the tensor-core route's
 arrival counters in another (zeroed once; every launch leaves them at 0),
 both grown on demand and never shrunk.  They serve one stream: two calls
-in flight on different streams would share them.
+in flight on different streams would share them.  Every call dispatches
+through ``obs.kprof.profiled`` as ``"flash_attention"`` (the JAX package
+has no profiled attention: its flash kernel is on no path).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.obs.kprof import profiled
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -151,9 +154,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Inputs may be strided views (the last dim contiguous).
     """
     _check(q, k, v)
+    rows = q.shape[0] * q.shape[1]
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal)
+        return profiled("flash_attention", flash_attention_ref, q, k, v, causal, fallback=True,
+                        rows=rows, padded=rows)
     pl, strides_vec = _check_cuda(q, k, v, causal)
+    return profiled("flash_attention", _launch, q, k, v, causal, pl, strides_vec, rows=rows,
+                    padded=rows)
+
+
+def _launch(q, k, v, causal, pl, strides_vec):
     Bn, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     out = torch.empty((Bn, S, H, hd), dtype=q.dtype, device=q.device)

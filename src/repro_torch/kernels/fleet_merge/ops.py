@@ -7,7 +7,8 @@ the stable lexsort order ``compact`` gives the per-view path.  Only the
 (V, R) stale keys are sorted; every output row is then written straight
 to its sorted slot (``csrc/fleet_merge.cu``; the plain version is
 ``ref.fleet_merge_rank_ref``).  CPU tensors take the plain version; CUDA
-tensors launch the kernels or raise.
+tensors launch the kernels or raise.  Every call dispatches through
+``obs.kprof.profiled`` as ``"fleet_merge"``.
 
 Padding contract on outputs: invalid rows are key SENTINEL_KEY, values
 0.0, valid False.
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.fleet_merge.ref import fleet_merge_rank_ref
+from repro_torch.obs.kprof import profiled
 from repro_torch.relational.relation import SENTINEL_KEY
 
 # csrc/fleet_merge.cu: groups per block of the count and scatter passes, and
@@ -103,11 +105,20 @@ def fleet_merge(
         if del_valid is None:
             del_valid = torch.zeros((V, G), dtype=torch.bool)
             del_vals = torch.zeros((V, G, A), dtype=torch.float32)
-        return fleet_merge_rank_ref(stale_keys, stale_valid, stale_vals, ins_valid, ins_vals,
-                                    del_valid, del_vals)
+        return profiled("fleet_merge", fleet_merge_rank_ref, stale_keys, stale_valid, stale_vals,
+                        ins_valid, ins_vals, del_valid, del_vals, fallback=True, rows=V * R,
+                        padded=V * R)
     B.check_cuda(dev)
     if V > 65535 or R + G > 2**31 - 1:
         raise ValueError(f"fleet_merge takes at most 65,535 views of < 2^31 rows, got {V} × {R + G}")
+    return profiled("fleet_merge", _launch, stale_keys, stale_valid, stale_vals, ins_valid,
+                    ins_vals, del_valid, del_vals, rows=V * R, padded=V * R)
+
+
+def _launch(stale_keys, stale_valid, stale_vals, ins_valid, ins_vals, del_valid, del_vals):
+    dev = stale_keys.device
+    V, R = stale_keys.shape
+    G, A = ins_vals.shape[1], ins_vals.shape[2]
     sk, perm, bounds = sort_stale(stale_keys, stale_valid, G)
     tiles = bounds.shape[1] - 1
     flags = torch.empty((V, -(-G // 32)), dtype=torch.int32, device=dev)

@@ -5,6 +5,7 @@ The eight channel panels may be strided views of one stacked (V, 8, R)
 slab: rows must be contiguous and every panel must share one view stride,
 so the panel is never copied.  CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch ``csrc/fleet_moments.cu`` or raise.
+Every call dispatches through ``obs.kprof.profiled`` as ``"fleet_moments"``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.fleet_moments.ref import N_MOMENTS, fleet_moments_ref
+from repro_torch.obs.kprof import profiled
 
 _ARGS = (B.P,) * 8 + (B.I64, B.I64, B.I64, B.I32, B.P, B.P, B.P)
 _ROWS_PER_BLOCK = 16384
@@ -51,15 +53,22 @@ def fleet_moments(x_new, valid_new, w_new, ompi_new,
     panels = (x_new, valid_new, w_new, ompi_new, x_old, valid_old, w_old, ompi_old)
     stride = _check_panels(panels)
     dev = x_new.device
+    V = x_new.shape[0]
     if dev.type == "cpu":
-        return fleet_moments_ref(*panels)
+        return profiled("fleet_moments", fleet_moments_ref, *panels, fallback=True, rows=V,
+                        padded=V)
     B.check_cuda(dev)
-    V, R = x_new.shape
+    if V > 65535:
+        raise ValueError(f"fleet_moments takes at most 65535 views (grid y), got {V}")
+    return profiled("fleet_moments", _launch, panels, stride, rows=V, padded=V)
+
+
+def _launch(panels, stride: int) -> torch.Tensor:
+    V, R = panels[0].shape
+    dev = panels[0].device
     out = torch.empty((V, N_MOMENTS), dtype=torch.float32, device=dev)
     if V == 0:
         return out
-    if V > 65535:
-        raise ValueError(f"fleet_moments takes at most 65535 views (grid y), got {V}")
     chunks = max(1, -(-R // _ROWS_PER_BLOCK))
     partials = torch.empty((V, chunks, N_MOMENTS), dtype=torch.float64, device=dev)
     B.launch("svc_fleet_moments", _ARGS, *[p.data_ptr() for p in panels], V, R, stride,

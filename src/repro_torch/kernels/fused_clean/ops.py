@@ -8,7 +8,8 @@ CUDA tensors launch ``csrc/fused_clean.cu`` or raise.
 (the fleet refresh path, ``svc_refresh_many``).  Both launches add into
 one int64 counter per device (``overflow_counter``) the kept rows whose
 group found no slot in their block's shared-memory table and went straight
-to device memory.
+to device memory.  Every call dispatches through ``obs.kprof.profiled``, as
+``"fused_clean"`` and ``"fused_clean_fleet"``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from repro_torch.core.hashing import seed_mix
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref, fused_clean_ref
+from repro_torch.obs.kprof import profiled
 
 _ARGS = (B.P, B.P, B.P, B.P, B.I64, B.I32, B.I64, B.U32, B.F32, B.P, B.P, B.P)
 _overflow = {}
@@ -60,17 +62,25 @@ def fused_clean_groupby(
     if pin_mask is not None:
         B.check(pin_mask, "pin_mask", torch.bool, dev, (R,))
     if dev.type == "cpu":
-        counts, sums = fused_clean_ref(gid, vals, valid, m, seed, num_groups, pin_mask)
+        counts, sums = profiled("fused_clean", fused_clean_ref, gid, vals, valid, m, seed,
+                                num_groups, pin_mask, fallback=True, rows=R, padded=R)
     else:
         B.check_cuda(dev)
-        out = torch.zeros((num_groups, 1 + C), dtype=torch.float32, device=dev)
-        B.launch("svc_fused_clean", _ARGS, gid.data_ptr(), valid.data_ptr(),
-                 B.ptr(pin_mask), vals.data_ptr(), R, C, num_groups, seed_mix(seed),
-                 float(np.float32(m)), out.data_ptr(), overflow_counter(dev).data_ptr(),
-                 B.stream())
-        fused_clean_groupby.launches += 1
-        counts, sums = out[:, 0], out[:, 1:]
+        counts, sums = profiled("fused_clean", _launch, gid, vals, valid, m, seed, num_groups,
+                                pin_mask, rows=R, padded=R)
     return counts, (sums[:, 0] if squeeze else sums)
+
+
+def _launch(gid, vals, valid, m, seed, num_groups, pin_mask):
+    dev = gid.device
+    R, C = vals.shape
+    out = torch.zeros((num_groups, 1 + C), dtype=torch.float32, device=dev)
+    B.launch("svc_fused_clean", _ARGS, gid.data_ptr(), valid.data_ptr(),
+             B.ptr(pin_mask), vals.data_ptr(), R, C, num_groups, seed_mix(seed),
+             float(np.float32(m)), out.data_ptr(), overflow_counter(dev).data_ptr(),
+             B.stream())
+    fused_clean_groupby.launches += 1
+    return out[:, 0], out[:, 1:]
 
 
 fused_clean_groupby.launches = 0
@@ -103,9 +113,16 @@ def fused_clean_groupby_fleet(
     if len(ms) != V or len(seeds) != V:
         raise ValueError(f"need one m and one seed per view: {len(ms)}, {len(seeds)} for {V}")
     if dev.type == "cpu":
-        return fused_clean_fleet_ref(gid, vals, valid, ms, seeds, num_groups)
+        return profiled("fused_clean_fleet", fused_clean_fleet_ref, gid, vals, valid, ms, seeds,
+                        num_groups, fallback=True, rows=V * R, padded=V * R)
     B.check_cuda(dev)
-    C = vals.shape[2]
+    return profiled("fused_clean_fleet", _launch_fleet, gid, vals, valid, ms, seeds, num_groups,
+                    rows=V * R, padded=V * R)
+
+
+def _launch_fleet(gid, vals, valid, ms, seeds, num_groups):
+    dev = gid.device
+    V, R, C = vals.shape
     # the uint32 seed mixes travel as int32 of the same bits
     mixes = torch.tensor(np.array([seed_mix(s) for s in seeds], dtype=np.uint32).view(np.int32),
                          device=dev)

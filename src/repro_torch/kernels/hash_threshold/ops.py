@@ -7,6 +7,7 @@ apply_hash`` narrows a validity in one pass.  The wrapper takes the
 kernel's vector route when every key column is 16-byte aligned and the
 validity 4-byte aligned, else its scalar route (a column viewed at a
 storage offset); ``hash_threshold.routes`` counts the launches of each.
+Every call dispatches through ``obs.kprof.profiled`` as ``"hash_threshold"``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from repro_torch.core.hashing import seed_mix
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
+from repro_torch.obs.kprof import profiled
 
 MAX_COLS = 4
 _ARGS = (B.P, B.P, B.P, B.P, B.I32, B.I64, B.U32, B.F32, B.P, B.P, B.I32, B.P)
@@ -37,9 +39,18 @@ def hash_threshold(cols: Sequence[torch.Tensor], m: float, seed: int = 0,
     if valid is not None:
         B.check(valid, "valid", torch.bool, dev, (n,))
     if dev.type == "cpu":
-        keep = hash_threshold_ref(cols, m, seed)
-        return keep if valid is None else valid & keep
+        return profiled("hash_threshold", _plain, cols, m, seed, valid, fallback=True, rows=n,
+                        padded=n)
     B.check_cuda(dev)
+    return profiled("hash_threshold", _launch, cols, m, seed, valid, n, dev, rows=n, padded=n)
+
+
+def _plain(cols, m, seed, valid):
+    keep = hash_threshold_ref(cols, m, seed)
+    return keep if valid is None else valid & keep
+
+
+def _launch(cols, m, seed, valid, n, dev):
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out

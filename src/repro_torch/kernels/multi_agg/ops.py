@@ -15,7 +15,8 @@ and one device→host read for the one-hot check).
 The launch's float64 partials and its per-query-chunk tickets live in one
 persistent workspace per device (zeroed once; every launch leaves the
 tickets at 0), grown on demand and never shrunk.  They serve one stream:
-two calls in flight on different streams would share them.
+two calls in flight on different streams would share them.  Both entries
+dispatch through ``obs.kprof.profiled`` as ``"multi_agg"``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.multi_agg.ref import N_MOMENTS, multi_agg_ref
+from repro_torch.obs.kprof import profiled
 
 _ARGS = (B.P,) * 8 + (B.I64, B.I32, B.P, B.P, B.I32, B.I32, B.I32, B.P, B.P, B.P, B.P)
 TILE = 256  # rows a block stages per step (kTile in the source)
@@ -103,8 +105,16 @@ def _moments(wrapper, new, old, sel: torch.Tensor, meta: torch.Tensor,
     if sel_idx is not None:
         B.check(sel_idx, "sel_idx", torch.int32, dev, (1 + P, Q))
     if dev.type == "cpu":
-        return multi_agg_ref(*new, sel, meta, *(old or ()))
+        return profiled("multi_agg", multi_agg_ref, *new, sel, meta, *(old or ()),
+                        fallback=True, rows=R, padded=R)
     B.check_cuda(dev)
+    return profiled("multi_agg", _launch, wrapper, new, old, sel, meta, sel_idx, P, Q,
+                    rows=R, padded=R)
+
+
+def _launch(wrapper, new, old, sel, meta, sel_idx, P, Q) -> torch.Tensor:
+    dev = new[0].device
+    R, C = new[0].shape
     idx = selector_indices(sel, C) if sel_idx is None else sel_idx
     out = torch.empty((N_MOMENTS, Q), dtype=torch.float32, device=dev)
     if Q == 0:

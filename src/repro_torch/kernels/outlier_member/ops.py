@@ -9,7 +9,9 @@ to the relation's validity, and the ``__outlier`` flag.  ``outlier_codes``
 (int32 codes, bit0 keep, bit1 member) and the membership-only
 ``outlier_member`` build the table from key columns first.  CPU tensors
 take the plain versions (``ref.py``); CUDA tensors launch
-``csrc/outlier_member.cu`` or raise.
+``csrc/outlier_member.cu`` or raise.  Every call dispatches through
+``obs.kprof.profiled``: the digest table as ``"outlier_digest"`` (the JAX
+package builds it in XLA, unprofiled), the probes as ``"outlier_member"``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.kernels.outlier_member.ref import (
     pinned_hash_ref,
     sorted_digest_table,
 )
+from repro_torch.obs.kprof import profiled
 
 MAX_COLS = 4
 # Tables up to this many keys (16 KiB of digests) are staged in shared
@@ -64,9 +67,15 @@ def digest_table(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
     key_cols = tuple(key_cols)
     dev, K = _check_cols(key_cols, "key_cols")
     if dev.type == "cpu":
-        return sorted_digest_table(key_cols)
+        return profiled("outlier_digest", sorted_digest_table, key_cols, fallback=True, rows=K,
+                        padded=K)
     B.check_cuda(dev)
-    out = torch.empty(K, dtype=torch.int64, device=dev)
+    return profiled("outlier_digest", _launch_digest, key_cols, rows=K, padded=K)
+
+
+def _launch_digest(key_cols) -> torch.Tensor:
+    K = key_cols[0].shape[0]
+    out = torch.empty(K, dtype=torch.int64, device=key_cols[0].device)
     if K:
         B.launch("svc_outlier_digest", _DIGEST_ARGS, *_col_ptrs(key_cols), len(key_cols), K,
                  seed_mix(DIGEST_SEED_HI), seed_mix(DIGEST_SEED_LO), out.data_ptr(), B.stream())
@@ -89,14 +98,22 @@ def pinned_hash(
     cols = tuple(cols)
     dev, R = _check_cols(cols, "cols")
     B.check(valid, "valid", torch.bool, dev, (R,))
-    K = _check_table(table, dev)
+    _check_table(table, dev)
     if dev.type == "cpu":
-        return pinned_hash_ref(cols, valid, m, seed, table)
+        return profiled("outlier_member", pinned_hash_ref, cols, valid, m, seed, table,
+                        fallback=True, rows=R, padded=R)
     B.check_cuda(dev)
+    return profiled("outlier_member", _launch_pinned, cols, valid, m, seed, table, rows=R,
+                    padded=R)
+
+
+def _launch_pinned(cols, valid, m, seed, table):
+    dev = valid.device
+    R = valid.shape[0]
     out_valid = torch.empty(R, dtype=torch.bool, device=dev)
     out_flag = torch.empty(R, dtype=torch.int8, device=dev)
     B.launch("svc_outlier_pinned", _PINNED_ARGS, *_col_ptrs(cols), len(cols), valid.data_ptr(),
-             R, table.data_ptr(), K, seed_mix(seed), seed_mix(DIGEST_SEED_HI),
+             R, table.data_ptr(), table.shape[0], seed_mix(seed), seed_mix(DIGEST_SEED_HI),
              seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out_valid.data_ptr(),
              out_flag.data_ptr(), B.stream())
     pinned_hash.launches += 1
@@ -122,10 +139,16 @@ def outlier_codes(
     if key_cols[0].device != dev:
         raise ValueError(f"key_cols: on {key_cols[0].device}, expected {dev}")
     if dev.type == "cpu":
-        return outlier_codes_ref(cols, key_cols, m, seed)
+        return profiled("outlier_member", outlier_codes_ref, cols, key_cols, m, seed,
+                        fallback=True, rows=R, padded=R)
     B.check_cuda(dev)
-    table = digest_table(key_cols)
-    out = torch.empty(R, dtype=torch.int32, device=dev)
+    table = digest_table(key_cols)  # its own dispatch, outside the probe's
+    return profiled("outlier_member", _launch_codes, cols, table, m, seed, rows=R, padded=R)
+
+
+def _launch_codes(cols, table, m, seed):
+    R = cols[0].shape[0]
+    out = torch.empty(R, dtype=torch.int32, device=cols[0].device)
     B.launch("svc_outlier_member", _CODES_ARGS, *_col_ptrs(cols), len(cols), R,
              table.data_ptr(), table.shape[0], seed_mix(seed), seed_mix(DIGEST_SEED_HI),
              seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out.data_ptr(), B.stream())

@@ -13,7 +13,8 @@ tensors launch ``csrc/segment_aggsum.cu`` or raise.
 The sorted kernel's range records and its ticket live in one persistent
 workspace per device (the ticket zeroed once; every launch leaves it at
 0), sized for the most blocks the card can hold.  It serves one stream:
-two calls in flight on different streams would share it.
+two calls in flight on different streams would share it.  Both entries
+dispatch through ``obs.kprof.profiled`` as ``"segment_aggsum"``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.segment_aggsum.ref import segment_groupby_ref, segment_sum_ref
+from repro_torch.obs.kprof import profiled
 
 _ARGS = (B.P, B.P, B.I64, B.I32, B.I64, B.P, B.P)
 _SORTED_ARGS = (B.P, B.P, B.I64, B.I32, B.I64, B.P, B.P, B.P, B.P, B.I32, B.P)
@@ -86,10 +88,16 @@ def segment_groupby(gid: torch.Tensor, vals: torch.Tensor,
     bits vary."""
     _check(gid, vals, num_groups)
     dev = gid.device
+    R = gid.shape[0]
     if dev.type == "cpu":
-        return segment_groupby_ref(gid, vals, num_groups)
+        return profiled("segment_aggsum", segment_groupby_ref, gid, vals, num_groups,
+                        fallback=True, rows=R, padded=R)
     B.check_cuda(dev)
-    counts = torch.empty(num_groups, dtype=torch.int32, device=dev)
+    return profiled("segment_aggsum", _launch_groupby, gid, vals, num_groups, rows=R, padded=R)
+
+
+def _launch_groupby(gid, vals, num_groups):
+    counts = torch.empty(num_groups, dtype=torch.int32, device=gid.device)
     return counts, _sorted(gid, vals, num_groups, counts)
 
 
@@ -108,20 +116,27 @@ def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
         vals = vals[:, None]
     _check(gid, vals, num_groups)
     dev = gid.device
-    R, C = vals.shape
+    R = vals.shape[0]
     if dev.type == "cpu":
-        out = segment_sum_ref(gid, vals, num_groups)
-    elif indices_are_sorted:
-        B.check_cuda(dev)
-        out = _sorted(gid, vals, num_groups, None)
+        out = profiled("segment_aggsum", segment_sum_ref, gid, vals, num_groups, fallback=True,
+                       rows=R, padded=R)
     else:
         B.check_cuda(dev)
-        out = torch.zeros((num_groups, C), dtype=torch.float32, device=dev)
-        if R * C > 0 and num_groups > 0:
-            B.launch("svc_segment_sum", _ARGS, gid.data_ptr(), vals.data_ptr(), R, C,
-                     num_groups, out.data_ptr(), B.stream())
-            segment_sum.launches += 1
+        out = profiled("segment_aggsum", _launch_sum, gid, vals, num_groups, indices_are_sorted,
+                       rows=R, padded=R)
     return out[:, 0] if squeeze else out
+
+
+def _launch_sum(gid, vals, num_groups, indices_are_sorted):
+    if indices_are_sorted:
+        return _sorted(gid, vals, num_groups, None)
+    R, C = vals.shape
+    out = torch.zeros((num_groups, C), dtype=torch.float32, device=gid.device)
+    if R * C > 0 and num_groups > 0:
+        B.launch("svc_segment_sum", _ARGS, gid.data_ptr(), vals.data_ptr(), R, C,
+                 num_groups, out.data_ptr(), B.stream())
+        segment_sum.launches += 1
+    return out
 
 
 segment_sum.launches = 0

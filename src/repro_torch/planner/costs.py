@@ -236,6 +236,9 @@ class CostModel:
             out[i, F_COST_RETUNE] = st.retune_s
             out[i, F_AGE] = max(0.0, now - st.last_maintain_t)
             out[i, F_M] = self.vm.views[name].m
+        fault_plan = getattr(self.vm, "fault_plan", None)
+        if fault_plan is not None:  # the nan_panel chaos hook, before the sanitizer
+            out = fault_plan.poison_features(names, out)
         self.last_poisoned = self._sanitize(names, out)
         return out
 

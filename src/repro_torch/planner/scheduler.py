@@ -17,8 +17,10 @@ whose full-maintenance age exceeds ``age_cap_s`` while it still carries
 unapplied deltas is forced into the plan as a maintain, ahead of the
 knapsack and regardless of remaining budget.
 
-The decisions are those of ``repro.planner.scheduler``; its spans wait for
-the port's observability layer, and ``snapshot_s``, ``schedule_s`` and
+The decisions are those of ``repro.planner.scheduler``, and so are its
+spans: ``snapshot`` (the scoring pass), ``schedule`` (the knapsack) and
+``act`` (the epoch's maintains and cleans, whose ``clean``/``merge``/
+``maintain`` spans nest inside it); ``snapshot_s``, ``schedule_s`` and
 ``act_s`` are read from ``vm.clock``.
 """
 
@@ -29,6 +31,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.kernels.fleet_score import A_CLEAN, A_MAINTAIN, A_RETUNE
+from repro_torch.obs import trace
 from repro_torch.planner.costs import CostModel
 from repro_torch.planner.score import FleetScores, score_fleet
 
@@ -141,11 +144,14 @@ class MaintenancePlanner:
         """Score the fleet and pick this epoch's actions (no execution)."""
         clock = self.vm.clock
         t0 = clock()
-        fs = score_fleet(self.cost_model)
+        with trace.span("snapshot", epoch=self.epoch):
+            fs = score_fleet(self.cost_model)
         snapshot_s = clock() - t0
         t0 = clock()
-        report = self.choose(fs, budget_s)
-        report.schedule_s = clock() - t0
+        with trace.span("schedule", epoch=self.epoch) as sp:
+            report = self.choose(fs, budget_s)
+            report.schedule_s = clock() - t0
+            sp.set(chosen=len(report.actions), skipped=len(fs.names) - len(report.actions))
         report.snapshot_s = snapshot_s
         return report
 
@@ -225,31 +231,33 @@ class MaintenancePlanner:
                     self.vm.views[act.view].recommended_m = rm
         clock = self.vm.clock
         t0 = clock()
-        cleans = [a for a in report.actions if a.action != "maintain"]
-        for act in report.actions:
-            if act.action == "maintain":
-                try:
-                    act.actual_s = self.vm.maintain(act.view)
-                except Exception:
-                    # maintain() restored the view and recorded the failure
-                    act.failed = True
-                    act.actual_s = 0.0
-        if cleans:
-            # the epoch's cleans go through the fleet refresh path: one fused
-            # fleet launch and one fleet_merge launch per shape
-            dts = self.vm.svc_refresh_many([a.view for a in cleans], isolate=True)
-            for act in cleans:
-                act.actual_s = dts[act.view]
-                if self.vm.health.failed_this_epoch(act.view):
-                    act.failed = True
-        # an action past its deadline degrades its view to serve-stale; its
-        # wall time is already in the cost EWMA
-        for act in report.actions:
-            if not act.failed and act.deadline_s > 0.0 and act.actual_s > act.deadline_s:
-                act.overrun = True
-                self.vm.health.record_failure(act.view, TimeoutError(
-                    f"{act.action} ran {act.actual_s:.3f}s > deadline {act.deadline_s:.3f}s"))
-        report.act_s = clock() - t0
+        with trace.span("act", epoch=self.epoch, actions=len(report.actions)) as act_sp:
+            cleans = [a for a in report.actions if a.action != "maintain"]
+            for act in report.actions:
+                if act.action == "maintain":
+                    try:
+                        act.actual_s = self.vm.maintain(act.view)
+                    except Exception:
+                        # maintain() restored the view and recorded the failure
+                        act.failed = True
+                        act.actual_s = 0.0
+            if cleans:
+                # the epoch's cleans go through the fleet refresh path: one
+                # fused fleet launch and one fleet_merge launch per shape
+                dts = self.vm.svc_refresh_many([a.view for a in cleans], isolate=True)
+                for act in cleans:
+                    act.actual_s = dts[act.view]
+                    if self.vm.health.failed_this_epoch(act.view):
+                        act.failed = True
+            # an action past its deadline degrades its view to serve-stale;
+            # its wall time is already in the cost EWMA
+            for act in report.actions:
+                if not act.failed and act.deadline_s > 0.0 and act.actual_s > act.deadline_s:
+                    act.overrun = True
+                    self.vm.health.record_failure(act.view, TimeoutError(
+                        f"{act.action} ran {act.actual_s:.3f}s > deadline {act.deadline_s:.3f}s"))
+            report.act_s = clock() - t0
+            act_sp.set(act_s=report.act_s, failed=sum(1 for a in report.actions if a.failed))
         report.actual_spend_s = sum(a.actual_s for a in report.actions)
         self.cost_model.decay_traffic(TRAFFIC_DECAY)
         self.epoch += 1

@@ -15,14 +15,17 @@ clears the quarantine and restores the budget.
 
 The registry lives on ``ViewManager.health``; ``svc_refresh_many``,
 ``maintain`` and the planner's deadline check report through it.  The
-arithmetic is that of ``repro.robustness.health``; its trace events wait
-for the port's observability layer.
+arithmetic and the trace events (``quarantine`` per recorded failure,
+``recover`` per cleared quarantine) are those of
+``repro.robustness.health``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional
+
+from repro_torch.obs import trace
 
 
 @dataclasses.dataclass
@@ -98,6 +101,10 @@ class FleetHealth:
         h.backoff_until_epoch = self.epoch + delay
         h.last_error = _describe(error)
         h.last_failure_epoch = self.epoch
+        # one quarantine event per recorded failure: the trace's count must
+        # reconcile exactly against Σ ViewHealth.failures at export time
+        trace.event("quarantine", view=name, error=h.last_error,
+                    epoch=self.epoch, consecutive=h.consecutive)
         return h
 
     def record_success(self, name: str) -> ViewHealth:
@@ -106,6 +113,7 @@ class FleetHealth:
         h = self._h(name)
         if h.degraded:
             h.recovered_epoch = self.epoch
+            trace.event("recover", view=name, epoch=self.epoch)
         h.degraded = False
         h.suspended = False
         h.consecutive = 0
@@ -123,6 +131,8 @@ class FleetHealth:
         h.failures += 1
         h.last_error = _describe(reason)
         h.last_failure_epoch = self.epoch
+        trace.event("quarantine", view=name, error=h.last_error,
+                    epoch=self.epoch, consecutive=h.consecutive)
         return h
 
     def resume(self, name: str) -> ViewHealth:

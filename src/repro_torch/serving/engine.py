@@ -172,13 +172,19 @@ class ServeEngine:
         emitted, queued) the registered view retains.  ``view_name``
         defaults to the first registered view fed by ``telemetry_base``.
         Returns {name: StreamedEstimate}, plus the planner's last report
-        under "planner" when the service has a planner.
+        under "planner" when the service has a planner.  ``view_name=
+        "observatory"`` returns ``repro_torch.obs.observatory_panel`` of the
+        telemetry service instead (metrics, trace, kernel profile and the
+        admission ledger's reconciliation).
         """
         if self.telemetry is None:
             raise RuntimeError("dashboard() requires a telemetry StreamingViewService")
         if view_name == "observatory":
-            raise NotImplementedError(
-                "the staleness observatory panel (obs/reconcile.py) is not ported: ROADMAP A.11")
+            # the staleness observatory: metrics registry + trace + kernel
+            # profile + reconciliation in one panel (no sample scan at all)
+            from repro_torch.obs import observatory_panel
+
+            return observatory_panel(self.telemetry)
         from repro_torch.core import Query
 
         vm = self.telemetry.vm

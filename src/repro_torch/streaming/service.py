@@ -201,11 +201,20 @@ class StreamingViewService:
         ``key`` is an optional producer idempotency key: a replay of an
         already-accepted key is absorbed with accounting (at-least-once
         retries stay safe under spikes; the drain is bit-equal to a
-        once-delivered stream).
+        once-delivered stream).  An attached ``FaultPlan`` may expand the
+        offer into duplicate or NaN-corrupt copies under the same ``seq``
+        and ``key`` (``mutate_offer``).
         """
         dev = self.vm.device
-        return self._offer_one(base, None if inserts is None else inserts.to(dev),
-                               None if deletes is None else deletes.to(dev), seq, key)
+        inserts = None if inserts is None else inserts.to(dev)
+        deletes = None if deletes is None else deletes.to(dev)
+        fault_plan = getattr(self.vm, "fault_plan", None)
+        if fault_plan is None:
+            return self._offer_one(base, inserts, deletes, seq, key)
+        triggered = False
+        for ins, dels, s, k in fault_plan.mutate_offer(base, inserts, deletes, seq, key):
+            triggered |= self._offer_one(base, ins, dels, s, k)
+        return triggered
 
     def _offer_one(self, base: str, inserts, deletes, seq, key=None) -> bool:
         log = self._log(base)
@@ -324,6 +333,12 @@ class StreamingViewService:
                 ]
                 if affected:
                     total = sum(self.vm.svc_refresh_many(affected).values())
+            fault_plan = getattr(self.vm, "fault_plan", None)
+            if fault_plan is not None:
+                # slow_drain chaos: report extra wall seconds without
+                # sleeping — the admission controller's overload EWMA sees
+                # an expensive drain, deterministically
+                total += fault_plan.drain_latency_s()
             if self.admission is not None:
                 self.admission.note_drain(total)
             self._last_refresh = self._clock()
@@ -473,6 +488,9 @@ class StreamingViewService:
         ``queries``; every query resolves in bounded work."""
         mv = self.vm.views[view_name]
         cache = self.result_cache
+        fault_plan = getattr(self.vm, "fault_plan", None)
+        if cache is not None and fault_plan is not None:
+            fault_plan.poison_cache(cache, view_name)
         version = mv.sample_version
 
         if cache is None:

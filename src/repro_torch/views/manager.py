@@ -19,6 +19,13 @@ and serving counter lands in.  Median, percentile, min and max queries
 take the bootstrap and Cantelli estimators.  Every relation lives on the
 manager's ``device`` (CUDA by default); a manager asked for CUDA on a
 machine without a card raises.
+
+Observability and chaos: with a tracer installed (``repro_torch.obs.
+trace``) the manager opens JAX's ``clean``, ``merge``, ``maintain`` and
+``estimate`` spans, and a ``FaultPlan`` attached as ``fault_plan``
+(``repro_torch.robustness.faults``) fires at the designed failure points:
+``refresh`` and ``maintain`` at the top of each clean and maintenance,
+``kernel`` around the batched clean's launches.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from repro_torch.core.outliers import (
     propagate_outlier_keys,
     update_outlier_index,
 )
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.registry import MetricsRegistry, counter_attr
 from repro_torch.query import (
     QueryBatch,
@@ -87,6 +95,7 @@ from repro_torch.relational.relation import (
     lexsort_indices,
     next_pow2,
 )
+from repro_torch.robustness.faults import FaultInjected
 from repro_torch.robustness.health import FleetHealth
 
 
@@ -136,8 +145,9 @@ class ManagedView:
 
 
 class ViewManager:
-    # batched fleet launches that raised and fell back to per-view cleans
-    # (CPU managers only): a count here means the fleet path is degraded.
+    # batched fleet launches that failed and fell back to per-view cleans
+    # (any failure on a CPU manager; on the card only an injected
+    # ``kernel_error``): a count here means the fleet path is degraded.
     # A view over the metrics registry, as in the JAX package.
     fleet_merge_failures = counter_attr()
 
@@ -172,7 +182,19 @@ class ViewManager:
         self.adaptive_m = False
         # per-view quarantine/backoff registry of clean/maintain outcomes
         self.health = FleetHealth()
+        # chaos-test injection point (robustness.faults.FaultPlan.attach);
+        # None in production — the hooks below are single attribute checks
+        self.fault_plan = None
+        # extra attributes stamped onto every span this manager opens
+        self.obs_attrs: Dict[str, object] = {}
         self._c_fleet_merge_failures = self.metrics.counter("fleet_merge_failures")
+
+    def _inject_fault(self, point: str, name: Optional[str]) -> float:
+        """Fire the chaos hook at a designed failure point; returns injected
+        latency seconds (0.0 in production — one None check)."""
+        if self.fault_plan is None:
+            return 0.0
+        return self.fault_plan.fire(point, name)
 
     def _sync(self) -> None:
         """Wait for the device, so wall times cover the work, not the enqueue."""
@@ -325,6 +347,7 @@ class ViewManager:
             self.pending_segments.append(seg)
             self._merged_cache.clear()
             self.ingested_rows[base] = self.ingested_rows.get(base, 0) + n_rows
+            obs_trace.event("ingest", base=base, rows=n_rows)
         for mv in self.views.values():
             if (mv.outlier_index is not None and mv.outlier_index.base == base
                     and inserts is not None):
@@ -405,12 +428,15 @@ class ViewManager:
         Returns the wall seconds."""
         mv = self.views[view_name]
         snap = _view_snapshot(mv)
-        try:
-            dt = self._svc_refresh_inner(mv, view_name, fused, _precomputed, _extra_s, _retuned)
-        except BaseException as e:
-            self._roll_back(mv, snap, e)
-            raise
-        self.health.record_success(view_name)
+        with obs_trace.span("clean", view=view_name, **self.obs_attrs) as sp:
+            try:
+                dt = self._svc_refresh_inner(mv, view_name, fused, _precomputed, _extra_s,
+                                             _retuned)
+            except BaseException as e:
+                self._roll_back(mv, snap, e)
+                raise
+            self.health.record_success(view_name)
+            sp.set(wall_s=dt, sample_version=mv.sample_version)
         return dt
 
     def _roll_back(self, mv: ManagedView, snap: dict, error: BaseException) -> None:
@@ -422,6 +448,7 @@ class ViewManager:
 
     def _svc_refresh_inner(self, mv: ManagedView, view_name: str, fused: bool, precomputed,
                            extra_s: float, retuned: bool) -> float:
+        lat_s = self._inject_fault("refresh", view_name)
         t0 = self.clock()  # a retune below is part of the clean's cost
         if self._wants_retune(mv):
             self._retune_sample_ratio(mv, mv.recommended_m)
@@ -452,7 +479,7 @@ class ViewManager:
         mv.clean_sample = flag_outliers(cleaned, mv.outlier_pin)
         mv.stale_sample = flag_outliers(mv.stale_sample, mv.outlier_pin)
         mv.corr_cache = None  # samples moved: new correspondence window
-        dt = self._elapsed(t0) + float(extra_s)
+        dt = self._elapsed(t0) + float(extra_s) + lat_s
         self._after_clean(mv, view_name, dt, retuned)
         return dt
 
@@ -555,9 +582,12 @@ class ViewManager:
         With ``isolate`` (the default) a failed per-view clean is quarantined
         in ``health`` and reported as 0.0 seconds while the other views
         commit.  A failure of the batched launch itself falls the whole
-        epoch back to per-view cleans, counted in ``fleet_merge_failures``,
-        only on a CPU manager; on the card it propagates, because a kernel
-        that fails to build or launch must never hand its work to plain
+        epoch back to per-view cleans, counted in ``fleet_merge_failures``:
+        on a CPU manager any failure, on the card only a ``FaultInjected``
+        fired at the ``kernel`` point (a designed failure point, and the
+        per-view cleans it falls back to launch the card's kernels too).
+        Any other failure on the card propagates, because a kernel that
+        fails to build or launch must never hand its work to plain
         PyTorch.  ``isolate=False`` propagates every failure."""
         names = list(names)
         out: Dict[str, float] = {}
@@ -579,19 +609,24 @@ class ViewManager:
                 if job is not None:
                     jobs.append(job)
         merged, precomputed = {}, {}
-        t0 = self.clock()
-        if jobs:
-            try:
-                merged, precomputed = fleet_clean_merge(jobs)
-                self._sync()
-            except Exception:
-                if not isolate or self.device.type != "cpu":
-                    raise
-                # the batched launch failed as a unit: every view cleans on
-                # its own (panel slots were only read, so nothing to restore)
-                self.fleet_merge_failures += 1
-                merged, precomputed = {}, {}
-        share = (self.clock() - t0) / len(merged) if merged else 0.0
+        with obs_trace.span("merge", jobs=len(jobs), **self.obs_attrs) as sp:
+            t0 = self.clock()
+            if jobs:
+                try:
+                    self._inject_fault("kernel", None)
+                    merged, precomputed = fleet_clean_merge(jobs)
+                    self._sync()
+                except Exception as e:
+                    if not isolate or (self.device.type != "cpu"
+                                       and not isinstance(e, FaultInjected)):
+                        raise
+                    # the batched launch failed as a unit: every view cleans
+                    # on its own (panel slots were only read: nothing to
+                    # restore)
+                    self.fleet_merge_failures += 1
+                    merged, precomputed = {}, {}
+            share = (self.clock() - t0) / len(merged) if merged else 0.0
+            sp.set(merged=len(merged), fell_back=len(names) - len(merged))
         for name in names:
             try:
                 if name in merged:
@@ -615,15 +650,18 @@ class ViewManager:
         ``svc_refresh`` without the plan execution.  Guarded the same way."""
         mv = self.views[view_name]
         snap = _view_snapshot(mv)
-        try:
-            mv.clean_sample = flag_outliers(rel, mv.outlier_pin)
-            mv.stale_sample = flag_outliers(mv.stale_sample, mv.outlier_pin)
-            mv.corr_cache = None  # samples moved: new correspondence window
-            self._after_clean(mv, view_name, dt, retuned)
-        except BaseException as e:
-            self._roll_back(mv, snap, e)
-            raise
-        self.health.record_success(view_name)
+        with obs_trace.span("clean", view=view_name, batched=True, **self.obs_attrs) as sp:
+            try:
+                dt = dt + self._inject_fault("refresh", view_name)
+                mv.clean_sample = flag_outliers(rel, mv.outlier_pin)
+                mv.stale_sample = flag_outliers(mv.stale_sample, mv.outlier_pin)
+                mv.corr_cache = None  # samples moved: new correspondence window
+                self._after_clean(mv, view_name, dt, retuned)
+            except BaseException as e:
+                self._roll_back(mv, snap, e)
+                raise
+            self.health.record_success(view_name)
+            sp.set(wall_s=dt, sample_version=mv.sample_version)
         return dt
 
     # -- full IVM (the expensive path; runs at maintenance periods) ----------
@@ -634,15 +672,18 @@ class ViewManager:
         Transactional like ``svc_refresh``; returns the IVM wall seconds."""
         mv = self.views[view_name]
         snap = _view_snapshot(mv)
-        try:
-            dt = self._maintain_inner(mv, view_name)
-        except BaseException as e:
-            self._roll_back(mv, snap, e)
-            raise
-        self.health.record_success(view_name)
+        with obs_trace.span("maintain", view=view_name, **self.obs_attrs) as sp:
+            try:
+                dt = self._maintain_inner(mv, view_name)
+            except BaseException as e:
+                self._roll_back(mv, snap, e)
+                raise
+            self.health.record_success(view_name)
+            sp.set(wall_s=dt, sample_version=mv.sample_version)
         return dt
 
     def _maintain_inner(self, mv: ManagedView, view_name: str) -> float:
+        lat_s = self._inject_fault("maintain", view_name)
         self._flush_outlier_offers(mv)
         t0 = self.clock()
         hi = len(self.pending_segments)
@@ -654,7 +695,7 @@ class ViewManager:
             extra_env=self.base,
             out_capacity=mv.materialized.capacity,
         )
-        dt = self._elapsed(t0)
+        dt = self._elapsed(t0) + lat_s
         mv.stale_sample = compact(
             hashing.apply_hash(mv.materialized, mv.view.pk, mv.m, mv.seed, pin=mv.outlier_pin),
             mv.sample_capacity,
@@ -757,25 +798,27 @@ class ViewManager:
         if self.cost_model is not None and record_traffic:
             self.cost_model.observe_traffic(view_name, len(queries))
         mv = self.views[view_name]
-        results: List[Optional[Estimate]] = [None] * len(queries)
-        cols = sample_columns(mv.clean_sample)
-        batched = [i for i, q in enumerate(queries) if is_encodable(q, cols)]
-        fast = set(batched)
-        for i, q in enumerate(queries):
-            if i not in fast:
-                results[i] = self._query_fallback(mv, q, confidence, prefer, rng)
-        if batched:
-            batch = QueryBatch.encode([queries[i] for i in batched], cols, self.device)
-            if prefer == "aqp":
-                # AQP never needs the stale side: no correspondence join
-                ests = run_batch_aqp(mv.clean_sample, batch, mv.m, confidence=confidence)
-            else:
-                ests = run_batch(
-                    self._corr_cache(mv), batch, confidence=confidence, prefer=prefer,
-                    materialized=mv.materialized,
-                )
-            for i, e in zip(batched, ests):
-                results[i] = e
+        with obs_trace.span("estimate", view=view_name, n=len(queries),
+                            sample_version=mv.sample_version, **self.obs_attrs):
+            results: List[Optional[Estimate]] = [None] * len(queries)
+            cols = sample_columns(mv.clean_sample)
+            batched = [i for i, q in enumerate(queries) if is_encodable(q, cols)]
+            fast = set(batched)
+            for i, q in enumerate(queries):
+                if i not in fast:
+                    results[i] = self._query_fallback(mv, q, confidence, prefer, rng)
+            if batched:
+                batch = QueryBatch.encode([queries[i] for i in batched], cols, self.device)
+                if prefer == "aqp":
+                    # AQP never needs the stale side: no correspondence join
+                    ests = run_batch_aqp(mv.clean_sample, batch, mv.m, confidence=confidence)
+                else:
+                    ests = run_batch(
+                        self._corr_cache(mv), batch, confidence=confidence, prefer=prefer,
+                        materialized=mv.materialized,
+                    )
+                for i, e in zip(batched, ests):
+                    results[i] = e
         return results
 
     def _corr_cache(self, mv: ManagedView):

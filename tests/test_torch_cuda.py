@@ -20,7 +20,12 @@ on every call; corr_moments' count is exact, its sums
 within 1e-6 of Σ|x| of the float64 sums, and the same bits run to run.
 flash_attention within 1e-4 in float32 (the same f32 sums in another
 order) and 1e-2 in bfloat16 (an output may round to the neighbouring bf16
-value); the f32 smoke model on the card within 1e-4 of the CPU.
+value); the f32 smoke model on the card within 1e-4 of the CPU.  Under a
+kernel profiler every wrapper dispatches once per call and never takes
+its plain version; an injected kernel_error degrades the batched clean on
+the card to per-view cleans whose samples equal a fault-free manager's
+(keys and counts exact, sums within 1e-5 relative), while a real failure
+still raises.
 """
 
 import numpy as np
@@ -1359,3 +1364,91 @@ def test_flash_f32_stays_on_the_cuda_cores(dev):
     got = flash_attention(q, cache[0, :, :249], cache[1, :, :249], causal=False)
     want = flash_attention_ref(q, cache[0, :, :249], cache[1, :, :249], causal=False)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The kernel profiler and the chaos layer on the card
+# ---------------------------------------------------------------------------
+
+def test_every_wrapper_under_the_profiler_launches_its_kernel(dev):
+    """On CUDA tensors every wrapper dispatches once per call under its op
+    name, never as a fallback, and launches its kernel; the profiler's
+    wall covers the synchronized launch."""
+    from torch_wrapper_calls import wrapper_calls
+
+    from repro_torch import kernels
+    from repro_torch.obs.kprof import KernelProfiler
+
+    calls = wrapper_calls(dev)
+    ops = kernels.op_names()
+    assert set(calls) == set(kernels.wrappers())
+    try:
+        for name, call in calls.items():
+            call()  # built and warm
+            prof = kernels.set_profiler(KernelProfiler())
+            before = kernels.launch_counts()
+            for _ in range(3):
+                call()
+            launched = {k: n - before[k] for k, n in kernels.launch_counts().items() if n > before[k]}
+            summary = prof.summary()
+            assert list(summary) == [ops[name]], name
+            st = summary[ops[name]]
+            assert (st["dispatches"], st["fallbacks"]) == (3, 0), name
+            assert st["compiles"] == 1 and st["compile_s"] + st["execute_s"] > 0.0
+            assert launched.get(name, 0) >= 3 and {ops[k] for k in launched} == {ops[name]}
+    finally:
+        kernels.set_profiler(None)
+
+
+def test_profiled_without_a_profiler_returns_the_launch_output(dev, monkeypatch):
+    """No profiler installed: the wrapper returns its launch's own tensor."""
+    import repro_torch.kernels.hash_threshold.ops as H
+    from repro_torch.obs.kprof import get_profiler
+
+    assert get_profiler() is None
+    made = []
+    real = H._launch
+
+    def spy(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    monkeypatch.setattr(H, "_launch", spy)
+    out = hash_threshold((torch.arange(1000, dtype=torch.int32, device=dev),), 0.5, 3)
+    assert out is made[0]
+
+
+def test_an_injected_kernel_error_degrades_on_the_card(dev, monkeypatch):
+    """An injected kernel_error is a designed failure point: the epoch
+    falls back to per-view cleans (which launch the card's kernels), counted
+    in fleet_merge_failures, with the samples a fault-free CUDA manager
+    gets; a real failure of the batched clean still propagates."""
+    import repro_torch.views.manager as M
+    from repro_torch import kernels
+    from repro_torch.relational.relation import to_host
+    from repro_torch.robustness import FaultPlan, FaultSpec
+
+    vm, twin = _small_fleet("cuda"), _small_fleet("cuda")
+    plan = FaultPlan([FaultSpec(epoch=1, kind="kernel_error")]).attach(vm)
+    plan.advance()
+    kernels.reset_launches()
+    vm.svc_refresh_many(list(vm.views))
+    counts = kernels.launch_counts()
+    assert vm.fleet_merge_failures == 1 and counts["fleet_merge"] == 0
+    assert counts["fused_clean"] >= len(vm.views)  # the per-view cleans launched
+    assert not vm.health.quarantined() and len(plan.injected) == 1
+    twin.svc_refresh_many(list(twin.views))
+    for name in vm.views:
+        a, b = to_host(vm.views[name].clean_sample), to_host(twin.views[name].clean_sample)
+        assert np.array_equal(a["videoId"], b["videoId"])
+        assert np.array_equal(a["visits"], b["visits"])
+        np.testing.assert_allclose(a["totalBytes"], b["totalBytes"], rtol=1e-5)
+
+    def boom(jobs):
+        raise RuntimeError("a real fleet failure")
+
+    plan.advance()  # no fault scheduled: the pending deltas batch again
+    monkeypatch.setattr(M, "fleet_clean_merge", boom)
+    with pytest.raises(RuntimeError, match="a real fleet failure"):
+        vm.svc_refresh_many(list(vm.views), isolate=True)
+    assert vm.fleet_merge_failures == 1

@@ -196,8 +196,10 @@ def test_serve_engine_dashboard_is_batched():
     assert len({id(v.staleness) for v in dash.values()}) == 1
     custom = eng.dashboard(queries={"n": Query(agg="count")})
     assert set(custom) == {"n"} and float(custom["n"].value) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        eng.dashboard("observatory")
+    panel = eng.dashboard("observatory")
+    assert set(panel) >= {"metrics", "trace", "kernels", "staleness", "reconciliation"}
+    assert panel["reconciliation"]["queries_ok"]
+    assert panel["metrics"]["stream_refreshes"] >= 1.0
     with pytest.raises(RuntimeError, match="telemetry"):
         ServeEngine(_StubModel(), params={}, max_batch=1, max_seq=4).dashboard()
 

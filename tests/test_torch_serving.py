@@ -3,11 +3,11 @@ degrade bound, in the port against the JAX package.
 
 Mirrors tests/test_serving_plane.py where it touches
 ``robustness/degrade.py``, ``serving/result_cache.py`` and
-``serving/admission.py``; the FaultPlan chaos cases (duplicate_batch,
-traffic_spike, slow_drain, cache_poison through a plan) wait for the
-port's ``FaultPlan``.  Digests, verdict sequences and widened intervals
-must equal JAX's; a cache hit returns the very Estimate it stored and
-computes nothing.
+``serving/admission.py``, and its FaultPlan chaos cases (duplicate_batch,
+traffic_spike, slow_drain, cache_poison through a plan).  Digests,
+verdict sequences, widened intervals, injection logs and the chaos
+counters must equal JAX's; a cache hit returns the very Estimate it
+stored and computes nothing.
 """
 
 import dataclasses
@@ -22,12 +22,16 @@ import repro.serving as jserving
 import repro_torch.core as tcore
 import repro_torch.relational.expr as texpr
 import repro_torch.relational.plan as tplan
+from repro.data.synthetic import grow_log as jax_grow_log
 from repro.data.synthetic import make_log_video as jax_make_log_video
+from repro.robustness import FaultPlan as JFaultPlan
+from repro.robustness import FaultSpec as JFaultSpec
 from repro.robustness.degrade import widen_estimate as jax_widen_estimate
 from repro.streaming import StreamConfig as JStreamConfig
 from repro.views import ViewManager as JaxViewManager
 from repro_torch.core.estimators import Estimate
 from repro_torch.data.synthetic import grow_log, make_log_video
+from repro_torch.robustness import FaultPlan, FaultSpec
 from repro_torch.robustness.degrade import pending_delta_bound, widen_estimate
 from repro_torch.serving import (
     ADMIT,
@@ -389,3 +393,97 @@ def test_staleness_counters_are_monotone_over_a_workload():
     assert prev["deduped_batches"] == 4 and prev["admitted_queries"] == 8
     assert vm.metrics.total("stream_queries") == 8.0
     assert vm.metrics.total("admission_verdicts") == 8.0
+
+
+# ---------------------------------------------------------------------------
+# Chaos kinds through a FaultPlan: duplicate_batch, slow_drain, cache_poison
+# ---------------------------------------------------------------------------
+
+def _twins(**cfg_kw):
+    """The JAX and the port service over the same data, on one fake clock."""
+    clock = FakeClock()
+    (jvm, jrng), (tvm, trng) = _jax_vm(), _vm()
+    jsvc = jvm.configure_streaming(JStreamConfig(**{"max_rows": 10**9, "max_age_s": 1e9,
+                                                    **cfg_kw}), clock=clock)
+    return clock, (jvm, jsvc, jrng), (tvm, _svc(tvm, clock, **cfg_kw), trng)
+
+
+def _log(plan):
+    return [(e, dataclasses.astuple(s), w) for e, s, w in plan.injected]
+
+
+def test_duplicate_batch_fault_carries_key_and_is_absorbed():
+    _, (jvm, jsvc, jrng), (tvm, tsvc, trng) = _twins(cache_capacity=0)
+    jplan_ = JFaultPlan([JFaultSpec(epoch=0, kind="duplicate_batch", target="Log")]).attach(jvm)
+    tplan_ = FaultPlan([FaultSpec(epoch=0, kind="duplicate_batch", target="Log")]).attach(tvm)
+    jsvc.offer("Log", inserts=jax_grow_log(jrng, 300, 6000, 120), seq=0, key="k0")
+    tsvc.offer("Log", inserts=grow_log(trng, 300, 6000, 120, device="cpu"), seq=0, key="k0")
+    for svc in (jsvc, tsvc):
+        assert svc.logs["Log"].deduped_batches == 1
+        assert svc.staleness().pending_rows == 120
+    assert _log(tplan_) == _log(jplan_) == [(0, (0, "duplicate_batch", "Log", 0.0), "offer:Log")]
+
+
+def test_traffic_spike_multiplier_and_slow_drain_report():
+    plans = [plan_t([spec_t(epoch=1, kind="traffic_spike", magnitude=10.0),
+                     spec_t(epoch=1, kind="traffic_spike", magnitude=2.0),
+                     spec_t(epoch=2, kind="slow_drain", magnitude=3.0)])
+             for plan_t, spec_t in ((JFaultPlan, JFaultSpec), (FaultPlan, FaultSpec))]
+    seen = []
+    for plan in plans:
+        got = [plan.traffic_multiplier()]
+        plan.advance()
+        got += [plan.traffic_multiplier(), plan.drain_latency_s()]
+        plan.advance()
+        got += [plan.traffic_multiplier(), plan.drain_latency_s()]
+        seen.append((got, _log(plan)))
+    assert seen[1] == seen[0]
+    assert seen[1][0] == [1.0, 20.0, 0.0, 1.0, 3.0] and len(seen[1][1]) == 3
+
+
+def test_slow_drain_fault_drives_overload_shedding():
+    """An injected slow drain pushes the admission EWMA over budget so the
+    next queries shed, in the port as in JAX."""
+    adm = dict(tenant_qps=1e9, tenant_burst=1e9, fleet_qps=1e9, fleet_burst=1e9,
+               drain_overload_s=5.0, drain_ewma_alpha=1.0)
+    clock = FakeClock()
+    (jvm, jrng), (tvm, trng) = _jax_vm(), _vm()
+    jsvc = jvm.configure_streaming(JStreamConfig(max_rows=10**9, max_age_s=1e9,
+                                                 cache_capacity=64,
+                                                 admission=jserving.AdmissionConfig(**adm)),
+                                   clock=clock)
+    tsvc = _svc(tvm, clock, cache_capacity=64, admission=AdmissionConfig(**adm))
+    JFaultPlan([JFaultSpec(epoch=0, kind="slow_drain", magnitude=60.0)]).attach(jvm)
+    FaultPlan([FaultSpec(epoch=0, kind="slow_drain", magnitude=60.0)]).attach(tvm)
+    out = []
+    for svc, q, rows in ((jsvc, jcore.Query(agg="sum", col="totalBytes"),
+                          lambda: jax_grow_log(jrng, 300, 6000, 50)),
+                         (tsvc, Q_SUM, lambda: grow_log(trng, 300, 6000, 50, device="cpu"))):
+        first = svc.query("v", q).estimate.method
+        svc.offer("Log", inserts=rows(), seq=0)
+        svc.refresh()
+        r = svc.query("v", q)
+        out.append((first, r.estimate.method, r.staleness.overloaded,
+                    svc.admission.drain_ewma_s > 5.0))
+    assert out[1] == out[0]
+    assert out[1][1].endswith("+shed") and out[1][2] and out[1][3]
+    assert not out[1][0].endswith(("+shed", "+throttled"))
+
+
+def test_cache_poison_fault_fires_through_query_path():
+    _, (jvm, jsvc, _), (tvm, tsvc, _) = _twins(cache_capacity=64)
+    res = []
+    for vm, svc, q, pkg in ((jvm, jsvc, jcore.Query(agg="sum", col="totalBytes"), "jax"),
+                            (tvm, tsvc, Q_SUM, "port")):
+        good = svc.query("v", q).estimate
+        plan_t = (JFaultPlan if pkg == "jax" else FaultPlan)
+        spec_t = (JFaultSpec if pkg == "jax" else FaultSpec)
+        plan = plan_t([spec_t(epoch=1, kind="cache_poison", target="v")]).attach(vm)
+        plan.advance()
+        served = svc.query("v", q).estimate
+        assert float(served.value) == float(good.value)
+        assert svc.result_cache.poison_rejected >= 1
+        res.append((svc.result_cache.poison_rejected, _log(plan), float(served.value)))
+    assert res[1][:2] == res[0][:2] and res[1][1] == [(1, (1, "cache_poison", "v", 0.0),
+                                                      "cache:v")]
+    np.testing.assert_allclose(res[1][2], res[0][2], rtol=1e-5)
