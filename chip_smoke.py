@@ -44,6 +44,19 @@ The observatory and the chaos layer ride on these paths:
     every action-path fault kind with the tracer on, then recovery epochs
     and ``maintain_all``: its trace reconciles, every injected kernel_error
     is a fleet_merge_failure, and the twins' views and samples agree.
+  * ``sharded_fleet`` (after ``chaos_fleet``, §7.5): the fleet's 16 views
+    over ``ShardedFleet(n_shards=4)`` on the card, from the chaos phase's
+    host logs, against a flat ``MaintenancePlanner`` twin: a plan preview
+    bit-identical to the flat plan, three executed epochs whose actions,
+    samples and answers equal the flat twin's, shard 1 lost in epoch 2
+    (its views serve their last answer, degraded; its partitions queue)
+    and revived in epoch 3 (the drain epoch: nothing pending after it); the
+    trace and the per-shard kernel ledger reconcile.  Then visitView's
+    streaming delta in four ``PartitionedDeltaLog`` partitions through
+    ``stack_shard_deltas`` and both sharded group-bys, held to one flat
+    fused clean and to the float64 sums; a ``kernel`` line for
+    ``fleet_score_sharded`` (the fleet_score kernel over the (S, Vmax, F)
+    stack, bit-equal to the plain score shard by shard).
   * ``kprof``: a KernelProfiler over one warm pass of the main path (fused,
     pinned and unfused refreshes, query_batch, the kernel_api entries) and
     of the fleet (svc_refresh_many, a maintain, a planner epoch): no op
@@ -170,6 +183,21 @@ CHAOS_DASHBOARDS = 2
 FLEET_RTOL, FLEET_ATOL = 1e-6, 1e-4
 # two services' dashboards over samples within same_sample's bound
 CHAOS_ANSWER_RTOL = 1e-5
+# sharded_fleet (§7.5): the fleet scenario's 16 views (no deletes, no
+# outlier index) over ShardedFleet(n_shards=4) on cuda:0 and over a flat
+# ViewManager + MaintenancePlanner, both from the chaos phase's host logs,
+# with the fleet path's prices pinned, one EpochClock, no starvation guard
+# and a budget that fits every view's dearer action (so each epoch acts on
+# every view that scores, whatever the knapsack's order); a plan preview,
+# then 3 executed epochs of 500k new sessions per view: shard 1 is killed
+# before epoch 2 and revived before epoch 3, the drain epoch.  Then the
+# visitView streaming delta (10M sessions, seed 1) in four partitions
+# through both sharded group-bys against one flat fused clean.
+SHARDS = 4
+SHARDED_EPOCHS = 3
+SHARDED_LOST = 1
+SHARDED_AGE_CAP_S = 1e9
+SHARDED_DELTA_SEED = 30_000
 
 # The LM serving path (src/repro/launch/serve.py's default --arch): gemma-2b
 # at full width in bf16 through ServeEngine, 16 requests of 16–256 prompt
@@ -212,6 +240,8 @@ FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_sco
 STREAM_KERNELS = ("fused_clean", "multi_agg_two", "multi_agg_one")
 API_KERNELS = ("segment_aggsum", "segment_aggsum_unsorted", "corr_diff")
 # every layer's attention, and the telemetry view's cleans and dashboard
+SHARDED_KERNELS = ("fleet_score_sharded", "fleet_moments", "fused_clean_fleet", "fleet_merge",
+                   "fused_clean", "hash_threshold", "segment_aggsum_unsorted")
 SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
                  "multi_agg_one")
 
@@ -2572,13 +2602,14 @@ def run_chaos_twin(logs, n_views, n_videos, n_logs, n_delta, n_deletes, groups, 
     return vm, names, plan, planner, out
 
 
-def run_chaos_fleet(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs, prices,
-                    iters, device="cuda"):
-    """chaos_fleet, then the fleet's kprof window on the fault-free twin (a
-    fresh epoch's delta, one svc_refresh_many, one maintain of an unpinned
-    view and two planner epochs: the second's fleet_moments and
-    fleet_score dispatches are the profiler's executes, the first's its
-    compiles).  Returns (the chaos report, the window)."""
+def run_chaos_fleet(logs, gen_s, n_views, n_videos, n_logs, n_delta, n_deletes, groups, m,
+                    epochs, prices, iters, device="cuda"):
+    """chaos_fleet over the host ``logs`` (generated once in ``gen_s``
+    seconds and registered by every twin), then the fleet's kprof window
+    on the fault-free twin (a fresh epoch's delta, one svc_refresh_many,
+    one maintain of an unpinned view and two planner epochs: the second's
+    fleet_moments and fleet_score dispatches are the profiler's executes,
+    the first's its compiles).  Returns (the chaos report, the window)."""
     import tempfile
 
     import torch
@@ -2587,9 +2618,6 @@ def run_chaos_fleet(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, ep
     from repro_torch.obs import load_jsonl, reconcile
     from repro_torch.obs.trace import Tracer
 
-    t0 = time.perf_counter()
-    logs = fleet_logs(n_views, n_videos, n_logs, "cpu")  # generated once, registered twice
-    gen_s = time.perf_counter() - t0
     args = (n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs, prices)
     tracer = Tracer()
     faulted, names, plan, _p, fout = run_chaos_twin(logs, *args, plan_seed=0, tracer=tracer,
@@ -2627,7 +2655,7 @@ def run_chaos_fleet(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, ep
         np.array_equal(pinned_before[c], pinned_twin[c]) for c in pinned_twin)
     clean.register_outlier_index(names[0], "FLog0", "bytes", k=min(K, n_logs))
     comparison = same_twins(a, twin_samples(clean, names), "chaos fleet")
-    del a, logs
+    del a
     report = {
         "views": n_views, "epochs": epochs, "plan": {"seed": 0, "rate": CHAOS_FLEET_RATE,
                                                      "kinds": list(CHAOS_FLEET_KINDS)},
@@ -2656,6 +2684,394 @@ def run_chaos_fleet(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, ep
     del clean, planner
     torch.cuda.empty_cache()
     return report, window
+
+
+def register_fleet_views(target, logs, groups, m):
+    """The fleet's group-by views, view i over ``logs[i]``, registered on a
+    ViewManager or a ShardedFleet (which places view i on shard i mod S)."""
+    from repro_torch.core import ViewDef
+    from repro_torch.relational.plan import GroupByNode, Scan
+
+    names = []
+    for i, log in enumerate(logs):
+        target.register_base(f"FLog{i}", log)
+        plan = GroupByNode(child=Scan(f"FLog{i}", pk=("sessionId",)), keys=("videoId",),
+                           aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
+                           num_groups=groups)
+        target.register_view(ViewDef(f"fv{i}", plan), delta_bases=(f"FLog{i}",), m=m, seed=i,
+                             delta_group_capacity=groups)
+        names.append(f"fv{i}")
+    return names
+
+
+def same_fleet_views(a: dict, b: dict, what: str) -> dict:
+    """``twin_samples`` of two fleets over the same rows: keys and visits
+    exact; each group's totalBytes within 2·γ_{n−1}·|x| of the other's, n
+    its visits.  Every bytes term is positive, so |x| (the larger of the
+    two) bounds Σ|x|: each side lies within γ_{n−1}·Σ|x| of the exact sum,
+    in whatever order it added (same_clean's rule)."""
+    bit_equal, share = True, 0.0
+    for n in a:
+        for part in ("view", "sample"):
+            x, y = a[n][part], b[n][part]
+            if set(x) != set(y):
+                fail(f"{what} {n} {part}: columns {sorted(x)} != {sorted(y)}")
+            for col in x:
+                if x[col].shape != y[col].shape:
+                    fail(f"{what} {n} {part}: {x[col].shape[0]} != {y[col].shape[0]} rows")
+                if col != "totalBytes":
+                    if not np.array_equal(x[col], y[col]):
+                        fail(f"{what} {n} {part}: column {col} differs")
+                    continue
+                if np.array_equal(x[col], y[col]):
+                    continue
+                bit_equal = False
+                xa, ya = x[col].astype(np.float64), y[col].astype(np.float64)
+                bound = 2 * f32_sum_rtol(x["visits"]) * np.maximum(np.abs(xa), np.abs(ya))
+                diff = np.abs(xa - ya)
+                if np.any(diff > bound):
+                    fail(f"{what} {n} {part}: totalBytes beyond 2*gamma*|x| "
+                         f"(max {float(diff.max()):.3e})")
+                share = max(share, float(np.max(diff / np.maximum(bound, 1e-300))))
+    return {"views": len(a), "floats": "bit-equal" if bit_equal else "within 2*gamma*|x|",
+            "max_bound_share": share}
+
+
+def same_answers(fleet, flat, names, q, what: str) -> dict:
+    """Each view's ``q`` through the sharded fleet and the flat manager
+    (traffic unrecorded): equal, or within CHAOS_ANSWER_RTOL of each other
+    (two dashboards over samples within same_fleet_views' bound)."""
+    out, worst = {}, 0.0
+    for n in names:
+        a = float(fleet.query(n, q, record_traffic=False).value)
+        b = float(flat.query(n, q, record_traffic=False).value)
+        if not (math.isfinite(a) and math.isfinite(b)):
+            fail(f"{what} {n}: non-finite answer {a}, {b}")
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        if rel > CHAOS_ANSWER_RTOL:
+            fail(f"{what} {n}: sharded {a} vs flat {b} ({rel:.3e} relative)")
+        worst = max(worst, rel)
+        out[n] = a
+    return {"answers": out, "max_rel_diff": worst}
+
+
+def sharded_plan_parity(rep, flat_rep, fleet, what: str, scores_too: bool) -> dict:
+    """The sharded epoch's actions against the flat planner's: the same
+    (view, action, forced) and skips (the flat side's suspended views
+    aside), each on its owning shard; ``scores_too``: bit-equal scores and
+    predicted seconds."""
+    got = sorted((a.view, a.action, a.forced) for a in rep.actions)
+    want = sorted((a.view, a.action, a.forced) for a in flat_rep.actions)
+    if got != want:
+        fail(f"{what}: sharded actions {got} != flat {want}")
+    for a in rep.actions:
+        if a.shard != fleet.shard_of(a.view):
+            fail(f"{what}: {a.view} acted on shard {a.shard}, owned by {fleet.shard_of(a.view)}")
+        if scores_too:
+            b = next(x for x in flat_rep.actions if x.view == a.view)
+            if np.float32(a.score).view(np.int32) != np.float32(b.score).view(np.int32) \
+                    or a.predicted_s != b.predicted_s:
+                fail(f"{what}: {a.view} scored {a.score}/{a.predicted_s} s, flat "
+                     f"{b.score}/{b.predicted_s} s")
+    skipped = sorted(n for n in flat_rep.skipped if n not in rep.suspended)
+    if sorted(rep.skipped) != skipped:
+        fail(f"{what}: sharded skipped {sorted(rep.skipped)} != flat {skipped}")
+    return {"actions": [(a.view, a.action, a.shard, a.forced) for a in rep.actions],
+            "skipped": sorted(rep.skipped), "excluded_shards": rep.excluded_shards,
+            "suspended": rep.suspended}
+
+
+def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shards, epochs,
+                      lost, device="cuda"):
+    """The sharded fleet against its flat twin over the same host ``logs``.
+
+    A ``ShardedFleet(n_shards)`` on ``device`` and a flat ``ViewManager`` +
+    ``MaintenancePlanner``, the fleet path's prices pinned on every cost
+    model, one EpochClock, a budget that fits every view's dearer action:
+    the first epoch's deltas go straight into the owning managers, and the
+    preview (``execute=False``) must equal the flat plan bit for bit.  Then ``epochs`` executed epochs under a kernel
+    profiler and a tracer: later deltas enter the fleet through its
+    partitions; shard ``lost`` is killed before epoch 2 (the flat twin
+    suspends the same views) and revived before epoch 3.  Every epoch's
+    actions, the views' samples and answers are held to the flat twin's;
+    the lost views serve their last answer, degraded, while their
+    partitions queue; the trace and the per-shard ledger reconcile.
+    Returns (report, the score combine's last input); the caller resets
+    the launch counters before and reads them after."""
+    import torch
+
+    import repro_torch.distributed.fleet as fleet_mod
+    from repro_torch import kernels
+    from repro_torch.core import Query
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.distributed import ShardedFleet
+    from repro_torch.obs import reconcile, trace
+    from repro_torch.obs.kprof import KernelProfiler
+    from repro_torch.obs.reconcile import check_shard_accounting
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.planner import MaintenancePlanner
+    from repro_torch.views import ViewManager
+
+    n_views = len(logs)
+    clock = EpochClock()
+    budget_s = n_views * max(prices["clean_s"], prices["maintain_s"])
+    t = {}
+    flat = ViewManager(device=device, clock=clock)
+    with uncounted():
+        names, t["flat_register_s"] = wall(lambda: register_fleet_views(flat, logs, groups, m))
+    planner = MaintenancePlanner(flat, budget_s=budget_s, age_cap_s=SHARDED_AGE_CAP_S,
+                                 clock=clock)
+    fleet = ShardedFleet(n_shards, budget_s=budget_s, age_cap_s=SHARDED_AGE_CAP_S,
+                         clock=clock, device=device)
+    # each base goes to the card once; the shards' managers share it
+    _, t["sharded_register_s"] = wall(lambda: register_fleet_views(
+        fleet, [log.to(device) for log in logs], groups, m))
+    placement = {n: fleet.shard_of(n) for n in names}
+    if sorted(set(placement.values())) != list(range(n_shards)):
+        fail(f"sharded fleet: views placed on {sorted(set(placement.values()))}")
+    for cm in fleet.cost_models + [planner.cost_model]:
+        cm.pin_costs(refresh_s=prices["clean_s"], maintain_s=prices["maintain_s"],
+                     retune_s=prices["retune_s"])
+    scored = []
+    real_sharded = fleet_mod.fleet_scores_sharded
+
+    def recording(stacked, **kw):  # keeps each epoch's score-combine input
+        scored.append(stacked)
+        return real_sharded(stacked, **kw)
+
+    fleet_mod.fleet_scores_sharded = recording
+
+    def deltas(epoch):
+        return [grow_log(np.random.default_rng(SHARDED_DELTA_SEED + 100 * epoch + i), n_videos,
+                         n_logs + epoch * n_delta, n_delta, device=device)
+                for i in range(n_views)]
+
+    q = Query("sum", "totalBytes")
+    out = {"views": n_views, "shards": n_shards, "placement": placement, "budget_s": budget_s,
+           "epochs": []}
+    try:
+        # epoch 1's deltas straight into the owners (the preview drains nothing)
+        first, t["generate_epoch1_s"] = wall(lambda: deltas(1))
+        for i, d in enumerate(first):
+            fleet.vm_of(names[i]).ingest(f"FLog{i}", inserts=d)
+            flat.ingest(f"FLog{i}", inserts=d)
+        del first
+        preview, t["preview_s"] = wall(lambda: fleet.epoch_step(execute=False))
+        with uncounted():
+            flat_plan = planner.plan()
+        out["preview"] = sharded_plan_parity(preview, flat_plan, fleet, "sharded preview", True)
+        if fleet.epoch != 0:
+            fail("sharded preview advanced the epoch")
+
+        tracer, prof = Tracer(), KernelProfiler()
+        before = {}
+        for epoch in range(1, epochs + 1):
+            clock.t = float(epoch)
+            row = {"epoch": epoch}
+            if epoch > 1:
+                batch, row["generate_s"] = wall(lambda: deltas(epoch))
+                trace.set_tracer(tracer)
+                try:
+                    for i, d in enumerate(batch):
+                        fleet.ingest(f"FLog{i}", inserts=d, seq=epoch, key=f"e{epoch}")
+                finally:
+                    trace.set_tracer(None)
+                with uncounted():
+                    for i, d in enumerate(batch):
+                        flat.ingest(f"FLog{i}", inserts=d)
+                del batch
+            if epoch == 2:
+                fleet.kill_shard(lost)
+                for n in fleet.shard_views(lost):
+                    flat.health.suspend(n, RuntimeError(f"shard {lost} lost"))
+            if epoch == 3:
+                fleet.revive_shard(lost)
+                for n in fleet.shard_views(lost):
+                    flat.health.resume(n)
+            trace.set_tracer(tracer)
+            kernels.set_profiler(prof)
+            try:
+                rep, row["sharded_epoch_s"] = wall(fleet.epoch_step)
+            finally:
+                kernels.set_profiler(None)
+                trace.set_tracer(None)
+            with uncounted():
+                flat_rep, row["flat_epoch_s"] = wall(planner.step)
+            row.update(sharded_plan_parity(rep, flat_rep, fleet, f"sharded epoch {epoch}", False))
+            row["pending_rows"] = fleet.pending_rows()
+            row["forced"] = sum(a.forced for a in rep.actions)
+            with uncounted():
+                ans = same_answers(fleet, flat, names, q, f"sharded epoch {epoch}")
+                row["answers_max_rel_diff"] = ans["max_rel_diff"]
+                row["samples_vs_flat"] = same_fleet_views(
+                    {n: twin_samples(fleet.vm_of(n), [n])[n] for n in names},
+                    twin_samples(flat, names), f"sharded epoch {epoch}")
+            lost_views = fleet.shard_views(lost)
+            if epoch == 2:
+                if rep.excluded_shards != [lost] or sorted(rep.suspended) != sorted(lost_views):
+                    fail(f"sharded epoch 2: excluded {rep.excluded_shards}, suspended "
+                         f"{rep.suspended}")
+                if any(a.view in lost_views for a in rep.actions):
+                    fail("sharded epoch 2: a lost view acted")
+                if row["pending_rows"] != len(lost_views) * n_delta:
+                    fail(f"sharded epoch 2: {row['pending_rows']} rows pending, want "
+                         f"{len(lost_views) * n_delta} queued for the lost shard")
+                for n in lost_views:
+                    if not fleet.is_degraded(n) or ans["answers"][n] != before[n]:
+                        fail(f"sharded epoch 2: lost view {n} is not serving its last sample")
+                row["lost_serve_stale"] = True
+            else:
+                if rep.excluded_shards or fleet.degraded_views():
+                    fail(f"sharded epoch {epoch}: excluded {rep.excluded_shards}, degraded "
+                         f"{fleet.degraded_views()}")
+                if row["pending_rows"] != 0:
+                    fail(f"sharded epoch {epoch}: {row['pending_rows']} rows still pending")
+            if epoch == 3:
+                if not set(lost_views) <= {a.view for a in rep.actions}:
+                    fail("sharded epoch 3: the drain epoch left lost views out")
+                if any(ans["answers"][n] == before[n] for n in lost_views):
+                    fail("sharded epoch 3: a lost view's answer did not move")
+            before = dict(ans["answers"])
+            out["epochs"].append(row)
+    finally:
+        fleet_mod.fleet_scores_sharded = real_sharded
+        kernels.set_profiler(None)
+        trace.set_tracer(None)
+    quarantines = sum(h.failures for vm in fleet.vms for h in vm.health.views.values())
+    meta = {"pending": {}, "quarantines": quarantines, "faults_injected": 0}
+    shard_summary = prof.shard_summary()
+    rec = reconcile(meta, list(tracer.records), shard_summary=shard_summary)
+    if not rec["ok"]:
+        fail(f"sharded fleet: the trace does not reconcile: {rec['problems'][:5]}")
+    if check_shard_accounting(shard_summary):
+        fail("sharded fleet: the per-shard kprof ledger does not add up")
+    summary = prof.summary()
+    for op, st in summary.items():
+        if st["fallbacks"]:
+            fail(f"sharded fleet: {op} took its plain version {st['fallbacks']} times")
+    per_shard = shard_summary["shards"].get("fleet_score_sharded", {})
+    if sorted(per_shard) != list(range(n_shards)) or \
+            summary["fleet_score_sharded"]["dispatches"] != epochs:
+        fail(f"sharded fleet: fleet_score_sharded's ledger {summary.get('fleet_score_sharded')}")
+    out["reconcile"] = {k: rec[k] for k in ("ok", "checks", "records")}
+    out["quarantine_events"] = quarantines
+    out["kprof"] = {op: {k: st[k] for k in ("dispatches", "fallbacks", "compile_s", "execute_s")}
+                    for op, st in summary.items()}
+    out["shard_ops"] = {op: sorted(per) for op, per in shard_summary["shards"].items()}
+    out["wall_s"] = t
+    del fleet, flat, planner
+    torch.cuda.empty_cache()
+    return out, scored[-1]
+
+
+def run_sharded_groupbys(n_videos, start, n_delta, groups, m, seed, n_shards, device="cuda"):
+    """visitView's streaming delta (``n_delta`` sessions from ``start``,
+    seed STREAM_SEED) offered in ``n_shards`` partitions of a
+    PartitionedDeltaLog, drained, stacked and aggregated by both sharded
+    group-bys over a mesh of ``n_shards`` shards of the card; each held
+    against one flat fused clean over the whole delta (counts exact) and
+    every sum against the float64 sum of its kept rows (within
+    γ_{n−1+S}·Σ|x|: n rows in S partial sums), and the two against each
+    other.  The caller resets the launch counters before and reads them
+    after."""
+    import torch
+
+    from repro_torch.core.distributed_svc import (
+        make_sharded_delta_groupby,
+        make_sharded_fused_delta_groupby,
+        stack_shard_deltas,
+    )
+    from repro_torch.data.synthetic import grow_log
+    from repro_torch.kernels.fused_clean.ops import fused_clean_groupby
+    from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.relational.relation import from_columns
+    from repro_torch.streaming import PartitionedDeltaLog
+
+    t = {}
+    delta, t["generate_s"] = wall(lambda: grow_log(np.random.default_rng(STREAM_SEED), n_videos,
+                                                  start, n_delta, device=device))
+    per = n_delta // n_shards
+
+    def partition():
+        plog = PartitionedDeltaLog("Log", n_shards)
+        for s in range(n_shards):
+            rows = slice(s * per, n_delta if s == n_shards - 1 else (s + 1) * per)
+            plog.offer(s, inserts=from_columns(
+                {c: delta.col(c)[rows] for c in delta.schema.columns}, pk=["sessionId"]), seq=0)
+        drained = plog.drain()
+        width = max(ins.capacity for ins, _d in drained)
+        return stack_shard_deltas(drained, "videoId", ["bytes"], rows_per_shard=width), width
+
+    ((keys, valid, values), width), t["partition_drain_stack_s"] = wall(partition)
+    del delta
+    mesh = LocalMesh([torch.device(device)] * n_shards, {"data": n_shards})
+    fused_fn = make_sharded_fused_delta_groupby(mesh, "data", groups, m, seed, ["bytes"])
+    unfused_fn = make_sharded_delta_groupby(mesh, "data", groups, m, seed, ["bytes"])
+    fused, t["sharded_fused_s"] = wall(lambda: fused_fn(keys, valid, values))
+    unfused, t["sharded_unfused_s"] = wall(lambda: unfused_fn(keys, valid, values))
+    with uncounted():
+        (fc, fs), t["flat_fused_clean_s"] = wall(lambda: fused_clean_groupby(
+            keys, values["bytes"], valid, m, seed, groups))
+    keep = hash_threshold_ref((keys,), m, seed) & valid & (keys >= 0) & (keys < groups)
+    g = torch.where(keep, keys.long(), torch.full_like(keys, groups, dtype=torch.int64))
+    x = torch.where(keep, values["bytes"].double(), torch.zeros((), dtype=torch.float64,
+                                                                device=keys.device))
+    exact = torch.zeros(groups + 1, dtype=torch.float64, device=keys.device).index_add_(0, g, x)
+    abs_sum = torch.zeros(groups + 1, dtype=torch.float64, device=keys.device).index_add_(
+        0, g, x.abs())
+    n = torch.bincount(g, minlength=groups + 1)[:groups]
+    exact, abs_sum = exact[:groups], abs_sum[:groups]
+    rtol = torch.from_numpy(f32_sum_rtol(n.cpu().numpy() + n_shards)).to(keys.device)
+    held = {}
+    for what, cnt, sums in (("sharded_fused", fused["count"], fused["bytes"]),
+                            ("sharded_unfused", unfused["count"], unfused["bytes"]),
+                            ("flat_fused_clean", fc, fs)):
+        if not torch.equal(cnt.double(), n.double()):
+            fail(f"sharded group-by {what}: counts differ from the exact counts")
+        diff = (sums.double() - exact).abs()
+        bound = rtol * abs_sum
+        if bool((diff > bound).any()):
+            fail(f"sharded group-by {what}: sums beyond gamma*sum|x| "
+                 f"(max {float(diff.max()):.3e})")
+        held[what] = {"max_abs_err": float(diff.max()),
+                      "max_bound_share": float((diff / bound.clamp(min=1e-300)).max())}
+    if not torch.equal(fused["count"], fc) or not torch.equal(unfused["count"], fc):
+        fail("sharded group-by: counts differ from the flat fused clean")
+    pair = (fused["bytes"].double() - unfused["bytes"].double()).abs()
+    if bool((pair > 2 * rtol * abs_sum).any()):
+        fail("sharded group-by: the fused and unfused sums differ beyond 2*gamma*sum|x|")
+    report = {"rows": n_delta, "shards": n_shards, "rows_per_shard": width, "groups": groups,
+              "kept_rows": int(n.sum()), "hot_group_rows": int(n.max()), "wall_s": t,
+              "vs_exact": held, "fused_vs_unfused_max_abs": float(pair.max()),
+              "bit_equal_fused_unfused": bool(torch.equal(fused["bytes"], unfused["bytes"]))}
+    del keys, valid, values, fused, unfused, fc, fs
+    torch.cuda.empty_cache()
+    return report
+
+
+def check_sharded_score(stacked, launches, iters):
+    """fleet_score_sharded on the sharded fleet's last (S, Vmax, F) stack:
+    bit-equal to the plain score of each shard's panel."""
+    import torch
+
+    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores_sharded
+
+    S, vmax, F = stacked.shape
+    got = fleet_scores_sharded(stacked)
+    for s in range(S):
+        if not torch.equal(got[s].view(torch.int32),
+                           fleet_score_ref(stacked[s].contiguous()).view(torch.int32)):
+            fail(f"fleet_score_sharded differs from the plain version on shard {s}")
+    flat = stacked.reshape(S * vmax, F)
+    return kernel_entry(
+        "fleet_score_sharded", "cuda", "src/repro_torch/csrc/fleet_score.cu",
+        "src/repro/kernels/fleet_score/kernel.py:102", launches["fleet_score_sharded"], 0.0,
+        cuda_ms(lambda: fleet_scores_sharded(stacked), iters),
+        cuda_ms(lambda: fleet_score_ref(flat).reshape(S, vmax, -1), iters),
+        bytes_=S * vmax * (F + 6) * 4, ops=45 * S * vmax, shards=S, vmax=vmax,
+        jax_entry="src/repro/kernels/fleet_score/ops.py:77", tolerance="bit-equal",
+    )
 
 
 def visit_twin(vm, view, m, groups):
@@ -2942,12 +3358,38 @@ def main(argv=None) -> int:
     # the fleet under a random fault plan against its fault-free twin, then
     # the fleet's kernel-profiler window on that twin
     torch.cuda.reset_peak_memory_stats()
-    chaos_fleet, kprof_fleet = run_chaos_fleet(FLEET_VIEWS, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA,
+    t0 = time.perf_counter()
+    # generated once on the host, registered by both chaos twins and both
+    # sharded twins
+    fleet_host_logs = fleet_logs(FLEET_VIEWS, FLEET_VIDEOS, FLEET_LOGS, "cpu")
+    chaos_fleet, kprof_fleet = run_chaos_fleet(fleet_host_logs, time.perf_counter() - t0,
+                                               FLEET_VIEWS, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA,
                                                FLEET_DELETES, FLEET_GROUPS, M, FLEET_EPOCHS,
                                                fleet["prices"], ITERS)
     emit({"phase": "chaos_fleet", **chaos_fleet,
           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     emit({"phase": "kprof", "svc": kprof_svc, "fleet": kprof_fleet, "card": smi})
+
+    # the sharded fleet (§7.5) over the same host logs, against its flat
+    # twin, then the sharded group-bys on visitView's streaming delta
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    sharded, sharded_scores = run_sharded_fleet(
+        fleet_host_logs, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA, FLEET_GROUPS, M, fleet["prices"],
+        SHARDS, SHARDED_EPOCHS, SHARDED_LOST)
+    del fleet_host_logs
+    sharded["groupbys"] = run_sharded_groupbys(N_VIDEOS, args.n_logs + N_DELTA, N_DELTA,
+                                               FLEET_GROUPS, M, SEED, SHARDS)
+    sharded_launches = kernels.launch_counts()
+    missing = [k for k in SHARDED_KERNELS if sharded_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the sharded fleet's path: {missing}")
+    emit({"phase": "sharded_fleet", **sharded, "launches": sharded_launches,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    sharded_table = [check_sharded_score(sharded_scores, sharded_launches, ITERS)]
+    del sharded_scores
+    for entry in sharded_table:
+        emit({"phase": "kernel", **entry, "card": smi})
 
     # the LM serving path, on a card the SVC paths have let go of
     del fleet, walls, small_fleet, small_stream
@@ -2973,7 +3415,7 @@ def main(argv=None) -> int:
     emit({"phase": "serve_device_vs_cpu",
           **serve_device_vs_cpu(SERVE_ARCH, (3, 9, 5, 12, 4, 7), 4, 64, 8, SEED)})
 
-    emit({"kernels": table + fleet_table + api_table + flash_table[:1]})
+    emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

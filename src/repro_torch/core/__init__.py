@@ -11,6 +11,7 @@ from repro_torch.core.maintenance import (
     full_maintenance,
     upsert,
     delete_keys,
+    staleness_report,
 )
 from repro_torch.core.pushdown import push_down, fully_pushed, pushdown_report
 from repro_torch.core.outliers import (

@@ -665,3 +665,25 @@ def delete_keys(rel: Relation, gone: Relation) -> Relation:
     """Mask out rows of ``rel`` whose pk appears in ``gone``."""
     return ops.difference_keyed(rel, gone)
 
+
+def staleness_report(stale: Relation, fresh: Relation) -> Dict[str, torch.Tensor]:
+    """Counts of incorrect / missing / superfluous rows (§3.1) — debugging."""
+    inner = ops.outer_join_unique(stale, fresh, on=stale.schema.pk, how="outer",
+                                  suffixes=("_stale", "_fresh"))
+    lp = inner.col("__left_present").to(torch.bool) & inner.valid
+    rp = inner.col("__right_present").to(torch.bool) & inner.valid
+    both = lp & rp
+    changed = torch.zeros_like(both)
+    for c in stale.schema.columns:
+        if c in stale.schema.pk:
+            continue
+        a = inner.columns.get(c + "_stale", inner.columns.get(c))
+        b = inner.columns.get(c + "_fresh")
+        if a is None or b is None:
+            continue
+        changed = changed | (both & (a != b))
+    return {
+        "incorrect": changed.sum(dtype=torch.int32),
+        "missing": (rp & ~lp).sum(dtype=torch.int32),
+        "superfluous": (lp & ~rp).sum(dtype=torch.int32),
+    }

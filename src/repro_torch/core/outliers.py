@@ -200,6 +200,19 @@ def member_keys(probe: Tuple[torch.Tensor, ...], keys: Tuple[torch.Tensor, ...])
     return _om.outlier_member(probe, keys)
 
 
+def member_keys_loop(probe: Tuple[torch.Tensor, ...], keys: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The O(N·K) compare unrolled over the index capacity (one chain of
+    element-wise ops per indexed key): the oracle of ``member_keys`` in the
+    tests, never called on a refresh path."""
+    hit = torch.zeros(probe[0].shape, dtype=torch.bool, device=probe[0].device)
+    for i in range(keys[0].shape[0]):
+        row = torch.ones(probe[0].shape, dtype=torch.bool, device=probe[0].device)
+        for p, k in zip(probe, keys):
+            row = row & (p == k[i])
+        hit = hit | row & (probe[0] != int(SENTINEL_KEY))
+    return hit
+
+
 def flag_outliers(rel: Relation, pin: PinSet | None) -> Relation:
     """(Re)compute the view-level ``__outlier`` flag: pk ∈ pin."""
     if pin is None:

@@ -21,6 +21,8 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
   fleet_merge     — every view's merge remainder (stale + ins) − del
   fleet_moments   — every view's planner moments from the fleet panel
   fleet_score     — every view's action scores for the planner's knapsack
+  fleet_score_sharded — the same kernel over a sharded fleet's (S, Vmax, F)
+                    stack of per-shard panels (one launch on one card)
   segment_aggsum  — the group-by's reduce-by-key over sorted ids: int32
                     counts and float32 sums, out-of-range ids dropped
                     (segment_groupby, and segment_sum with
@@ -57,6 +59,7 @@ _OPS = {
     "fleet_merge": "fleet_merge",
     "fleet_moments": "fleet_moments",
     "fleet_score": "fleet_score",
+    "fleet_score_sharded": "fleet_score_sharded",
     "segment_aggsum": "segment_aggsum",
     "segment_aggsum_unsorted": "segment_aggsum",
     "corr_diff": "corr_diff",
@@ -70,7 +73,7 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
     from repro_torch.kernels.fleet_moments.ops import fleet_moments
-    from repro_torch.kernels.fleet_score.ops import fleet_scores
+    from repro_torch.kernels.fleet_score.ops import fleet_scores, fleet_scores_sharded
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
@@ -88,6 +91,7 @@ def wrappers() -> Dict[str, object]:
         "fleet_merge": fleet_merge,
         "fleet_moments": fleet_moments,
         "fleet_score": fleet_scores,
+        "fleet_score_sharded": fleet_scores_sharded,
         "segment_aggsum": segment_groupby,
         "segment_aggsum_unsorted": segment_sum,
         "corr_diff": corr_moments,

@@ -1,0 +1,57 @@
+"""Local device meshes for the single-controller fleet paths.
+
+The port's counterpart of ``repro.launch.mesh.make_local_mesh``.  One
+process drives every device of a ``LocalMesh``; callers read
+``mesh.shape[axis]`` as they do on a JAX mesh.  ``ShardedFleet`` and
+``fleet_scores_sharded`` place shard ``s`` on ``mesh.axis_devices(axis)[s]``
+when the axis size equals their shard count, and combine the shards'
+results on the first of those devices (an all-gather is a copy there and a
+``torch.stack``; a psum a sum of the shards' tensors in shard order).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Sequence
+
+import torch
+
+
+class LocalMesh:
+    """``devices`` (a flat list, row-major over ``axes``) named by ``axes``
+    (axis name → size, in order)."""
+
+    def __init__(self, devices: Sequence, axes: Mapping[str, int]):
+        self.shape: Dict[str, int] = {str(a): int(n) for a, n in axes.items()}
+        if any(n < 1 for n in self.shape.values()):
+            raise ValueError(f"mesh axes must be ≥ 1, got {self.shape}")
+        self.devices: List[torch.device] = [torch.device(d) for d in devices]
+        if len(self.devices) != math.prod(self.shape.values()):
+            raise ValueError(f"{len(self.devices)} devices for a mesh of shape {self.shape}")
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis``, every other axis at index 0."""
+        names = list(self.shape)
+        k = names.index(axis)
+        stride = math.prod(self.shape[a] for a in names[k + 1:])
+        return [self.devices[i * stride] for i in range(self.shape[axis])]
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device="cuda") -> LocalMesh:
+    """A (data, model) mesh over this process's devices: ``cuda`` takes
+    ``cuda:0 … cuda:{data·model − 1}`` (raises if fewer are visible);
+    ``cpu`` repeats the CPU, which the tests use to drive the multi-device
+    branch on one host."""
+    n = int(data) * int(model)
+    kind = torch.device(device).type
+    if kind == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise RuntimeError(f"make_local_mesh(data={data}, model={model}) needs {n} "
+                               f"CUDA devices, {have} visible; pass device='cpu' for the CPU")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    elif kind == "cpu":
+        devices = [torch.device("cpu")] * n
+    else:
+        raise ValueError(f"unsupported device {device!r}")
+    return LocalMesh(devices, {"data": data, "model": model})

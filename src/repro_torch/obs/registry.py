@@ -22,7 +22,7 @@ through the counter (a decrease raises).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -173,3 +173,15 @@ class counter_attr:
     def __set__(self, obj, value):
         c = getattr(obj, self._slot)
         c.inc(float(value) - c.value)
+
+
+def get_global_registry() -> MetricsRegistry:
+    """Fallback registry for instruments created outside a ViewManager
+    (standalone caches/controllers in tests).  One per process."""
+    global _GLOBAL
+    if _GLOBAL is None:
+        _GLOBAL = MetricsRegistry()
+    return _GLOBAL
+
+
+_GLOBAL: Optional[MetricsRegistry] = None

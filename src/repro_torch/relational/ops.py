@@ -205,6 +205,32 @@ def outer_join_unique(
     return Relation(cols, emit, schema)
 
 
+def nested_join(left: Relation, right: Relation, pred: Expr, suffixes=("", "_r")) -> Relation:
+    """General θ-join via dense cross product (capacity n1*n2).
+
+    Only for small relations (tests / non-pushdown baselines); the SVC plans
+    use fk/equality joins.
+    """
+    n1, n2 = left.capacity, right.capacity
+    dev = left.device
+    li = torch.arange(n1, dtype=torch.int64, device=dev).repeat_interleave(n2)
+    ri = torch.arange(n2, dtype=torch.int64, device=dev).repeat(n1)
+    shared = set(left.schema.columns) & set(right.schema.columns)
+    cols: Dict[str, torch.Tensor] = {}
+    for c in left.schema.columns:
+        out = c + suffixes[0] if c in shared else c
+        cols[out] = left.col(c)[li]
+    for c in right.schema.columns:
+        out = c + suffixes[1] if c in shared else c
+        cols[out] = right.col(c)[ri]
+    valid = left.valid[li] & right.valid[ri]
+    mask = torch.as_tensor(eval_expr(pred, cols), device=dev).to(torch.bool)
+    lpk = tuple(k + suffixes[0] if k in shared else k for k in left.schema.pk)
+    rpk = tuple(k + suffixes[1] if k in shared else k for k in right.schema.pk)
+    schema = Schema(pk=lpk + rpk, columns=tuple(sorted(cols)))
+    return Relation(cols, valid & mask, schema)
+
+
 # ---------------------------------------------------------------------------
 # γ — group-by aggregation
 # ---------------------------------------------------------------------------

@@ -411,8 +411,9 @@ def _coalesce_signed(
 
 
 class PartitionedDeltaLog:
-    """§7.5: one DeltaLog per data shard, drained per partition.  (The
-    sharded aggregation that consumes the drains is not ported yet.)
+    """§7.5: one DeltaLog per data shard, drained per partition (into a
+    shard's manager by ``distributed.ShardedFleet``, or flattened by
+    ``core.distributed_svc.stack_shard_deltas`` for the sharded group-bys).
 
     Every single-log robustness contract holds PER PARTITION: offer keys
     dedupe within their partition, ``requeue`` rolls one partition's failed

@@ -1452,3 +1452,155 @@ def test_an_injected_kernel_error_degrades_on_the_card(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="a real fleet failure"):
         vm.svc_refresh_many(list(vm.views), isolate=True)
     assert vm.fleet_merge_failures == 1
+
+
+# ---------------------------------------------------------------------------
+# The sharded fleet on the card
+# ---------------------------------------------------------------------------
+
+def _sharded_features(S, vmax, seed=0):
+    rng = np.random.default_rng(seed)
+    f = rng.exponential(5.0, (S, vmax, N_FEATURES)).astype(np.float32)
+    f[-1, vmax // 2:] = 0.0  # the last shard's padding lanes
+    return f
+
+
+@pytest.mark.parametrize("S,vmax", [(1, 1), (4, 4), (4, 16), (3, 700)])
+def test_fleet_scores_sharded_is_one_launch_bit_equal_shard_by_shard(dev, S, vmax):
+    """On one card the (S, Vmax, F) stack is one launch, bit-equal to the
+    plain score of each shard's panel; under the profiler it dispatches
+    once as fleet_score_sharded, never as a fallback."""
+    from repro_torch.kernels.fleet_score import fleet_scores_sharded
+    from repro_torch.obs.kprof import KernelProfiler, get_profiler, set_profiler
+
+    f = _sharded_features(S, vmax)
+    x = torch.from_numpy(f).to(dev)
+    before = fleet_scores_sharded.launches
+    got = fleet_scores_sharded(x)
+    assert fleet_scores_sharded.launches == before + 1
+    for s in range(S):
+        want = fleet_score_ref(x[s].contiguous())
+        assert torch.equal(got[s].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.reshape(S * vmax, -1), fleet_scores(x.reshape(S * vmax, N_FEATURES)))
+    prof = set_profiler(KernelProfiler())
+    try:
+        fleet_scores_sharded(x, shard_views=[vmax] * S)
+    finally:
+        set_profiler(None)
+    st = prof.summary()["fleet_score_sharded"]
+    assert (st["dispatches"], st["fallbacks"]) == (1, 0)
+    assert sorted(prof.shard_summary()["shards"]["fleet_score_sharded"]) == list(range(S))
+    assert get_profiler() is None
+
+
+def test_fleet_scores_sharded_on_a_mesh_of_the_card_scores_each_shard(dev):
+    """A LocalMesh whose data axis repeats cuda:0: one launch per shard,
+    gathered in shard order, bit-equal to the one-launch path."""
+    from repro_torch.kernels.fleet_score import fleet_scores_sharded
+    from repro_torch.launch.mesh import LocalMesh
+
+    x = torch.from_numpy(_sharded_features(4, 16)).to(dev)
+    mesh = LocalMesh([dev] * 4, {"data": 4})
+    before = fleet_scores_sharded.launches
+    got = fleet_scores_sharded(x, mesh=mesh)
+    assert fleet_scores_sharded.launches == before + 4
+    assert torch.equal(got.view(torch.int32), fleet_scores_sharded(x).view(torch.int32))
+
+
+def _sharded_delta(G, R, seed=0):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, G, R).astype(np.int32)
+    keys[: R // 8] = 3  # one hot group
+    valid = rng.uniform(size=R) < 0.9
+    vals = rng.exponential(10.0, R).astype(np.float32)
+    return keys, valid, vals
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_sharded_delta_groupbys_on_the_card_match_the_cpu(dev, fused):
+    """Both sharded group-bys over four shards of cuda:0 against the same
+    calls over four CPU shards: counts equal, sums within rtol=1e-5,
+    atol=1e-4 (JAX's tolerance between its two group-bys); each shard
+    launches its kernels."""
+    from repro_torch import kernels
+    from repro_torch.core import distributed_svc as svc
+    from repro_torch.launch.mesh import LocalMesh, make_local_mesh
+
+    G, R, m, seed = 4096, 4 * 65_536, 0.3, 7
+    keys, valid, vals = _sharded_delta(G, R)
+    make = svc.make_sharded_fused_delta_groupby if fused else svc.make_sharded_delta_groupby
+
+    def run(mesh, d):
+        return make(mesh, "data", G, m, seed, ["bytes"])(
+            torch.from_numpy(keys).to(d), torch.from_numpy(valid).to(d),
+            {"bytes": torch.from_numpy(vals).to(d)})
+
+    kernels.reset_launches()
+    got = run(LocalMesh([dev] * 4, {"data": 4}), dev)
+    counts = kernels.launch_counts()
+    want = run(make_local_mesh(data=4, device="cpu"), "cpu")
+    if fused:
+        assert counts["fused_clean"] == 4
+    else:
+        assert counts["hash_threshold"] == 4 and counts["segment_aggsum_unsorted"] == 4
+    assert torch.equal(got["count"].cpu(), want["count"])
+    np.testing.assert_allclose(got["bytes"].cpu().numpy(), want["bytes"].numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert 0 < float(want["count"].sum()) < R
+
+
+def test_sharded_fleet_epoch_on_the_card_matches_the_cpu(dev):
+    """A two-shard fleet on the card: the epoch's plan equals the CPU
+    fleet's, its score combine is one fleet_score_sharded launch with no
+    fallback, and every view answers as on the CPU (sums within 1e-5)."""
+    from repro_torch import kernels
+    from repro_torch.core import Query, ViewDef
+    from repro_torch.distributed import ShardedFleet
+    from repro_torch.obs.kprof import KernelProfiler, set_profiler
+    from repro_torch.relational.plan import GroupByNode, Scan
+    from repro_torch.relational.relation import from_columns
+
+    def fleet_on(device):
+        clock = lambda: 0.0  # noqa: E731
+        fleet = ShardedFleet(n_shards=2, budget_s=10.0, clock=clock, heartbeat_timeout_s=1e9,
+                             device=device)
+        rng = np.random.default_rng(5)
+        for i in range(4):
+            n = 20_000
+            fleet.register_base(f"Log{i}", from_columns(
+                {"sessionId": np.arange(n, dtype=np.int32),
+                 "videoId": rng.integers(0, 3000, n).astype(np.int32),
+                 "bytes": rng.exponential(10.0, n).astype(np.float32)},
+                pk=["sessionId"], capacity=2 * n, device=device))
+            plan = GroupByNode(child=Scan(f"Log{i}", pk=("sessionId",)), keys=("videoId",),
+                               aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
+                               num_groups=6000)
+            fleet.register_view(ViewDef(f"v{i}", plan), delta_bases=(f"Log{i}",), m=0.25,
+                                seed=i, delta_group_capacity=6000)
+        for cm in fleet.cost_models:
+            cm.pin_costs(0.05, 0.25)
+        for i in range(4):
+            fleet.ingest(f"Log{i}", inserts=from_columns(
+                {"sessionId": np.arange(10**6, 10**6 + 5000, dtype=np.int32),
+                 "videoId": rng.integers(0, 3000, 5000).astype(np.int32),
+                 "bytes": rng.exponential(10.0, 5000).astype(np.float32)},
+                pk=["sessionId"], device=device), seq=0)
+        return fleet
+
+    card, cpu = fleet_on("cuda"), fleet_on("cpu")
+    kernels.reset_launches()
+    prof = set_profiler(KernelProfiler())
+    try:
+        rep = card.epoch_step()
+    finally:
+        set_profiler(None)
+    want = cpu.epoch_step()
+    assert kernels.launch_counts()["fleet_score_sharded"] == 1
+    assert all(st["fallbacks"] == 0 for st in prof.summary().values())
+    assert [(a.view, a.action, a.shard) for a in rep.actions] == \
+        [(a.view, a.action, a.shard) for a in want.actions]
+    assert card.pending_rows() == cpu.pending_rows() == 0
+    q = Query("sum", "totalBytes")
+    for i in range(4):
+        a, b = card.query(f"v{i}", q), cpu.query(f"v{i}", q)
+        np.testing.assert_allclose(float(a.value), float(b.value), rtol=1e-5)

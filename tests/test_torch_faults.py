@@ -65,9 +65,21 @@ def _rows(start, n, groups, rng):
             "v": rng.exponential(5.0, n).astype(np.float32)}
 
 
+class FakeClock:
+    def __init__(self, t=0.0):
+        self.t = float(t)
+
+    def __call__(self):
+        return self.t
+
+
 def _fleet(pkg, n_views=2, n=400, groups=8, m=0.3, seed=3):
+    """Both packages' managers read an equal injected clock that stands
+    still, so the planner times an action by the latency its faults report
+    and by nothing else (a first jitted clean on a busy host can run past
+    the 0.5 s deadline floor on its own)."""
     rng = np.random.default_rng(seed)
-    vm = pkg.views.ViewManager(**pkg.dev)
+    vm = pkg.views.ViewManager(clock=FakeClock(), **pkg.dev)
     for i in range(n_views):
         base = f"Log{i}"
         vm.register_base(base, pkg.from_columns(_rows(0, n, groups, rng), pk=["k"],
@@ -537,14 +549,6 @@ def test_random_plan_over_planner_epochs_matches_jax(seed):
 # ---------------------------------------------------------------------------
 # Degraded answers and a backwards clock
 # ---------------------------------------------------------------------------
-
-class FakeClock:
-    def __init__(self, t=0.0):
-        self.t = float(t)
-
-    def __call__(self):
-        return self.t
-
 
 def test_query_degrades_instead_of_raising_on_refresh_failure():
     """A failing watermark refresh inside query()/query_batch() degrades the

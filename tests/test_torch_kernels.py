@@ -394,6 +394,7 @@ def test_cpu_runs_never_count_as_launches():
     wrappers["outlier_member"]((gid,), torch.ones(4, dtype=torch.bool), 0.5, 0, table)
     wrappers["fleet_moments"](*[torch.ones(2, 4)] * 8)
     wrappers["fleet_score"](torch.ones(2, 13))
+    wrappers["fleet_score_sharded"](torch.ones(2, 3, 13))
     wrappers["segment_aggsum"](gid, torch.ones(4, 2), 2)
     wrappers["segment_aggsum_unsorted"](gid, torch.ones(4, 2), 2)
     wrappers["corr_diff"](torch.ones(4), torch.zeros(4), torch.ones(4, dtype=torch.bool))
@@ -402,6 +403,6 @@ def test_cpu_runs_never_count_as_launches():
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
-                           "fleet_merge", "fleet_moments", "fleet_score",
+                           "fleet_merge", "fleet_moments", "fleet_score", "fleet_score_sharded",
                            "segment_aggsum", "segment_aggsum_unsorted", "corr_diff",
                            "flash_attention"}

@@ -19,7 +19,7 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fleet_merge import fleet_merge
     from repro_torch.kernels.fleet_moments import fleet_moments
-    from repro_torch.kernels.fleet_score import N_FEATURES, fleet_scores
+    from repro_torch.kernels.fleet_score import N_FEATURES, fleet_scores, fleet_scores_sharded
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
@@ -73,6 +73,7 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
         "fleet_merge": lambda: fleet_merge(skeys, svalid, svals, ivalid, ivals),
         "fleet_moments": lambda: fleet_moments(*moments_in),
         "fleet_score": lambda: fleet_scores(feats),
+        "fleet_score_sharded": lambda: fleet_scores_sharded(feats.reshape(4, 4, N_FEATURES)),
         "segment_aggsum": lambda: segment_groupby(sorted_gid, vals, G),
         "segment_aggsum_unsorted": lambda: segment_sum(gid, vals, G),
         "corr_diff": lambda: corr_moments(t_new, t_old, valid),
