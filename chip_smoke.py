@@ -28,7 +28,18 @@ size, through the entry points a user calls:
      and ``dashboard("observatory")`` (a kernel profiler installed around
      that call alone); prefill against token-by-token decode, and the
      smoke model on the card against the CPU.  Every attention is the
-     flash_attention kernel.
+     flash_attention kernel;
+  5. the other model families, every attention on the same kernel:
+     ``moe_serve`` — granite-moe-3b-a800m at its published size in bf16,
+     8 requests through ``ServeEngine`` with telemetry as in 4, its
+     per-expert load, a profiled warm decode call, and layer 0's MoE FFN
+     on the card against the CPU; ``vlm_prefill`` — qwen2-vl-72b at its
+     published widths, depth cut 80 -> 8 layers, a vision stub and 256
+     text tokens: forward, prefill and decode held to one another;
+     ``encdec_generate`` — seamless-m4t-large-v2 at its published size,
+     1,024 stub frames a source: prefill and greedy decode held to the
+     teacher-forced forward; and each family's smoke config served on the
+     card against the CPU.
 
 The observatory and the chaos layer ride on these paths:
   * ``chaos_stream`` (after the streaming path): two fresh managers over
@@ -83,6 +94,7 @@ Run:  python3 chip_smoke.py                        (full size, one GPU)
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -233,6 +245,34 @@ FLASH_SHAPES = (
     ("decode 4096 qwen2-vl-72b", (4, 1, 4096, 64, 8, 128), False),
 )
 
+# The other model families on the flash kernel.  granite-moe-3b-a800m at
+# its published size in bf16 through ServeEngine: 8 requests of 16–64
+# prompt tokens (numpy seed 0) and 16 new tokens each on 8 slots, telemetry
+# as on the serve path; layer 0's FFN is also held to the CPU on a forward
+# over 8 × 64 prompt tokens.
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_MAX_BATCH, MOE_MAX_SEQ = 8, 512
+MOE_REQUESTS, MOE_MAX_NEW = 8, 16
+MOE_PROMPT_LENS = (16, 64)
+MOE_FORWARD_SHAPE = (8, 64)
+# the card's bf16 FFN against the CPU's float32 on the same token states:
+# six roundings to bf16 (g, u, h, an expert's output, its gate product, y),
+# each at 2^-8 relative
+MOE_FFN_TOL = 2.0 ** -5
+# qwen2-vl-72b at its published widths with its depth cut 80 -> 8 layers
+# (all 80 take 143 GB in bf16, more than the card's 80 GB): B = 2, the
+# 256-token vision stub (seed 1 on the card) and 256 text tokens; forward
+# over all 512, prefill over the first 448, then 64 decode steps
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 8
+VLM_BATCH, VLM_TEXT, VLM_PREFILL = 2, 256, 448
+# seamless-m4t-large-v2 at its published size in bf16: 4 sources of 1,024
+# stub frames, an 8-token target prefix, 32 greedy new tokens
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_PREFIX, ENCDEC_NEW = 4, 1024, 8, 32
+# the smoke configs served on the card and on the CPU
+SMOKE_PROMPT_LENS = (3, 9, 5, 12, 4, 7)
+
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                     "multi_agg_two", "multi_agg_one", "segment_aggsum")
@@ -244,6 +284,7 @@ SHARDED_KERNELS = ("fleet_score_sharded", "fleet_moments", "fused_clean_fleet", 
                    "fused_clean", "hash_threshold", "segment_aggsum_unsorted")
 SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
                  "multi_agg_one")
+FAMILY_KERNELS = ("flash_attention",)  # vlm_prefill and encdec_generate: every attention
 
 
 
@@ -2103,35 +2144,79 @@ class DecodeProbe:
 
 
 class FlashCapture:
-    """Stands in for the transformer's ``flash_attention`` while the serve
-    path runs: it calls the wrapper (which counts its launch) and keeps a
-    copy, with the same strides, of the inputs of the first decode call
-    whose cache slice reaches ``t_min`` keys (layer 0 of that step)."""
+    """Stands in for the models' ``flash_attention`` (the transformer's and
+    the encoder-decoder's) while a path runs: it calls the wrapper (which
+    counts its launch) and keeps a copy, with the same strides, of the
+    inputs of the first call that each of ``wants`` (label -> predicate on
+    ``(q, k, causal)``) accepts.  ``t_min`` wants, as ``"decode"``, the first
+    decode call whose cache slice reaches ``t_min`` keys (layer 0 of that
+    step); ``inputs`` is that capture."""
 
-    def __init__(self, t_min: int):
-        from repro_torch.models import transformer
+    def __init__(self, t_min=None, wants=None):
+        from repro_torch.models import encdec, transformer
 
-        self.mod, self.real, self.t_min, self.inputs = transformer, transformer.flash_attention, t_min, None
+        self.mods, self.real = (transformer, encdec), transformer.flash_attention
+        self.wants = dict(wants or {})
+        if t_min is not None:
+            self.wants["decode"] = lambda q, k, causal: not causal and k.shape[1] >= t_min
+        self.captured, self.causal = {}, {}
+
+    @property
+    def inputs(self):
+        return self.captured.get("decode")
 
     def __call__(self, q, k, v, causal=True):
         import torch
 
         out = self.real(q, k, v, causal)
-        if self.inputs is None and not causal and k.shape[1] >= self.t_min:
-            self.inputs = tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                                    device=t.device).copy_(t) for t in (q, k, v))
+        for label, want in self.wants.items():
+            if label not in self.captured and want(q, k, causal):
+                self.causal[label] = causal
+                self.captured[label] = tuple(
+                    torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                        device=t.device).copy_(t) for t in (q, k, v))
         return out
 
     def __enter__(self):
-        self.mod.flash_attention = self
+        for mod in self.mods:
+            mod.flash_attention = self
         return self
 
     def __exit__(self, *exc):
-        self.mod.flash_attention = self.real
+        for mod in self.mods:
+            mod.flash_attention = self.real
+
+
+class MoeCapture:
+    """Stands in for the transformer's ``moe_ffn_local`` while a path runs:
+    sums every call's per-expert load on the device (no host read) and
+    keeps a copy of the first call's token states and capacity (layer 0
+    of the path's first call)."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+
+        self.mod, self.real = transformer, transformer.moe_ffn_local
+        self.load, self.calls, self.first = None, 0, None
+
+    def __call__(self, x, router, w_gate, w_up, w_down, cfg, capacity):
+        y, load = self.real(x, router, w_gate, w_up, w_down, cfg, capacity)
+        self.calls += 1
+        self.load = load if self.load is None else self.load + load
+        if self.first is None:
+            self.first = (x.clone(), capacity)
+        return y, load
+
+    def __enter__(self):
+        self.mod.moe_ffn_local = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_ffn_local = self.real
 
 
 def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stream_kw, seed,
-                   device="cuda"):
+                   device="cuda", capture=None):
     """``cfg`` (gemma-2b at full width in bf16) with weights drawn on the
     card from a ``torch.Generator(seed)``; the engine serves ``prompts``
     with its telemetry streamed into serveView, then answers
@@ -2152,7 +2237,7 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
                          max_batch=max_batch, max_seq=max_seq, telemetry=svc)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with FlashCapture(max(len(p) for p in prompts)) as cap:
+    with FlashCapture(max(len(p) for p in prompts)) as cap, capture or contextlib.nullcontext():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for rid, p in enumerate(prompts):
@@ -2397,6 +2482,331 @@ def serve_device_vs_cpu(arch, prompt_lens, max_batch, max_seq, max_new, seed,
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# The other model families on the flash kernel: moe_serve, vlm_prefill,
+# encdec_generate
+# ---------------------------------------------------------------------------
+
+def hold_logits(what, got, want, tol=PREFILL_DECODE_TOL) -> dict:
+    """``got`` against the reference ``want`` (same shape, bf16 at full
+    width): finite, max |got - want| within ``tol`` of max |want|, and the
+    same greedy token at every position whose choice the two paths' error
+    cannot flip: where the reference's top-2 margin exceeds twice that
+    position's largest |got - want|.  The other positions (near-ties, most
+    of them exact ties of two bf16 logits) are counted and reported."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        fail(f"{what}: non-finite logits")
+    scale = float(want.abs().max())
+    row_err = (got - want).abs().amax(-1)
+    err = float(row_err.max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    determined = margin > 2 * row_err
+    same = got.argmax(-1) == want.argmax(-1)
+    if not bool(same[determined].all()):
+        bad = determined & ~same
+        fail(f"{what}: greedy tokens differ at {int(bad.sum())} positions whose top-2 margin "
+             f"exceeds twice their error (smallest such margin {float(margin[bad].min())})")
+    if err > tol * scale:
+        fail(f"{what}: logits {err} beyond {tol} of the largest |logit| {scale}")
+    return {"positions": same.numel(), "determined_positions": int(determined.sum()),
+            "same_greedy_tokens_where_determined": True,
+            "same_greedy_tokens": int(same.sum()), "near_ties": int((~determined).sum()),
+            "exact_ties": int((margin == 0).sum()),
+            "near_tie_tokens_differ": int((~same).sum()),
+            "max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
+            "mean_abs_err": float((got - want).abs().mean()),
+            "min_determined_margin": float(margin[determined].min()) if bool(determined.any())
+            else None,
+            "tolerance": f"max |a - b| <= {tol} * max |reference| (bf16 activations round at "
+                         "2^-8 relative wherever the two paths' sums differ); greedy tokens equal "
+                         "wherever the reference's top-2 margin exceeds twice the position's "
+                         "max |a - b| (bf16 logits tie exactly at a 152k or 256k vocabulary)"}
+
+
+def check_moe_ffn(blk, x, capacity, cfg, what) -> dict:
+    """Block ``blk``'s MoE FFN on the card in bf16 against the same token
+    states through the CPU float32 function (the same bf16 weights, as
+    f32): keep masks and loads equal, y within MOE_FFN_TOL of max |y_cpu|."""
+    import torch
+
+    from repro_torch.models.moe import moe_ffn_local, route
+
+    w = (blk.router, blk.w_gate, blk.w_up, blk.w_down)
+    with uncounted():
+        y, load = moe_ffn_local(x, *w, cfg, capacity)
+        keep = route(x, blk.router, cfg, capacity).keep
+    xc, wc = x.float().cpu(), [t.float().cpu() for t in w]
+    y_cpu, load_cpu = moe_ffn_local(xc, *wc, cfg, capacity)
+    keep_cpu = route(xc, wc[0], cfg, capacity).keep
+    if not torch.equal(keep.cpu(), keep_cpu):
+        fail(f"{what}: keep masks differ in {int((keep.cpu() != keep_cpu).sum())} pairs")
+    if not torch.equal(load.cpu(), load_cpu):
+        fail(f"{what}: per-expert loads differ")
+    err = float((y.float().cpu() - y_cpu).abs().max())
+    scale = float(y_cpu.abs().max())
+    if not bool(torch.isfinite(y).all()) or err > MOE_FFN_TOL * scale:
+        fail(f"{what}: y differs by {err} from the CPU's, beyond {MOE_FFN_TOL} of {scale}")
+    return {"tokens": x.shape[0], "capacity": capacity, "pairs": keep.numel(),
+            "dropped_pairs": int((~keep).sum()), "same_keep": True, "same_load": True,
+            "max_abs_err": err, "max_abs_cpu": scale, "rel_err": err / scale,
+            "tolerance": f"keep masks and loads equal; max |card - cpu| <= {MOE_FFN_TOL} * max "
+                         "|cpu| (the card rounds g, u, h, each expert's output, its gate "
+                         "product and y to bf16, each at 2^-8 relative)"}
+
+
+def run_moe_serve(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stream_kw,
+                  forward_shape, seed, device="cuda"):
+    """``cfg`` (granite-moe-3b-a800m at its published size in bf16) through
+    ``run_serve_path`` with the MoE FFN captured: the run's per-expert
+    load (every call routes all ``max_batch`` rows), one warm decode call
+    under the kernel profiler (a flash dispatch a layer, none a fallback),
+    and layer 0's FFN against the CPU on the first decode's token states
+    and on a forward's over ``forward_shape`` prompt tokens.  Returns
+    (report, the captured decode inputs, launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.obs.kprof import KernelProfiler
+
+    moe = MoeCapture()
+    report, model, params, flash_inputs, launches = run_serve_path(
+        cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stream_kw, seed,
+        device=device, capture=moe)
+    load = moe.load.cpu()
+    if moe.calls != cfg.n_layers * report["decode_calls"]:
+        fail(f"moe_serve: {moe.calls} MoE calls for {report['decode_calls']} decode calls of "
+             f"{cfg.n_layers} layers")
+    if int(load.sum()) != moe.calls * max_batch * cfg.moe_top_k:
+        fail(f"moe_serve: {int(load.sum())} expert picks, expected every call to route all "
+             f"{max_batch} rows")
+    cache = model.init_cache(max_batch, max_seq)
+    tokens = torch.zeros((max_batch, 1), dtype=torch.int32, device=device)
+    pos, rows = max(len(p) for p in prompts) - 1, list(range(max_batch))
+    prof = KernelProfiler()
+    with uncounted():
+        model.decode_step(params, cache, tokens, pos, rows)
+        kernels.set_profiler(prof)
+        try:
+            _, profiled_s = wall(lambda: model.decode_step(params, cache, tokens, pos, rows))
+        finally:
+            kernels.set_profiler(None)
+    del cache
+    flash = prof.summary().get("flash_attention", {})
+    if flash.get("dispatches") != cfg.n_layers or flash.get("fallbacks") != 0:
+        fail(f"moe_serve: a profiled decode call dispatched flash_attention {flash}, expected "
+             f"{cfg.n_layers} dispatches and no fallback")
+    ffn = {"decode": check_moe_ffn(params.layers[0], *moe.first, cfg, "moe_serve decode FFN")}
+    B, S = forward_shape
+    toks = torch.from_numpy(np.stack([np.resize(p, S) for p in prompts[:B]])).to(device)
+    with MoeCapture() as fwd, uncounted():
+        (_, aux), forward_s = wall(lambda: model.forward(params, {"tokens": toks}))
+    if int(aux["moe_load"].sum()) != cfg.n_layers * B * S * cfg.moe_top_k:
+        fail(f"moe_serve: forward's moe_load sums to {int(aux['moe_load'].sum())}")
+    ffn["forward"] = check_moe_ffn(params.layers[0], *fwd.first, cfg, "moe_serve forward FFN")
+    report.update({
+        "experts": cfg.moe_experts, "top_k": cfg.moe_top_k, "moe_calls": moe.calls,
+        "expert_load": [int(v) for v in load],
+        "expert_load_share_max": float(load.max() / load.sum()),
+        "expert_load_share_min": float(load.min() / load.sum()),
+        "profiled_decode_call": {"wall_s": profiled_s, "ops": prof.summary()},
+        "ffn_vs_cpu": ffn, "forward_tokens": B * S, "forward_s": forward_s,
+        "forward_moe_load_layer0": [int(v) for v in aux["moe_load"][0].cpu()],
+    })
+    return report, flash_inputs, launches
+
+
+def run_vlm_prefill(cfg, batch, n_text, n_prefill, seed, device="cuda"):
+    """``cfg`` (qwen2-vl-72b at its published widths, depth cut) with
+    weights drawn on the card from ``seed``: a (batch, n_vision, 1024)
+    vision stub and ``n_text`` text tokens after it; ``forward`` over all
+    positions, ``prefill`` over the first ``n_prefill``, then a
+    ``decode_step`` per remaining position, teacher-forced.  The decode
+    (and the prefill) logits are held to the forward's.  The launch
+    counters are set to 0 just before and read just after.  Returns
+    (report, the FlashCapture, launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import get_model
+
+    model = get_model(cfg, device=device)
+    params, init_s = wall(lambda: model.init(torch.Generator(device=device).manual_seed(seed)))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    S = cfg.n_vision_tokens + n_text
+    vision = torch.randn((batch, cfg.n_vision_tokens, 1024), generator=gen, device=device)
+    toks = torch.randint(0, cfg.vocab, (batch, S), generator=gen, device=device,
+                         dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with FlashCapture(wants={"prefill": lambda q, k, causal: causal and q.shape[1] == S}) as cap:
+        (full, aux), forward_s = wall(lambda: model.forward(
+            params, {"tokens": toks, "vision_embeds": vision}))
+        (pre, cache), prefill_s = wall(lambda: model.prefill(
+            params, {"tokens": toks[:, :n_prefill], "vision_embeds": vision}, cache_len=S))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(n_prefill, S):
+            lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], i)
+            outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    calls = 2 + (S - n_prefill)
+    if launches["flash_attention"] < cfg.n_layers * calls:
+        fail(f"vlm_prefill: flash_attention launched {launches['flash_attention']} times, fewer "
+             f"than {cfg.n_layers} layers x {calls} calls")
+    held = {"decode_vs_forward": hold_logits("vlm_prefill decode", torch.stack(outs, 1),
+                                             full[:, n_prefill:]),
+            "prefill_vs_forward": hold_logits("vlm_prefill prefill", pre, full[:, :n_prefill])}
+    report = {"arch": cfg.name, "layers": cfg.n_layers, "params": sum(
+                  p.numel() for p in params.parameters()), "dtype": cfg.compute_dtype,
+              "batch": batch, "vision_tokens": cfg.n_vision_tokens, "text_tokens": n_text,
+              "prefill_tokens": n_prefill, "decode_steps": S - n_prefill,
+              "mrope_sections": list(cfg.mrope_sections), "init_s": init_s,
+              "forward_s": forward_s, "prefill_s": prefill_s, "decode_s": decode_s,
+              "decode_step_s": decode_s / (S - n_prefill), "peak_device_gb": peak_gb,
+              "launches": launches, **held}
+    return report, cap, launches
+
+
+def run_encdec_generate(cfg, batch, src_len, n_prefix, n_new, seed, device="cuda"):
+    """``cfg`` (seamless-m4t-large-v2 at its published size in bf16) with
+    weights drawn on the card from ``seed``: a (batch, src_len, d_model)
+    frame stub and an ``n_prefix``-token target prefix; ``prefill``, then
+    ``n_new`` greedy ``decode_step``s, held to ``forward`` teacher-forced
+    on the prefix and the generated tokens (greedy tokens equal).  The
+    launch counters are set to 0 just before and read just after.
+    Returns (report, the FlashCapture, launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import get_model
+
+    model = get_model(cfg, device=device)
+    params, init_s = wall(lambda: model.init(torch.Generator(device=device).manual_seed(seed)))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    frames = torch.randn((batch, src_len, cfg.d_model), generator=gen, device=device)
+    prefix = torch.randint(0, cfg.vocab, (batch, n_prefix), generator=gen, device=device,
+                           dtype=torch.int32)
+    wants = {
+        "encoder": lambda q, k, causal: not causal and q.shape[1] == k.shape[1] == src_len,
+        "cross_prefill": lambda q, k, causal: (not causal and q.shape[1] == n_prefix
+                                               and k.shape[1] == src_len),
+        "cross_decode": lambda q, k, causal: (not causal and q.shape[1] == 1
+                                              and k.shape[1] == src_len),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with FlashCapture(wants=wants) as cap:
+        (pre, cache), prefill_s = wall(lambda: model.prefill(
+            params, {"frames": frames, "tokens": prefix}, cache_len=n_prefix + n_new))
+        nxt = pre[:, -1].argmax(-1)
+        generated, outs = [nxt], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            lg, cache = model.decode_step(params, cache, nxt[:, None].to(torch.int32),
+                                          n_prefix + i)
+            outs.append(lg[:, 0])
+            nxt = lg[:, 0].argmax(-1)
+            generated.append(nxt)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        fed = torch.cat([prefix, torch.stack(generated[:n_new], 1).to(torch.int32)], 1)
+        (full, _), forward_s = wall(lambda: model.forward(params, {"frames": frames,
+                                                                   "tokens": fed}))
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_call = cfg.enc_layers + 2 * cfg.dec_layers  # the encoder, then self and cross a layer
+    want = 2 * per_call + 2 * cfg.dec_layers * n_new
+    if launches["flash_attention"] < want:
+        fail(f"encdec_generate: flash_attention launched {launches['flash_attention']} times, "
+             f"fewer than the {want} of the prefill, decode and forward")
+    missing = [k for k in wants if k not in cap.captured]
+    if missing:
+        fail(f"encdec_generate: no flash call at the {missing} shapes")
+    held = {"decode_vs_forward": hold_logits("encdec_generate decode", torch.stack(outs, 1),
+                                             full[:, n_prefix:]),
+            "prefill_vs_forward": hold_logits("encdec_generate prefill", pre,
+                                              full[:, :n_prefix])}
+    report = {"arch": cfg.name, "enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers,
+              "params": sum(p.numel() for p in params.parameters()), "dtype": cfg.compute_dtype,
+              "batch": batch, "source_frames": src_len, "prefix_tokens": n_prefix,
+              "new_tokens": n_new, "init_s": init_s, "prefill_s": prefill_s,
+              "decode_s": decode_s, "decode_step_s": decode_s / n_new,
+              "tok_per_s": batch * n_new / decode_s, "forward_s": forward_s,
+              "generated": torch.stack(generated, 1)[0].tolist(), "peak_device_gb": peak_gb,
+              "launches": launches, **held}
+    return report, cap, launches
+
+
+def family_flash_lines(cap, launches, iters, what) -> list:
+    """A ``kernel`` line for each flash input ``cap`` (a FlashCapture)
+    captured on a family's phase."""
+    return [flash_entry(f"{what} {label} (layer 0, captured)", *inputs, cap.causal[label],
+                        launches, iters)
+            for label, inputs in cap.captured.items()]
+
+
+def family_phases(smi: str) -> None:
+    """The moe_serve, vlm_prefill and encdec_generate phases at full size,
+    each with the launch counters set to 0 just before it and read just
+    after, then their flash ``kernel`` lines and each family's smoke
+    config served on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    moe_cfg = get_config(MOE_ARCH)
+    moe, moe_flash, moe_launches = run_moe_serve(
+        moe_cfg, MOE_MAX_BATCH, MOE_MAX_SEQ,
+        serve_prompts(moe_cfg.vocab, MOE_REQUESTS, *MOE_PROMPT_LENS, SEED), MOE_MAX_NEW,
+        SERVE_TICK_CAPACITY, SERVE_STREAM, MOE_FORWARD_SHAPE, SEED)
+    missing = [k for k in SERVE_KERNELS if moe_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the moe serve path: {missing}")
+    emit({"phase": "moe_serve", **moe, "card": smi})
+    torch.cuda.empty_cache()
+    family_flash = [flash_entry("moe_serve decode (layer 0, captured)", *moe_flash, False,
+                                moe_launches["flash_attention"], ITERS)]
+    del moe_flash
+    emit({"phase": "moe_device_vs_cpu",
+          **serve_device_vs_cpu(MOE_ARCH, SMOKE_PROMPT_LENS, 4, 64, 8, SEED), "card": smi})
+
+    vlm_cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    vlm, vlm_cap, vlm_launches = run_vlm_prefill(vlm_cfg, VLM_BATCH, VLM_TEXT, VLM_PREFILL, SEED)
+    missing = [k for k in FAMILY_KERNELS if vlm_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the vlm path: {missing}")
+    emit({"phase": "vlm_prefill", **vlm,
+          "depth_cut": f"{get_config(VLM_ARCH).n_layers} -> {VLM_LAYERS} layers", "card": smi})
+    torch.cuda.empty_cache()
+    family_flash += family_flash_lines(vlm_cap, vlm_launches["flash_attention"], ITERS,
+                                       "vlm_prefill")
+    del vlm_cap
+
+    enc, enc_cap, enc_launches = run_encdec_generate(
+        get_config(ENCDEC_ARCH), ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_PREFIX, ENCDEC_NEW, SEED)
+    missing = [k for k in FAMILY_KERNELS if enc_launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the encdec path: {missing}")
+    emit({"phase": "encdec_generate", **enc, "card": smi})
+    torch.cuda.empty_cache()
+    family_flash += family_flash_lines(enc_cap, enc_launches["flash_attention"], ITERS,
+                                       "encdec_generate")
+    del enc_cap
+    for entry in family_flash:
+        emit({"phase": "kernel", **entry, "card": smi})
+    emit({"phase": "encdec_device_vs_cpu",
+          **serve_device_vs_cpu(ENCDEC_ARCH, SMOKE_PROMPT_LENS, 4, 64, 8, SEED), "card": smi})
+
 
 # ---------------------------------------------------------------------------
 # The observatory and the chaos layer: kprof, chaos_fleet, chaos_stream
@@ -3413,7 +3823,11 @@ def main(argv=None) -> int:
     for entry in flash_table:
         emit({"phase": "kernel", **entry, "card": smi})
     emit({"phase": "serve_device_vs_cpu",
-          **serve_device_vs_cpu(SERVE_ARCH, (3, 9, 5, 12, 4, 7), 4, 64, 8, SEED)})
+          **serve_device_vs_cpu(SERVE_ARCH, SMOKE_PROMPT_LENS, 4, 64, 8, SEED)})
+
+    # the moe, vlm and encdec families, each on a card the last has let go of
+    torch.cuda.empty_cache()
+    family_phases(smi)
 
     emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]})
     print(smi, flush=True)

@@ -1,22 +1,30 @@
-"""Carry the JAX package's parameters into the port's ``Transformer``.
+"""Carry the JAX package's parameters into the port's modules.
 
 ``from_jax_params`` takes the pytree of ``repro.models.transformer.
-init_params`` as numpy arrays (``embed``, ``final_norm``, ``lm_head`` when
-untied, and the stacked ``(L, …)`` ``layers`` leaves ``ln1, ln2, wq, wk,
-wv, wo, w_gate, w_up, w_down``) and returns a module that computes what
-the JAX model computes.  JAX's ``(in, out)`` orientation is kept; matrices
-are cast to ``compute_dtype`` (what JAX casts to at use), norms stay f32.
+init_params`` or ``repro.models.encdec.init_params`` as numpy arrays and
+returns a module that computes what the JAX model computes:
+  * dense, moe, vlm: ``embed``, ``final_norm``, ``lm_head`` when untied,
+    ``vision_proj`` for vlm, and the stacked ``(L, …)`` ``layers`` leaves
+    ``ln1, ln2, wq, wk, wv, wo, w_gate, w_up, w_down`` (plus ``router`` and
+    the (L, E, …) expert stacks for moe) → ``Transformer``;
+  * encdec: ``embed``, ``final_norm``, ``enc_final_norm`` and the stacked
+    ``enc``/``dec`` leaves (``dec`` adds the cross-attention ``ln_x, xq,
+    xk, xv, xo``) → ``EncDec``.
+JAX's ``(in, out)`` orientation is kept; each leaf is cast to its
+parameter's dtype (``compute_dtype`` for matrices, what JAX casts to at
+use; f32 for norms and the MoE router, which JAX never casts).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.encdec import CROSS_LEAVES, SELF_LEAVES, EncDec
+from repro_torch.models.transformer import Transformer, check_family
 
 LAYER_LEAVES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -28,23 +36,39 @@ def _copy(dst: torch.nn.Parameter, src, what: str) -> None:
     dst.copy_(torch.from_numpy(arr).to(device=dst.device, dtype=dst.dtype))
 
 
+def _keys(tree: Mapping, expected, what: str) -> None:
+    if set(tree) != set(expected):
+        raise ValueError(f"{what}: keys {sorted(tree)}, expected {sorted(expected)}")
+
+
+def _stacked(tree: Mapping, leaves: Sequence[str], blocks, what: str) -> None:
+    """Split each stacked (L, …) leaf of ``tree`` over ``blocks``."""
+    _keys(tree, leaves, what)
+    for name in leaves:
+        stacked = np.asarray(tree[name])
+        if stacked.shape[0] != len(blocks):
+            raise ValueError(f"{what}.{name}: {stacked.shape[0]} layers, expected {len(blocks)}")
+        for i, blk in enumerate(blocks):
+            _copy(getattr(blk, name), stacked[i], f"{what}.{name}[{i}]")
+
+
 @torch.no_grad()
-def from_jax_params(params: Mapping, cfg: ArchConfig, device="cuda") -> Transformer:
+def from_jax_params(params: Mapping, cfg: ArchConfig, device="cuda"):
+    check_family(cfg)
+    if cfg.family == "encdec":
+        model = EncDec(cfg, device)
+        _keys(params, {"embed", "final_norm", "enc_final_norm", "enc", "dec"}, "params")
+        for name in ("embed", "final_norm", "enc_final_norm"):
+            _copy(getattr(model, name), params[name], name)
+        _stacked(params["enc"], SELF_LEAVES, model.enc, "enc")
+        _stacked(params["dec"], SELF_LEAVES + CROSS_LEAVES, model.dec, "dec")
+        return model
     model = Transformer(cfg, device)
-    expected = {"embed", "final_norm", "layers"} | ({"lm_head"} if not cfg.tie_embeddings else set())
-    if set(params) != expected:
-        raise ValueError(f"params: keys {sorted(params)}, expected {sorted(expected)}")
-    if set(params["layers"]) != set(LAYER_LEAVES):
-        raise ValueError(f"params['layers']: keys {sorted(params['layers'])}, "
-                         f"expected {sorted(LAYER_LEAVES)}")
-    _copy(model.embed, params["embed"], "embed")
-    _copy(model.final_norm, params["final_norm"], "final_norm")
-    if model.lm_head is not None:
-        _copy(model.lm_head, params["lm_head"], "lm_head")
-    for name in LAYER_LEAVES:
-        stacked = np.asarray(params["layers"][name])
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{name}: {stacked.shape[0]} layers, expected {cfg.n_layers}")
-        for i, blk in enumerate(model.layers):
-            _copy(getattr(blk, name), stacked[i], f"layers.{name}[{i}]")
+    expected = ({"embed", "final_norm", "layers"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+                | ({"vision_proj"} if cfg.n_vision_tokens else set()))
+    _keys(params, expected, "params")
+    for name in expected - {"layers"}:
+        _copy(getattr(model, name), params[name], name)
+    leaves = LAYER_LEAVES + (("router",) if cfg.moe_experts else ())
+    _stacked(params["layers"], leaves, model.layers, "layers")
     return model

@@ -72,6 +72,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> 
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float = 1e4
+                ) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions (3, ..., S) for the (t, h, w) axes.
+
+    The half-dim frequency bands are split into ``sections`` (summing to
+    head_dim/2); each band rotates by its own positional axis."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"apply_mrope: sections {tuple(sections)} sum to {sum(sections)}, "
+                         f"expected head_dim/2 = {half}")
+    freqs = _device_freqs(x.shape[-1], float(theta), x.device)
+    bands = torch.split(freqs, list(sections))
+    ang = torch.cat([positions[axis][..., None].float() * f for axis, f in enumerate(bands)],
+                    dim=-1)  # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------

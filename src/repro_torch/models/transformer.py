@@ -1,20 +1,27 @@
-"""Decoder-only transformer LM, dense family (phi3-mini, gemma-2b/7b, granite-3-2b).
+"""Decoder-only transformer LM: the dense, moe and vlm families.
 
-The port of ``repro.models.transformer`` for the dense configs, as an
-``nn.Module`` that serves (no backward: the JAX flash kernel has none).
-Every attention goes through ``kernels.flash_attention``: causal over the
-prompt in ``forward``/``prefill``, non-causal against the cache slice
-``[:, :pos+1]`` in ``decode_step`` (the slice is a view; keys past ``pos``
-are exactly the ones ``decode_mask(T, pos)`` masks).
+Covers phi3-mini, gemma-2b/7b, granite-3-2b (dense GQA/MQA), grok-1-314b
+and granite-moe-3b-a800m (MoE blocks, ``models.moe``) and qwen2-vl-72b
+(M-RoPE positions and the patch-embedding stub).  The port of
+``repro.models.transformer`` as an ``nn.Module`` that serves (no
+backward: the JAX flash kernel has none).  Every attention goes through
+``kernels.flash_attention``: causal over the prompt in ``forward``/
+``prefill``, non-causal against the cache slice ``[:, :pos+1]`` in
+``decode_step`` (the slice is a view; keys past ``pos`` are exactly the
+ones ``decode_mask(T, pos)`` masks).
 
 Differences from the JAX module, all deliberate:
   * matrices are held in ``compute_dtype`` (the bf16 cast of an f32 master
-    gives the same values JAX casts to at use); norm weights stay f32;
-  * no ``ParallelCtx``, sharding pins or K/V repeat (sharding is ROADMAP
-    A.13);
+    gives the same values JAX casts to at use); norm weights and the MoE
+    router (which JAX never casts) stay f32;
+  * no ``ParallelCtx``, sharding pins or K/V repeat: JAX's serving path
+    builds none, and its trainer and dry run come with ROADMAP A.5/A.6;
   * ``decode_step`` writes the new K/V into the cache in place, and only
     at the batch rows it is given (``rows``): the same cache JAX's
     functional update followed by the serving engine's masked merge gives.
+    A MoE block routes every row, as JAX does, since expert capacity
+    couples the rows: each row then attends its own new K/V as in JAX,
+    and the other rows' cache entries at ``pos`` are put back after.
 """
 
 from __future__ import annotations
@@ -22,30 +29,31 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_capacity, moe_ffn_local
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+VISION_STUB_DIM = 1024  # patch-embedding stub width (the frontend is external)
+LM_FAMILIES = ("dense", "moe", "vlm")
 
 _NOT_PORTED = {
-    "moe": "models/moe.py (ROADMAP A.14, moe)",
-    "vlm": "M-RoPE positions and vision_proj (ROADMAP A.14, vlm)",
-    "hybrid": "models/rglru.py (ROADMAP A.14, rglru)",
-    "ssm": "models/xlstm.py (ROADMAP A.14, xlstm)",
-    "encdec": "models/encdec.py (ROADMAP A.14, encdec)",
+    "hybrid": "models/rglru.py (ROADMAP A.4, rglru)",
+    "ssm": "models/xlstm.py (ROADMAP A.4, xlstm)",
 }
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is of the dense family, the one ported so far."""
+    """Raise unless the port serves ``cfg``'s family (dense, moe, vlm, encdec)."""
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet: "
                                   f"{_NOT_PORTED[cfg.family]}")
-    if cfg.family != "dense":
+    if cfg.family not in LM_FAMILIES + ("encdec",):
         raise ValueError(cfg.family)
 
 
@@ -57,12 +65,30 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
-def build_positions(B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
-    """(B, S) int32 rope positions; ``offset`` is the first token's absolute
-    position (decode passes the cache position).  The dense family's only
-    kind: M-RoPE's (3, B, S) positions come with the vlm family."""
+def build_positions(cfg: ArchConfig, B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
+    """Rope positions: (B, S) int32, or (3, B, S) for M-RoPE.
+
+    ``offset`` is the absolute position of the first token (decode passes
+    the cache position).  M-RoPE classifies by absolute index: below
+    ``n_vision_tokens`` a token sits in the vision grid (t 0, h = i //
+    side, w = i % side), later ones at i − nv + 1 on all three axes."""
     ai = torch.arange(S, dtype=torch.int32, device=device) + offset
-    return ai[None, :].expand(B, S)
+    if not cfg.m_rope:
+        return ai[None, :].expand(B, S)
+    nv = cfg.n_vision_tokens
+    side = max(1, int(np.sqrt(max(nv, 1))))
+    is_vis = ai < nv
+    text = ai - nv + 1
+    grid = torch.stack([torch.where(is_vis, torch.zeros_like(ai), text),
+                        torch.where(is_vis, ai // side, text),
+                        torch.where(is_vis, ai % side, text)])[:, None, :]
+    return grid.expand(3, B, S)
+
+
+def _rope(cfg: ArchConfig, x, positions):
+    if cfg.m_rope:
+        return L.apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
+    return L.apply_rope(x, positions, cfg.rope_theta)
 
 
 def init_cache(cfg: ArchConfig, B: int, T: int, device=None) -> Dict[str, torch.Tensor]:
@@ -86,41 +112,67 @@ class Block(nn.Module):
         self.wk = _param((d, cfg.kv_dim), dt, device)
         self.wv = _param((d, cfg.kv_dim), dt, device)
         self.wo = _param((cfg.q_dim, d), dt, device)
-        self.w_gate = _param((d, F), dt, device)
-        self.w_up = _param((d, F), dt, device)
-        self.w_down = _param((F, d), dt, device)
+        E = cfg.moe_experts
+        if E:
+            self.router = _param((d, E), torch.float32, device)
+        self.w_gate = _param((E, d, F) if E else (d, F), dt, device)
+        self.w_up = _param((E, d, F) if E else (d, F), dt, device)
+        self.w_down = _param((E, F, d) if E else (F, d), dt, device)
 
     def _qkv(self, x, positions):
         c = self.cfg
         h = L.rmsnorm(x, self.ln1, c.norm_eps)
         q, k, v = L.qkv_project(h, self.wq, self.wk, self.wv, c.n_heads, c.n_kv_heads, c.head_dim)
-        return L.apply_rope(q, positions, c.rope_theta), L.apply_rope(k, positions, c.rope_theta), v
+        return _rope(c, q, positions), _rope(c, k, positions), v
+
+    def ffn(self, h):
+        """The dense GLU or the MoE FFN on (B, S, d); returns (y, load or None).
+        The MoE capacity comes from all B·S tokens of the call."""
+        c = self.cfg
+        if not c.moe_experts:
+            return L.glu_mlp(h, self.w_gate, self.w_up, self.w_down, c.act), None
+        B, S, d = h.shape
+        y, load = moe_ffn_local(h.reshape(B * S, d), self.router, self.w_gate, self.w_up,
+                                self.w_down, c, moe_capacity(c, B * S))
+        return y.view(B, S, d), load
 
     def _out(self, x, attn):
         c = self.cfg
         B, S = x.shape[:2]
         x = x + attn.reshape(B, S, c.q_dim) @ self.wo
-        h2 = L.rmsnorm(x, self.ln2, c.norm_eps)
-        return x + L.glu_mlp(h2, self.w_gate, self.w_up, self.w_down, c.act)
+        f, load = self.ffn(L.rmsnorm(x, self.ln2, c.norm_eps))
+        return x + f, load
 
     def full(self, x, positions):
-        """(x', k, v) over a whole sequence, causal."""
+        """(x', k, v, load) over a whole sequence, causal; ``load`` is the
+        MoE per-expert count (None for a dense block)."""
         q, k, v = self._qkv(x, positions)
-        return self._out(x, flash_attention(q, k, v, causal=True)), k, v
+        x, load = self._out(x, flash_attention(q, k, v, causal=True))
+        return x, k, v, load
 
     def decode(self, x, k_cache, v_cache, pos: int, positions, rows=None):
         """One token per sequence at cache position ``pos``; writes its K/V
         into ``k_cache``/``v_cache`` (B, T, K, hd) in place, at ``rows`` only
-        when given."""
+        when given (a (B,) bool mask or row indices)."""
         q, k, v = self._qkv(x, positions)
         if rows is None:
+            k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        elif self.cfg.moe_experts:
+            # every row attends its own new K/V, as in JAX's full-batch
+            # update; the rows outside ``rows`` get their entries back after
+            old_k, old_v = k_cache[:, pos].clone(), v_cache[:, pos].clone()
             k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
             v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
         else:
             k_cache[rows, pos] = k[rows, 0].to(k_cache.dtype)
             v_cache[rows, pos] = v[rows, 0].to(v_cache.dtype)
         attn = flash_attention(q, k_cache[:, :pos + 1], v_cache[:, :pos + 1], causal=False)
-        return self._out(x, attn)
+        if rows is not None and self.cfg.moe_experts:
+            keep = rows[:, None, None]
+            k_cache[:, pos] = torch.where(keep, k_cache[:, pos], old_k)
+            v_cache[:, pos] = torch.where(keep, v_cache[:, pos], old_v)
+        return self._out(x, attn)[0]
 
 
 class Transformer(nn.Module):
@@ -130,38 +182,54 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
         check_family(cfg)
+        if cfg.family not in LM_FAMILIES:
+            raise ValueError(f"{cfg.name}: Transformer serves {LM_FAMILIES}, not {cfg.family}")
         self.cfg = cfg
         d, V, dt = cfg.d_model, cfg.vocab, compute_dtype(cfg)
         self.embed = _param((V, d), dt, device)
         self.final_norm = _param((d,), torch.float32, device)
         self.lm_head = None if cfg.tie_embeddings else _param((d, V), dt, device)
+        self.vision_proj = (_param((VISION_STUB_DIM, d), dt, device)
+                            if cfg.n_vision_tokens else None)
         self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "Transformer":
         """Draw every weight from ``gen`` (on the parameters' device) as
-        ``init_params`` does: f32 normals, matrices scaled by 1/sqrt(fan_in),
-        the embedding by 0.02, norms at 1; matrices then cast to
-        ``compute_dtype``."""
+        ``init_params`` does: f32 normals, matrices scaled by 1/sqrt(fan_in)
+        (the MoE ``w_down`` by 1/sqrt(d_ff)), the embedding by 0.02, norms at
+        1; matrices then cast to ``compute_dtype``."""
         dev = self.embed.device
         self.embed.copy_(L.embed_init(gen, *self.embed.shape, device=dev))
         self.final_norm.fill_(1.0)
+        E = self.cfg.moe_experts
         for blk in self.layers:
             blk.ln1.fill_(1.0)
             blk.ln2.fill_(1.0)
-            for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            names = ("wq", "wk", "wv", "wo") + (("router",) if E else ()) + (
+                "w_gate", "w_up", "w_down")
+            for name in names:
                 w = getattr(blk, name)
-                w.copy_(L.dense_init(gen, tuple(w.shape), device=dev))
+                scale = 1.0 / np.sqrt(self.cfg.d_ff) if E and name == "w_down" else None
+                w.copy_(L.dense_init(gen, tuple(w.shape), scale, device=dev))
         if self.lm_head is not None:
             self.lm_head.copy_(L.dense_init(gen, tuple(self.lm_head.shape), device=dev))
+        if self.vision_proj is not None:
+            self.vision_proj.copy_(L.dense_init(gen, tuple(self.vision_proj.shape), device=dev))
         return self
 
     # -- public API (the JAX module's functions) -------------------------------
-    def _embed(self, tokens):
+    def _embed(self, tokens, vision_embeds=None):
         dt = compute_dtype(self.cfg)
         x = self.embed[tokens.long()].to(dt)
         if self.cfg.name.startswith("gemma"):
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=dt, device=x.device)
+        if self.vision_proj is not None and vision_embeds is not None:
+            n_vis = vision_embeds.shape[1]
+            if n_vis > x.shape[1]:
+                raise ValueError(f"vision_embeds: {n_vis} positions, the sequence has "
+                                 f"{x.shape[1]}")
+            x[:, :n_vis] = vision_embeds.to(dt) @ self.vision_proj
         return x
 
     def _unembed(self, x):
@@ -170,29 +238,33 @@ class Transformer(nn.Module):
         return x @ head.to(x.dtype)
 
     @torch.no_grad()
-    def forward(self, tokens):
-        """Full-sequence logits.  tokens (B, S) int."""
+    def forward(self, tokens, vision_embeds=None):
+        """Full-sequence logits and ``{"moe_load": (L, E)}`` ((L, 1) zeros
+        for a dense model).  tokens (B, S) int; ``vision_embeds`` (B, n_vis,
+        1024) overwrite the first n_vis positions (vlm)."""
         B, S = tokens.shape
-        x = self._embed(tokens)
-        positions = build_positions(B, S, device=x.device)
+        x = self._embed(tokens, vision_embeds)
+        positions = build_positions(self.cfg, B, S, device=x.device)
+        loads = []
         for blk in self.layers:
-            x, _k, _v = blk.full(x, positions)
-        loads = torch.zeros((self.cfg.n_layers, 1), dtype=torch.float32, device=x.device)
-        return self._unembed(x), {"moe_load": loads}
+            x, _k, _v, load = blk.full(x, positions)
+            loads.append(load if load is not None
+                         else torch.zeros((1,), dtype=torch.float32, device=x.device))
+        return self._unembed(x), {"moe_load": torch.stack(loads)}
 
     def init_cache(self, B: int, T: int) -> Dict[str, torch.Tensor]:
         return init_cache(self.cfg, B, T, self.embed.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: Optional[int] = None):
+    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None):
         """Process the prompt; returns (logits, cache filled up to S, zeros
         beyond)."""
         B, S = tokens.shape
         cache = self.init_cache(B, cache_len or S)
-        x = self._embed(tokens)
-        positions = build_positions(B, S, device=x.device)
+        x = self._embed(tokens, vision_embeds)
+        positions = build_positions(self.cfg, B, S, device=x.device)
         for i, blk in enumerate(self.layers):
-            x, k, v = blk.full(x, positions)
+            x, k, v, _load = blk.full(x, positions)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         return self._unembed(x), cache
@@ -202,14 +274,17 @@ class Transformer(nn.Module):
         """One new token per sequence against the cache.  tokens (B, 1).
 
         The cache is updated in place (and returned): every batch row at
-        ``pos``, or only ``rows``.  Logits cover every row; a row outside
-        ``rows`` read its own cache without this token's K/V.
+        ``pos``, or only ``rows``.  Logits cover every row; outside
+        ``rows`` a dense row read its own cache without this token's K/V,
+        a MoE row with it (as JAX's, before the engine's merge).
         """
         B, S = tokens.shape
         x = self._embed(tokens)
-        positions = build_positions(B, S, offset=int(pos), device=x.device)
+        positions = build_positions(self.cfg, B, S, offset=int(pos), device=x.device)
         if rows is not None:
             rows = torch.as_tensor(rows, dtype=torch.long, device=x.device)
+            if self.cfg.moe_experts:
+                rows = torch.zeros(B, dtype=torch.bool, device=x.device).index_fill_(0, rows, True)
         for i, blk in enumerate(self.layers):
             x = blk.decode(x, cache["k"][i], cache["v"][i], int(pos), positions, rows)
         return self._unembed(x), cache

@@ -20,7 +20,8 @@ on every call; corr_moments' count is exact, its sums
 within 1e-6 of Σ|x| of the float64 sums, and the same bits run to run.
 flash_attention within 1e-4 in float32 (the same f32 sums in another
 order) and 1e-2 in bfloat16 (an output may round to the neighbouring bf16
-value); the f32 smoke model on the card within 1e-4 of the CPU.  Under a
+value); the f32 smoke models (dense, moe, vlm, encdec) and the MoE FFN
+on the card within 1e-4 of the CPU, the FFN's keep mask and load exact.  Under a
 kernel profiler every wrapper dispatches once per call and never takes
 its plain version; an injected kernel_error degrades the batched clean on
 the card to per-view cleans whose samples equal a fault-free manager's
@@ -1196,6 +1197,94 @@ def test_smoke_model_on_the_card_matches_the_cpu(dev):
     for i in range(8):
         lc, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:, i:i + 1], i)
         lg, c_card = card.decode_step(p_card, c_card, toks[:, i:i + 1].to(dev), i, rows=None)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the moe, vlm and encdec families: flash at their shapes, the MoE FFN and
+# each family's smoke model on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (8, 1, 80, 24, 8, 64, False),          # granite-moe-3b-a800m decode
+    (2, 512, 512, 64, 8, 128, True),       # qwen2-vl-72b causal prefill
+    (4, 1024, 1024, 16, 16, 64, False),    # seamless encoder, bidirectional
+    (4, 8, 1024, 16, 16, 64, False),       # seamless cross attention, prefill
+    (4, 1, 1024, 16, 16, 64, False)])      # seamless cross attention, decode
+def test_flash_attention_kernel_at_the_new_family_shapes(dev, dtype, B, S, T, H, K, hd, causal):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    q, k, v = _qkv(B, S, T, H, K, hd, dtype, dev, seed=S + T)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch,n_tokens", [("granite-moe-3b-a800m", 8),
+                                           ("granite-moe-3b-a800m", 96), ("grok-1-314b", 40)])
+def test_moe_ffn_on_the_card_matches_the_cpu(dev, arch, n_tokens):
+    """The smoke config's MoE FFN (f32, TF32 off) on the card: keep mask
+    and load exact, y within 1e-4 of the CPU; and it never synchronizes
+    with the host (sync debug mode raises on any synchronizing op)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import moe_capacity, moe_ffn_local, route
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    g = torch.Generator().manual_seed(n_tokens)
+    E, d, F = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    x = torch.randn(n_tokens, d, generator=g)
+    ws = [torch.randn(shape, generator=g) * shape[-2] ** -0.5
+          for shape in ((d, E), (E, d, F), (E, d, F), (E, F, d))]
+    cap = moe_capacity(cfg, n_tokens)
+    y_cpu, load_cpu = moe_ffn_local(x, *ws, cfg, cap)
+    xd, wd = x.to(dev), [w.to(dev) for w in ws]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, load = moe_ffn_local(xd, *wd, cfg, cap)
+        r = route(xd, wd[0], cfg, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(load.cpu(), load_cpu)
+    assert torch.equal(r.keep.cpu(), route(x, ws[0], cfg, cap).keep)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-vl-72b", "seamless-m4t-large-v2"])
+def test_new_family_smoke_models_on_the_card_match_the_cpu(dev, arch):
+    """Each new family's smoke config (f32) from one set of weights:
+    forward (qwen2-vl with its vision stub, seamless over stub frames),
+    prefill and 8 decode steps on the card equal the CPU's within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu, card = get_model(cfg, device="cpu"), get_model(cfg, device=dev)
+    p_cpu, p_card = cpu.init(0), card.init(0)
+    p_card.load_state_dict(p_cpu.state_dict())
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=g)}
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = torch.randn(2, cfg.n_vision_tokens, 1024, generator=g)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, 20, cfg.d_model, generator=g)
+    on_card = {k: t.to(dev) for k, t in batch.items()}
+    torch.testing.assert_close(card.forward(p_card, on_card)[0].cpu(),
+                               cpu.forward(p_cpu, batch)[0], rtol=1e-4, atol=1e-4)
+    lc, c_cpu = cpu.prefill(p_cpu, batch, cache_len=24)
+    lg, c_card = card.prefill(p_card, on_card, cache_len=24)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for i in range(8):
+        tok = batch["tokens"][:, i:i + 1]
+        lc, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok, 12 + i)
+        lg, c_card = card.decode_step(p_card, c_card, tok.to(dev), 12 + i, rows=[0, 1])
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
 
 

@@ -65,6 +65,21 @@ def test_engine_is_deterministic_and_emits_jax_tokens(arch):
     assert a == _serve(jserving.ServeEngine, jserving.Request, jm, jp, 3, reqs, 4)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-vl-72b", "seamless-m4t-large-v2"])
+def test_moe_vlm_and_encdec_engines_emit_jax_tokens(arch):
+    """The moe, vlm and encdec smoke configs through both engines: mixed
+    prompt lengths (each tick decodes several position groups, so a MoE
+    call routes rows outside its ``rows``; the vlm's first positions fall
+    in the M-RoPE vision grid; the encdec cache holds a zero memory of
+    length max_seq, as JAX's does), the same tokens."""
+    jm, jp, tm, tp, cfg = _models(arch)
+    rng = np.random.default_rng(3)
+    reqs = list(enumerate(rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (2, 7, 4, 5, 1)))
+    got = _serve(ServeEngine, Request, tm, tp, 3, reqs, 4, max_seq=32)
+    assert len(got) == 5 and all(len(v) == 5 for v in got.values())
+    assert got == _serve(jserving.ServeEngine, jserving.Request, jm, jp, 3, reqs, 4, max_seq=32)
+
+
 def test_mixed_length_prompts_match_isolated_decode_and_jax():
     jm, jp, tm, tp, cfg = _models("granite-3-2b")
     rng = np.random.default_rng(7)
@@ -232,3 +247,13 @@ def test_launcher_serves_on_the_cpu():
     assert out["tokens"] == 16 * 13  # prefill argmax + 12 decode ticks each
     assert out["ticks"] > 0 and out["p50_latency_s"] > 0
     assert set(out) == {"completed", "tokens", "tok_per_s", "p50_latency_s", "ticks"}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "seamless-m4t-large-v2"])
+def test_launcher_serves_the_moe_and_encdec_families_on_the_cpu(arch):
+    from repro_torch.launch.serve import main
+
+    out = main(["--arch", arch, "--smoke", "--device", "cpu"])
+    assert out["completed"] == 16
+    assert out["tokens"] == 16 * 13
+    assert out["ticks"] > 0 and out["p50_latency_s"] > 0
