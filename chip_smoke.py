@@ -39,7 +39,17 @@ size, through the entry points a user calls:
      ``encdec_generate`` — seamless-m4t-large-v2 at its published size,
      1,024 stub frames a source: prefill and greedy decode held to the
      teacher-forced forward; and each family's smoke config served on the
-     card against the CPU.
+     card against the CPU;
+  6. the recurrent families at their published sizes in bf16:
+     ``hybrid_serve`` — recurrentgemma-9b, 4 requests through
+     ``ServeEngine`` with telemetry, every attention on the flash kernel's
+     ring-buffer mask (``key_pos``); ``hybrid_forward`` — its forward over
+     4,096 tokens (the banded window mask at full width) and its first 64
+     positions decoded against it; ``ssm_serve`` — xlstm-1.3b through
+     ``ServeEngine`` (no attention: the mLSTM's matrix memory and the
+     sLSTM) and its forward over 2 × 512; flash ``kernel`` lines for the
+     ring decode and the banded prefill; and each smoke config served on
+     the card against the CPU.
 
 The observatory and the chaos layer ride on these paths:
   * ``chaos_stream`` (after the streaming path): two fresh managers over
@@ -272,6 +282,45 @@ ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_PREFIX, ENCDEC_NEW = 4, 1024, 8, 32
 # the smoke configs served on the card and on the CPU
 SMOKE_PROMPT_LENS = (3, 9, 5, 12, 4, 7)
+# The recurrent families at their published sizes in bf16, not cut:
+# recurrentgemma-9b (hybrid; 38 layers, d_model 4,096, 16 query heads and 1
+# KV head of 256, window 2,048, vocabulary 256,000) and xlstm-1.3b (ssm; 48
+# layers, d_model 2,048, 4 mLSTM heads of 1,024), each through ServeEngine
+# with telemetry as on the serve path: 4 requests of 16–48 prompt tokens
+# (numpy seed 0) and 16 new tokens each on 4 slots.
+HYBRID_ARCH, SSM_ARCH = "recurrentgemma-9b", "xlstm-1.3b"
+RECURRENT_MAX_BATCH, RECURRENT_MAX_SEQ = 4, 128
+RECURRENT_REQUESTS, RECURRENT_MAX_NEW = 4, 16
+RECURRENT_PROMPT_LENS = (16, 48)
+# the hybrid's forward over 1 × 4,096 tokens (past its window, so every
+# attention layer runs the banded mask), its first 64 positions decoded and
+# held to it at JAX's dense decode-vs-forward tolerance
+HYBRID_FORWARD_LEN, HYBRID_DECODE_LEN = 4096, 64
+HYBRID_DECODE_TOL = 2e-2
+# the ssm's forward over 2 × 512 (two mLSTM chunks, the sLSTM loop) and its
+# first 16 positions decoded.  At 48 layers the two paths' roundings diverge
+# (in JAX too: tests/torch_xlstm_depth.py), so the served model's pair, and
+# the same weights' pair in f32, are reported; the pair is held at JAX's
+# xlstm tolerance on the served weights' first super-block (7 mLSTM and 1
+# sLSTM layers at full width) in f32 (the mLSTM decode's stabilizer starts
+# at m = 0, the parallel form's at the row max)
+SSM_FORWARD_SHAPE, SSM_DECODE_LEN = (2, 512), 16
+SSM_DECODE_TOL = 5e-2
+# the served weights' first mLSTM and sLSTM layers in bf16, over 64 of the
+# forward's tokens and one decode step from an empty state, on the card
+# against the same layers on the CPU (the plain torch whose bf16 casts
+# tests/test_torch_xlstm.py holds to JAX's), both under the entry points'
+# f32_accumulation: max |card − CPU| within 2^-6 of max |CPU| (the two sum
+# the products in other orders, which moves a bf16 projection by a step of
+# 2^-8 here and there, and the mLSTM's normalizer divides by a sum that
+# cancels)
+SSM_LAYER_LEN, SSM_LAYER_TOL = 64, 2.0 ** -6
+# the ring decode at full width: 4 rows at position 4,096 against 2,048
+# slots that hold positions 2,049–4,096 (wrapped), 64 of them emptied
+RING_SHAPE, RING_POS, RING_HOLES = (4, 1, 2048, 16, 1, 256), 4096, 64
+# the smoke configs on the card and on the CPU: prompts past the hybrid
+# smoke's window of 16, so its ring wraps
+RECURRENT_SMOKE_PROMPT_LENS = (3, 40, 9, 25, 17, 33)
 
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
@@ -285,6 +334,7 @@ SHARDED_KERNELS = ("fleet_score_sharded", "fleet_moments", "fused_clean_fleet", 
 SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
                  "multi_agg_one")
 FAMILY_KERNELS = ("flash_attention",)  # vlm_prefill and encdec_generate: every attention
+SSM_KERNELS = SERVE_KERNELS[1:]  # xlstm has no attention: the telemetry's kernels
 
 
 
@@ -2144,34 +2194,37 @@ class DecodeProbe:
 
 
 class FlashCapture:
-    """Stands in for the models' ``flash_attention`` (the transformer's and
-    the encoder-decoder's) while a path runs: it calls the wrapper (which
-    counts its launch) and keeps a copy, with the same strides, of the
-    inputs of the first call that each of ``wants`` (label -> predicate on
-    ``(q, k, causal)``) accepts.  ``t_min`` wants, as ``"decode"``, the first
-    decode call whose cache slice reaches ``t_min`` keys (layer 0 of that
-    step); ``inputs`` is that capture."""
+    """Stands in for the models' ``flash_attention`` (the transformer's, the
+    encoder-decoder's and the hybrid's) while a path runs: it calls the
+    wrapper (which counts its launch) and keeps a copy, with the same
+    strides, of the inputs of the first call that each of ``wants`` (label
+    -> predicate on ``(q, k, causal, qpos)``) accepts, and in ``masks`` that
+    call's window, key_pos (copied) and qpos.  ``t_min`` wants, as
+    ``"decode"``, the first decode call whose cache slice reaches ``t_min``
+    keys (layer 0 of that step); ``inputs`` is that capture."""
 
     def __init__(self, t_min=None, wants=None):
-        from repro_torch.models import encdec, transformer
+        from repro_torch.models import encdec, rglru, transformer
 
-        self.mods, self.real = (transformer, encdec), transformer.flash_attention
+        self.mods, self.real = (transformer, encdec, rglru), transformer.flash_attention
         self.wants = dict(wants or {})
         if t_min is not None:
-            self.wants["decode"] = lambda q, k, causal: not causal and k.shape[1] >= t_min
-        self.captured, self.causal = {}, {}
+            self.wants["decode"] = lambda q, k, causal, qpos: not causal and k.shape[1] >= t_min
+        self.captured, self.causal, self.masks = {}, {}, {}
 
     @property
     def inputs(self):
         return self.captured.get("decode")
 
-    def __call__(self, q, k, v, causal=True):
+    def __call__(self, q, k, v, causal=True, window=0, key_pos=None, qpos=0):
         import torch
 
-        out = self.real(q, k, v, causal)
+        out = self.real(q, k, v, causal, window, key_pos, qpos)
         for label, want in self.wants.items():
-            if label not in self.captured and want(q, k, causal):
+            if label not in self.captured and want(q, k, causal, qpos):
                 self.causal[label] = causal
+                self.masks[label] = dict(window=window, qpos=qpos, key_pos=(
+                    None if key_pos is None else key_pos.clone()))
                 self.captured[label] = tuple(
                     torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
                                         device=t.device).copy_(t) for t in (q, k, v))
@@ -2215,14 +2268,25 @@ class MoeCapture:
         self.mod.moe_ffn_local = self.real
 
 
+def attention_layers(params) -> int:
+    """The attention blocks of a model's parameters: every transformer
+    block (dense, moe, vlm) and the hybrid's attention blocks."""
+    from repro_torch.models import rglru, transformer
+
+    return sum(isinstance(m, (transformer.Block, rglru.AttnBlock)) for m in params.modules())
+
+
 def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stream_kw, seed,
-                   device="cuda", capture=None):
+                   device="cuda", capture=None, flash_wants=None):
     """``cfg`` (gemma-2b at full width in bf16) with weights drawn on the
     card from a ``torch.Generator(seed)``; the engine serves ``prompts``
     with its telemetry streamed into serveView, then answers
     ``dashboard()``.  The launch counters are set to 0 just before and read
-    just after.  Returns (report, model, params, the captured decode
-    inputs, launches)."""
+    just after.  Every decode call launches flash once in each of the
+    model's attention blocks.  Returns (report, model, params, the
+    FlashCapture, launches): its ``wants`` are ``flash_wants``, else the
+    decode call that reached the longest prompt (``.inputs``), and each
+    must have been met."""
     import torch
 
     from repro_torch import kernels
@@ -2237,7 +2301,10 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
                          max_batch=max_batch, max_seq=max_seq, telemetry=svc)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with FlashCapture(max(len(p) for p in prompts)) as cap, capture or contextlib.nullcontext():
+    flash = (FlashCapture(max(len(p) for p in prompts)) if flash_wants is None
+             else FlashCapture(wants=flash_wants))
+    attn_layers = attention_layers(params)
+    with flash as cap, capture or contextlib.nullcontext():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for rid, p in enumerate(prompts):
@@ -2290,11 +2357,12 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
         fail(f"serve_path: dashboard tokens_emitted {float(dash['tokens_emitted'].value)} != "
              f"{after_admission} emitted after admission")
     prefill_calls = sum(len(p) for p in prompts)
-    if launches["flash_attention"] < cfg.n_layers * probe.calls:
+    if launches["flash_attention"] < attn_layers * probe.calls:
         fail(f"serve_path: flash_attention launched {launches['flash_attention']} times, fewer "
-             f"than {cfg.n_layers} layers x {probe.calls} decode calls")
-    if cap.inputs is None:
-        fail("serve_path: no decode call reached the longest prompt's length")
+             f"than {attn_layers} attention layers x {probe.calls} decode calls")
+    missing = [label for label in cap.wants if label not in cap.captured]
+    if missing:
+        fail(f"serve_path: no flash call at the {missing} shapes")
     lat = np.array([r.t_done - r.t_submit for r in done])
     tokens = sum(len(r.out_tokens) for r in done)
     report = {
@@ -2307,6 +2375,7 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
         "ticks": engine.ticks, "decode_calls": probe.calls, "prefill_decode_calls": prefill_calls,
         "decode_calls_per_tick": (probe.calls - prefill_calls) / engine.ticks,
         "flash_launches_per_decode_call": launches["flash_attention"] / probe.calls,
+        "attention_layers": attn_layers,
         "init_s": init_s, "refresh_s": refresh_s, "dashboard_s": dashboard_s,
         "telemetry_refreshes": svc.refresh_count,
         "dashboard": {k: float(v.value) for k, v in dash.items() if hasattr(v, "value")},
@@ -2318,7 +2387,7 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
         "peak_device_gb": peak_gb, "launches": launches,
         "decode_call_s": decode_call_s, "decode_call_profile": decode_profile,
     }
-    return report, model, params, cap.inputs, launches
+    return report, model, params, cap, launches
 
 
 def serve_prefill_vs_decode(model, params, n: int, seed: int) -> dict:
@@ -2356,22 +2425,28 @@ def serve_prefill_vs_decode(model, params, n: int, seed: int) -> dict:
                          "wherever the two paths' sums differ)"}
 
 
-def flash_entry(label, q, k, v, causal, launches, iters, **extra):
+def flash_entry(label, q, k, v, causal, launches, iters, mask=None, **extra):
     """The kernel against its plain version on (q, k, v) and timed beside
     it and beside scaled_dot_product_attention (the yardstick: the port
-    never calls it); launches here are not counted."""
+    never calls it; under a window or key_pos it takes the kernel's mask as
+    an explicit boolean one); launches here are not counted.  ``mask``:
+    the call's window, key_pos and qpos."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.flash_attention.ops import plan
+    from repro_torch.kernels.flash_attention.ref import keep_mask
 
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    pl = plan(q.dtype, B, S, T, H, K, hd, causal)
+    mask = {name: val for name, val in (mask or {}).items()
+            if val is not None and not (isinstance(val, int) and val == 0)}
+    pl = plan(q.dtype, B, S, T, H, K, hd, causal, mask.get("window", 0), "key_pos" in mask,
+              mask.get("qpos", 0))
     with uncounted():
-        got = flash_attention(q, k, v, causal)
-        want = flash_attention_ref(q, k, v, causal)
+        got = flash_attention(q, k, v, causal, **mask)
+        want = flash_attention_ref(q, k, v, causal, **mask)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
@@ -2381,12 +2456,17 @@ def flash_entry(label, q, k, v, causal, launches, iters, **extra):
         if err > FLASH_SCALED_TOL * scale:
             fail(f"flash_attention {label}: max abs diff {err} beyond {FLASH_SCALED_TOL} of "
                  f"max |plain| {scale}")
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal), iters)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal), iters)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal, **mask), iters)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal, **mask), iters)
+    keep = keep_mask(S, T, device=q.device, **mask) if mask else None
 
     def sdpa():
+        if keep is None:
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), is_causal=causal,
+                                                  enable_gqa=H != K)
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), is_causal=causal,
+                                              v.transpose(1, 2), attn_mask=keep,
                                               enable_gqa=H != K)
 
     lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
@@ -2394,6 +2474,17 @@ def flash_entry(label, q, k, v, causal, launches, iters, **extra):
     m = min(S, T)
     pairs = m * (m + 1) // 2 + (S - m) * T if causal else S * T  # kept (query, key) pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    if keep is not None:  # this run's mask: its kept pairs, and K/V of the keys some row keeps
+        pairs, kept_keys = int(keep.sum()), int(keep.any(0).sum())
+        nbytes = ((2 * q.numel() + (k.numel() + v.numel()) // T * kept_keys) * q.element_size()
+                  + (4 * T if "key_pos" in mask else 0))
+        with uncounted():  # what the mask costs: the same inputs with every key kept
+            no_mask_ms = cuda_ms(lambda: flash_attention(q, k, v, False), iters)
+        extra = dict(extra, window=mask.get("window", 0), qpos=mask.get("qpos", 0),
+                     no_mask_ms=no_mask_ms,
+                     key_positions="ring slots" if "key_pos" in mask else "index",
+                     kept_pairs=pairs, kept_share=pairs / (S * T), kept_keys=kept_keys,
+                     library_call_mask="attn_mask=keep_mask(...) (boolean (S, T))")
     return kernel_entry(
         "flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:71", launches, err, ms, plain_ms,
@@ -2404,6 +2495,7 @@ def flash_entry(label, q, k, v, causal, launches, iters, **extra):
         kernel_route=pl.route, rows_per_tile=pl.rows_per_tile, keys_per_tile=pl.keys_per_tile,
         key_splits=pl.nsplit,
         library_call="torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
+        **({"key_pos_slots": int((mask["key_pos"] >= 0).sum())} if "key_pos" in mask else {}),
         library_max_abs_diff_vs_plain=lib_err,
         max_abs_plain=scale, err_over_max_plain=err / scale if scale else 0.0,
         tolerance=f"|kernel - plain| <= {tol} + {tol}*|plain| and max |kernel - plain| <= "
@@ -2574,7 +2666,7 @@ def run_moe_serve(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stre
     from repro_torch.obs.kprof import KernelProfiler
 
     moe = MoeCapture()
-    report, model, params, flash_inputs, launches = run_serve_path(
+    report, model, params, cap, launches = run_serve_path(
         cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stream_kw, seed,
         device=device, capture=moe)
     load = moe.load.cpu()
@@ -2617,7 +2709,7 @@ def run_moe_serve(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, stre
         "ffn_vs_cpu": ffn, "forward_tokens": B * S, "forward_s": forward_s,
         "forward_moe_load_layer0": [int(v) for v in aux["moe_load"][0].cpu()],
     })
-    return report, flash_inputs, launches
+    return report, cap.inputs, launches
 
 
 def run_vlm_prefill(cfg, batch, n_text, n_prefill, seed, device="cuda"):
@@ -2643,7 +2735,8 @@ def run_vlm_prefill(cfg, batch, n_text, n_prefill, seed, device="cuda"):
                          dtype=torch.int32)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with FlashCapture(wants={"prefill": lambda q, k, causal: causal and q.shape[1] == S}) as cap:
+    prefill = {"prefill": lambda q, k, causal, qpos: causal and q.shape[1] == S}
+    with FlashCapture(wants=prefill) as cap:
         (full, aux), forward_s = wall(lambda: model.forward(
             params, {"tokens": toks, "vision_embeds": vision}))
         (pre, cache), prefill_s = wall(lambda: model.prefill(
@@ -2696,10 +2789,10 @@ def run_encdec_generate(cfg, batch, src_len, n_prefix, n_new, seed, device="cuda
     prefix = torch.randint(0, cfg.vocab, (batch, n_prefix), generator=gen, device=device,
                            dtype=torch.int32)
     wants = {
-        "encoder": lambda q, k, causal: not causal and q.shape[1] == k.shape[1] == src_len,
-        "cross_prefill": lambda q, k, causal: (not causal and q.shape[1] == n_prefix
+        "encoder": lambda q, k, causal, qpos: not causal and q.shape[1] == k.shape[1] == src_len,
+        "cross_prefill": lambda q, k, causal, qpos: (not causal and q.shape[1] == n_prefix
                                                and k.shape[1] == src_len),
-        "cross_decode": lambda q, k, causal: (not causal and q.shape[1] == 1
+        "cross_decode": lambda q, k, causal, qpos: (not causal and q.shape[1] == 1
                                               and k.shape[1] == src_len),
     }
     torch.cuda.reset_peak_memory_stats()
@@ -2806,6 +2899,225 @@ def family_phases(smi: str) -> None:
         emit({"phase": "kernel", **entry, "card": smi})
     emit({"phase": "encdec_device_vs_cpu",
           **serve_device_vs_cpu(ENCDEC_ARCH, SMOKE_PROMPT_LENS, 4, 64, 8, SEED), "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: hybrid (recurrentgemma-9b, local attention on the
+# flash kernel's window and ring-buffer masks) and ssm (xlstm-1.3b)
+# ---------------------------------------------------------------------------
+
+def ring_positions(W, pos, holes, seed, device):
+    """A (W,) int32 ring of slot positions after decodes up to ``pos``:
+    slot p mod W holds p for p in (pos − W, pos] (so wrapped and rotated
+    once pos ≥ W), and ``holes`` slots other than pos's emptied (−1)."""
+    import torch
+
+    buf = np.full(W, -1, np.int32)
+    p = np.arange(max(0, pos - W + 1), pos + 1)
+    buf[p % W] = p
+    others = np.array([s for s in range(W) if s != pos % W])
+    buf[np.random.default_rng(seed).choice(others, holes, replace=False)] = -1
+    return torch.from_numpy(buf).to(device)
+
+
+def decode_vs_forward(model, params, toks, n, tol, what, capture=None):
+    """``forward`` over ``toks`` (B, S), then its first ``n`` positions fed
+    one by one through ``decode_step`` from an empty cache, held to the
+    forward's logits by ``hold_logits`` at ``tol`` (only reported when
+    ``tol`` is None).  ``capture``: a FlashCapture around both."""
+    import torch
+
+    with capture or contextlib.nullcontext():
+        (full, _), forward_s = wall(lambda: model.forward(params, {"tokens": toks}))
+        cache = model.init_cache(toks.shape[0], n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(n):
+            lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], i)
+            outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    dec, ref = torch.stack(outs, 1).float(), full[:, :n].float()
+    if not (bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full).all())):
+        fail(f"{what}: non-finite logits")
+    if tol is None:
+        held = {"held": False, "rel_err": float((dec - ref).abs().max() / ref.abs().max()),
+                "same_greedy_tokens": int((dec.argmax(-1) == ref.argmax(-1)).sum()),
+                "positions": dec.shape[0] * dec.shape[1]}
+    else:
+        held = hold_logits(what, dec, ref, tol=tol)
+    return {"forward_tokens": toks.numel(), "forward_shape": list(toks.shape),
+            "forward_s": forward_s, "forward_tok_per_s": toks.numel() / forward_s,
+            "decode_steps": n, "decode_s": decode_s, "decode_step_s": decode_s / n,
+            "decode_vs_forward": held}
+
+
+def ssm_layers_vs_cpu(params, toks) -> dict:
+    """The first mLSTM and sLSTM layers of ``params`` (an XLSTM on the
+    card) on the embedded ``toks``, full and one decode step from an empty
+    state, against copies of the same layers on the CPU, held at
+    SSM_LAYER_TOL of the largest |CPU output|."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import f32_accumulation
+
+    x = params.embed[toks.long()]  # (1, L, d) in the compute dtype
+    H, hd, d = params.cfg.mlstm_heads, xlstm.head_dim(params.cfg), params.cfg.d_model
+    out = {}
+    for name, blk in (("mlstm", params.mlstm[0]), ("slstm", params.slstm[0])):
+        cpu = copy.deepcopy(blk).cpu()
+        if name == "mlstm":
+            shapes = ((1, H, hd, hd), (1, H, hd), (1, H))
+        else:
+            shapes = ((1, d),) * 4
+
+        def decode(b, dev):
+            state = [torch.zeros(sh, dtype=torch.float32, device=dev) for sh in shapes]
+            xs = x[:, :1].to(dev)
+            return b.decode(xs, *state) if name == "mlstm" else b.decode(xs, state)
+
+        with f32_accumulation():
+            pairs = (("full", blk.full(x), cpu.full(x.cpu())),
+                     ("decode", decode(blk, x.device), decode(cpu, "cpu")))
+        for mode, got, want in pairs:
+            got, want = got.float().cpu(), want.float()
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            if not bool(torch.isfinite(got).all()) or err > SSM_LAYER_TOL * scale:
+                fail(f"ssm_serve {name} layer 0 {mode} (bf16): max |card - cpu| {err} beyond "
+                     f"{SSM_LAYER_TOL} of max |cpu| {scale}")
+            out[f"{name}_{mode}"] = {"max_abs_err": err, "max_abs": scale, "rel_err": err / scale,
+                                     "bit_equal_share": float((got == want).float().mean())}
+    return dict(out, tokens=toks.shape[1], dtype=str(x.dtype),
+                tolerance=f"max |card - cpu| <= {SSM_LAYER_TOL} * max |cpu|")
+
+
+def recurrent_phases(smi: str, device: str = "cuda") -> None:
+    """hybrid_serve, hybrid_forward, the hybrid's flash ``kernel`` lines
+    (the serve path's ring decode, the forward's banded prefill and the
+    ring decode at full width, wrapped and with holes) and
+    hybrid_device_vs_cpu; then ssm_serve (with its forward) and
+    ssm_device_vs_cpu.  Each phase runs with the launch counters set to 0
+    just before it and read just after.  ``device``: the card (a CPU
+    rehearsal passes "cpu", with the smoke configs)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, rglru, xlstm
+
+    cfg = get_config(HYBRID_ARCH)
+    sb, _ = rglru.n_superblocks(cfg)
+    ring = min(cfg.attn_window, RECURRENT_MAX_SEQ)
+    prompts = serve_prompts(cfg.vocab, RECURRENT_REQUESTS, *RECURRENT_PROMPT_LENS, SEED)
+    last = max(len(p) for p in prompts) + RECURRENT_MAX_NEW - 2  # the run's last position
+    serve, model, params, cap, launches = run_serve_path(
+        cfg, RECURRENT_MAX_BATCH, RECURRENT_MAX_SEQ, prompts, RECURRENT_MAX_NEW,
+        SERVE_TICK_CAPACITY, SERVE_STREAM, SEED, device=device,
+        flash_wants={"ring decode": lambda q, k, causal, qpos: (
+            q.shape[1] == 1 and k.shape[1] == ring and qpos == last)})
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the hybrid serve path: {missing}")
+    emit({"phase": "hybrid_serve", **serve, "superblocks": sb, "ring_slots": ring,
+          "window": cfg.attn_window, "card": smi})
+    flash = [flash_entry("hybrid_serve ring decode (layer 0, captured)",
+                         *cap.captured["ring decode"], True, launches["flash_attention"], ITERS,
+                         mask=cap.masks["ring decode"])]
+    del cap
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (1, HYBRID_FORWARD_LEN), generator=gen, device=device,
+                         dtype=torch.int32)
+    banded = FlashCapture(wants={"banded": lambda q, k, causal, qpos: causal and q.shape[1] > 1})
+    fwd = decode_vs_forward(model, params, toks, HYBRID_DECODE_LEN, HYBRID_DECODE_TOL,
+                            "hybrid_forward decode", capture=banded)
+    fwd_launches = kernels.launch_counts()
+    if fwd_launches["flash_attention"] < sb * (1 + HYBRID_DECODE_LEN):
+        fail(f"hybrid_forward: flash_attention launched {fwd_launches['flash_attention']} times, "
+             f"fewer than {sb} attention layers x {1 + HYBRID_DECODE_LEN} calls")
+    if banded.masks["banded"]["window"] != cfg.attn_window:
+        fail(f"hybrid_forward: the prefill's flash call had window {banded.masks['banded']}")
+    emit({"phase": "hybrid_forward", "arch": cfg.name, **fwd, "launches": fwd_launches,
+          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    flash.append(flash_entry("hybrid_forward banded prefill (layer 0, captured)",
+                             *banded.captured["banded"], True, fwd_launches["flash_attention"],
+                             ITERS, mask=banded.masks["banded"]))
+    del banded, model, params, toks
+    torch.cuda.empty_cache()
+    B, S, T, H, K, hd = RING_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+               for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+    # no path runs this shape: the served ring (max_seq 128) never wraps at full width
+    flash.append(flash_entry(
+        f"ring decode recurrentgemma-9b (positions {RING_POS - T + 1}-{RING_POS}, "
+        f"{RING_HOLES} holes)", q, k, v, True, 0, ITERS,
+        mask=dict(window=cfg.attn_window, key_pos=ring_positions(T, RING_POS, RING_HOLES, SEED,
+                                                                 device), qpos=RING_POS),
+        on_path="none: a synthetic shape, launches 0"))
+    del q, k, v
+    for entry in flash:
+        emit({"phase": "kernel", **entry, "card": smi})
+    emit({"phase": "hybrid_device_vs_cpu", **serve_device_vs_cpu(
+        HYBRID_ARCH, RECURRENT_SMOKE_PROMPT_LENS, 4, 64, 8, SEED, devices=(device, "cpu")),
+        "card": smi})
+
+    torch.cuda.empty_cache()
+    cfg = get_config(SSM_ARCH)
+    serve, model, params, _, launches = run_serve_path(
+        cfg, RECURRENT_MAX_BATCH, RECURRENT_MAX_SEQ,
+        serve_prompts(cfg.vocab, RECURRENT_REQUESTS, *RECURRENT_PROMPT_LENS, SEED),
+        RECURRENT_MAX_NEW, SERVE_TICK_CAPACITY, SERVE_STREAM, SEED, device=device,
+        flash_wants={})
+    missing = [k for k in SSM_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the ssm serve path: {missing}")
+    state = xlstm.init_cache(cfg, RECURRENT_MAX_BATCH, RECURRENT_MAX_SEQ, device="meta")
+    mlstm_bytes = sum(4 * state[k].numel() for k in ("mlstm_C", "mlstm_n", "mlstm_m"))
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, SSM_FORWARD_SHAPE, generator=gen, device=device,
+                         dtype=torch.int32)
+    fwd = decode_vs_forward(model, params, toks, SSM_DECODE_LEN, None, "ssm_serve forward")
+    fwd["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the served weights in f32: the whole model's pair and its forward
+    # against the bf16 one (reported), then its first super-block (held)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = xlstm.XLSTM(f32, device)
+    p32.load_state_dict(params.state_dict())
+    m32 = get_model(f32, device=device)
+    full32 = decode_vs_forward(m32, p32, toks, SSM_DECODE_LEN, None, "ssm_serve forward (f32)")
+    lg16, lg32 = (m.forward(p, {"tokens": toks})[0].float() for m, p in ((model, params),
+                                                                           (m32, p32)))
+    full32["bf16_forward_vs_f32_forward_rel_err"] = float(
+        (lg16 - lg32).abs().max() / lg32.abs().max())
+    del p32, lg16, lg32
+    one = dataclasses.replace(f32, n_layers=cfg.slstm_every)
+    m1 = get_model(one, device=device)
+    p1 = xlstm.XLSTM(one, device)
+    keys = set(p1.state_dict())
+    p1.load_state_dict({k: t for k, t in params.state_dict().items() if k in keys})
+    held = decode_vs_forward(m1, p1, toks, SSM_DECODE_LEN, SSM_DECODE_TOL,
+                             "ssm_serve one super-block decode (f32)")
+    layers = ssm_layers_vs_cpu(params, toks[:1, :SSM_LAYER_LEN])
+    emit({"phase": "ssm_serve", **serve, "superblocks": xlstm.n_superblocks(cfg),
+          "mlstm_head_dim": xlstm.head_dim(cfg), "mlstm_state_bytes": mlstm_bytes,
+          "slstm_state_bytes": sum(4 * t.numel() for t in state["slstm"]), "forward": fwd,
+          "forward_f32": full32, "one_superblock_f32": dict(held, layers=one.n_layers),
+          "layers_bf16_vs_cpu": layers,
+          "card": smi})
+    del model, params, toks, m1, p1
+    torch.cuda.empty_cache()
+    emit({"phase": "ssm_device_vs_cpu", **serve_device_vs_cpu(
+        SSM_ARCH, RECURRENT_SMOKE_PROMPT_LENS, 4, 64, 8, SEED, devices=(device, "cpu")),
+        "card": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -3807,9 +4119,11 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
 
     prompts = serve_prompts(get_config(SERVE_ARCH).vocab, SERVE_REQUESTS, *SERVE_PROMPT_LENS, SEED)
-    serve, model, params, flash_inputs, serve_launches = run_serve_path(
+    serve, model, params, flash, serve_launches = run_serve_path(
         get_config(SERVE_ARCH), SERVE_MAX_BATCH, SERVE_MAX_SEQ, prompts, SERVE_MAX_NEW, SERVE_TICK_CAPACITY,
         SERVE_STREAM, SEED)
+    flash_inputs = flash.inputs
+    del flash
     missing = [k for k in SERVE_KERNELS if serve_launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the serve path: {missing}")
@@ -3828,6 +4142,9 @@ def main(argv=None) -> int:
     # the moe, vlm and encdec families, each on a card the last has let go of
     torch.cuda.empty_cache()
     family_phases(smi)
+    # the hybrid and ssm families
+    torch.cuda.empty_cache()
+    recurrent_phases(smi)
 
     emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]})
     print(smi, flush=True)

@@ -10,6 +10,18 @@
 // j <= i, i the query's index from 0) and non-causal (keys beyond T
 // masked).  Decode runs the non-causal mode on a slice of the KV cache.
 //
+// The causal mask takes three refinements, for local attention (JAX
+// computes both of its masks outside its kernel: layers.local_mask and
+// the ring-buffer decode mask of models/rglru.py): the queries' position
+// offset qpos (query i sits at qpos + i), the keys' positions key_pos (an
+// int32 (T,) array shared by the batch, -1 for an empty slot; null: key j
+// sits at j) and a window.  Key j is kept for query i iff 0 <= p_j <=
+// qpos + i and, when window > 0, p_j > qpos + i - window.  With key_pos
+// null a block's keys are cut to [first query - window + 1, last query]
+// and its key splits start at the lower end; with key_pos the block reads
+// all T slots and masks each.  qpos 0, window 0 and key_pos null are the
+// causal mode above, bit for bit.
+//
 // Layout: q (B, S, H, hd), k/v (B, T, K, hd), any strides with the last
 // dim contiguous (the decode input is a non-contiguous cache slice), 64-bit
 // offsets; out (B, S, H, hd) contiguous.  Query head h reads KV head
@@ -56,6 +68,28 @@
 
 #include <cstdint>
 
+// Whether key ``key`` is kept for the query at index ``qi`` (from 0) under
+// the causal mask and its refinements (the header's rule).
+template <typename P>
+__device__ __forceinline__ bool keep_key(const P& p, int key, int qi) {
+  const int kp = p.key_pos ? __ldg(p.key_pos + key) : key;
+  const int qp = p.qpos + qi;
+  return kp >= 0 && kp <= qp && (p.window <= 0 || kp > qp - p.window);
+}
+
+// A block's causal key range [lo, hi) for its flat rows [row0, row_end):
+// everything when key_pos is given (slots are masked one by one), else cut
+// at the last query's position and, under a window, below the first's.
+template <typename P>
+__device__ __forceinline__ void causal_range(const P& p, int row0, int row_end, int& lo,
+                                             int& hi) {
+  lo = 0;
+  hi = p.T;
+  if (!p.causal || p.key_pos) return;
+  hi = min(hi, p.qpos + (row_end - 1) / p.G + 1);
+  if (p.window > 0) lo = max(0, p.qpos + row0 / p.G - p.window + 1);
+}
+
 // ---------------------------------------------------------------------------
 // float32: scalar FMAs on the CUDA cores
 // ---------------------------------------------------------------------------
@@ -75,10 +109,13 @@ struct Params {
   int64_t sqb, sqs, sqh, skb, skt, skh, svb, svt, svh;  // element strides
   int B, S, T, H, K, G;
   int causal;
+  int window;  // > 0: the causal mask is banded (keys within window positions)
+  int qpos;    // the first query's position
   float scale;
   int chunk;   // keys per split, a multiple of BK
   int nsplit;  // > 1: write partials for the combine kernel
   int vec;     // every row start 16-byte aligned: vector loads
+  const int* key_pos;  // (T,) slot positions, or null: key j at position j
   float* part_ml;
   float* part_acc;
 };
@@ -152,10 +189,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_cuda_cores(Params p) {
   const T* kp = static_cast<const T*>(p.k) + (int64_t)b * p.skb + (int64_t)kvh * p.skh;
   const T* vp = static_cast<const T*>(p.v) + (int64_t)b * p.svb + (int64_t)kvh * p.svh;
 
-  // this block's keys: [k0, k1), cut at the tile's last query when causal
-  int kend = p.T;
-  if (p.causal) kend = min(kend, (min(row0 + R, rows) - 1) / p.G + 1);
-  const int k0 = blockIdx.z * p.chunk;
+  // this block's keys: [k0, k1), cut to the tile's causal range
+  int kbeg, kend;
+  causal_range(p, row0, min(row0 + R, rows), kbeg, kend);
+  const int k0 = kbeg + blockIdx.z * p.chunk;
   const int k1 = min(k0 + p.chunk, kend);
 
   for (int idx = tid; idx < R * (HDP / VN); idx += NT) {
@@ -228,7 +265,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_cuda_cores(Params p) {
     float pr[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      const bool ok = t < k1 && (!p.causal || t <= qi[i]);
+      const bool ok = t < k1 && (!p.causal || keep_key(p, t, qi[i]));
       const float si = ok ? s[i] : NEG;
       const float mn = fmaxf(m[i], warp_max(si));
       pr[i] = expf(si - mn);
@@ -364,10 +401,13 @@ struct Params {
   int64_t sqb, sqs, sqh, skb, skt, skh, svb, svt, svh;  // element strides
   int B, S, T, H, K, G;
   int causal;
+  int window;  // > 0: the causal mask is banded (keys within window positions)
+  int qpos;    // the first query's position
   float scale;
   int chunk;   // keys per split, a multiple of the block's key tile
   int nsplit;  // > 1: partials, merged by the last block of each row tile
   int vec;     // every row start 16-byte aligned: cp.async, else scalar loads
+  const int* key_pos;  // (T,) slot positions, or null: key j at position j
   float* part_ml;
   float* part_acc;
   int* arrivals;  // (B·K, row tiles), zero between launches
@@ -481,10 +521,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc(Params p) {
   const bf16* kp = p.k + static_cast<int64_t>(b) * p.skb + static_cast<int64_t>(kvh) * p.skh;
   const bf16* vp = p.v + static_cast<int64_t>(b) * p.svb + static_cast<int64_t>(kvh) * p.svh;
 
-  // this block's keys: [k0, k1), cut at the tile's last query when causal
-  int kend = p.T;
-  if (p.causal) kend = min(kend, (min(row0 + BM, rows) - 1) / p.G + 1);
-  const int k0 = blockIdx.z * p.chunk;
+  // this block's keys: [k0, k1), cut to the tile's causal range
+  int kbeg, kend;
+  causal_range(p, row0, min(row0 + BM, rows), kbeg, kend);
+  const int k0 = kbeg + blockIdx.z * p.chunk;
   const int k1 = min(k0 + p.chunk, kend);
   const int ntiles = k1 > k0 ? (k1 - k0 + BN - 1) / BN : 0;
 
@@ -565,7 +605,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + j * 8 + (e & 1);
-        const bool ok = key < k1 && (!p.causal || key <= qi[e >> 1]);
+        const bool ok = key < k1 && (!p.causal || keep_key(p, key, qi[e >> 1]));
         sc[j][e] = ok ? sc[j][e] * p.scale : NEG;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
       }
@@ -769,18 +809,21 @@ cudaError_t launch_all(const Params& p, int hd, int rows_per_tile, cudaStream_t 
 // bfloat16 (the tensor-core route: rows_per_tile 16 or 64, chunk a multiple
 // of the key tile, the same partials plus arrivals (B·K, row tiles) int32,
 // zero on entry and on exit, merged in the same launch).  q, k, v and out
-// share the dtype.
+// share the dtype.  causal 1 takes window, qpos and key_pos (null, or an
+// int32 (T,) device array) as the header says; causal 0 ignores them.
 extern "C" int svc_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                                    int64_t skt, int64_t skh, int64_t svb, int64_t svt,
                                    int64_t svh, int B, int S, int T, int H, int K, int hd,
-                                   int causal, float scale, int dtype, int rows_per_tile,
-                                   int chunk, int nsplit, int vec, float* part_ml,
-                                   float* part_acc, int* arrivals, void* stream) {
+                                   int causal, int window, int qpos, float scale, int dtype,
+                                   int rows_per_tile, int chunk, int nsplit, int vec,
+                                   const int* key_pos, float* part_ml, float* part_acc,
+                                   int* arrivals, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     cuda_cores::Params p{q, k, v, o, sqb, sqs, sqh, skb, skt, skh, svb, svt, svh, B, S, T, H, K,
-                         H / K, causal, scale, chunk, nsplit, vec, part_ml, part_acc};
+                         H / K, causal, window, qpos, scale, chunk, nsplit, vec, key_pos,
+                         part_ml, part_acc};
     if ((rows_per_tile != 8 && rows_per_tile != 32) || chunk % cuda_cores::BK != 0 || nsplit < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cuda_cores::launch_all<float>(p, hd, rows_per_tile, st));
@@ -788,8 +831,8 @@ extern "C" int svc_flash_attention(const void* q, const void* k, const void* v, 
   if (dtype == 1) {
     tc::Params p{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                  static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-                 sqb, sqs, sqh, skb, skt, skh, svb, svt, svh, B, S, T, H, K, H / K, causal, scale,
-                 chunk, nsplit, vec, part_ml, part_acc, arrivals};
+                 sqb, sqs, sqh, skb, skt, skh, svb, svt, svh, B, S, T, H, K, H / K, causal, window,
+                 qpos, scale, chunk, nsplit, vec, key_pos, part_ml, part_acc, arrivals};
     return static_cast<int>(tc::launch_all(p, hd, rows_per_tile, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,9 +1,13 @@
 """Flash attention over (B, S, H, hd) queries and (B, T, K, hd) keys/values.
 
 ``flash_attention`` is the port of ``repro.kernels.flash_attention.ops.
-flash_attention``, and the port's transformer computes all its attention
+flash_attention``, and the port's models compute all their attention
 with it: causal over the prompt in ``forward``/``prefill``, non-causal
-against the cache slice ``[:, :pos+1]`` in ``decode_step``.  CPU tensors
+against the cache slice ``[:, :pos+1]`` in ``decode_step``.  The hybrid
+family's local attention adds the two masks JAX computes outside its
+kernel: a banded causal window over the prompt (``window``), and the
+ring-buffer decode mask over the slots' positions (``key_pos``, ``qpos``,
+``window``).  CPU tensors
 take the plain version (``ref.py``); CUDA tensors launch
 ``csrc/flash_attention.cu`` or raise.  The route follows the dtype:
 bfloat16 runs on the tensor cores, one launch per call; float32 on the
@@ -22,7 +26,7 @@ has no profiled attention: its flash kernel is on no path).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,8 +38,8 @@ HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132  # the H100's streaming multiprocessors
 SMEM_PER_SM = 232448  # bytes of shared memory one SM gives its blocks
-_ARGS = ((B.P, B.P, B.P, B.P) + (B.I64,) * 9 + (B.I32,) * 7 + (B.F32,) + (B.I32,) * 5
-         + (B.P,) * 4)
+_ARGS = ((B.P, B.P, B.P, B.P) + (B.I64,) * 9 + (B.I32,) * 9 + (B.F32,) + (B.I32,) * 5
+         + (B.P,) * 5)
 
 
 class Plan(NamedTuple):
@@ -61,12 +65,16 @@ def tc_smem_bytes(hd: int, rows_per_tile: int) -> int:
 
 
 def plan(dtype: torch.dtype, B_: int, S: int, T: int, H: int, K: int, hd: int,
-         causal: bool) -> Plan:
-    """How ``flash_attention`` launches (B_, S, T, H, K, hd) inputs of ``dtype``.
+         causal: bool, window: int = 0, key_pos: bool = False, qpos: int = 0) -> Plan:
+    """How ``flash_attention`` launches (B_, S, T, H, K, hd) inputs of ``dtype``
+    (``key_pos``: whether the call passes slot positions).
 
     Keys are split when the (row tile, b, kv head) blocks alone cannot fill
     the card's SMs: into as many splits as fit one wave, at most one per
-    key tile."""
+    key tile.  A block's keys are those its rows can keep: [0, T), cut at
+    the last query's position when causal by index, and, under a window,
+    from the first query's position − window + 1 (the splits start
+    there)."""
     rows = S * (H // K)
     if dtype == torch.bfloat16:
         route, rpt = "tensor_cores", (16 if rows <= 16 else 64)
@@ -78,7 +86,12 @@ def plan(dtype: torch.dtype, B_: int, S: int, T: int, H: int, K: int, hd: int,
         raise TypeError(f"flash_attention: dtype {dtype}, the kernel takes float32 or bfloat16")
     row_tiles = -(-rows // rpt)
     base = row_tiles * B_ * K
-    tiles = max(1, -(-(min(T, S) if causal else T) // kpt))
+    keys = T
+    if causal and not key_pos:
+        keys = min(T, qpos + S)
+        if window > 0:  # a tile's queries span at most (rpt - 1) // G + 2 positions
+            keys = min(keys, window + (rpt - 1) // (H // K) + 1)
+    tiles = max(1, -(-keys // kpt))
     if route == "cuda_cores":  # aims at two blocks an SM
         want = 1 if base >= fill // 2 else min(tiles, -(-fill // base))
     else:
@@ -111,7 +124,27 @@ def _check(q, k, v):
                          "head_dim and H % K == 0")
 
 
-def _check_cuda(q, k, v, causal):
+def _check_mask(q, k, causal, window, key_pos, qpos):
+    if not causal and (window or key_pos is not None or qpos):
+        raise ValueError("flash_attention: window, key_pos and qpos refine the causal mask; "
+                         "pass causal=True")
+    if window < 0 or qpos < 0:
+        raise ValueError(f"flash_attention: window {window} and qpos {qpos} must be >= 0")
+    if key_pos is None and window > 0 and qpos + q.shape[1] - window >= k.shape[1]:
+        # the last row keeps keys (qpos + S − 1 − window, qpos + S − 1], all
+        # past the T keys: the plain version raises, the kernel must not run
+        raise ValueError("flash_attention: a query row keeps no key under window="
+                         f"{window}, qpos={qpos}")
+    if key_pos is not None:
+        if not isinstance(key_pos, torch.Tensor) or key_pos.dtype != torch.int32:
+            raise TypeError("key_pos: expected an int32 tensor")
+        if tuple(key_pos.shape) != (k.shape[1],):
+            raise ValueError(f"key_pos: shape {tuple(key_pos.shape)}, expected ({k.shape[1]},)")
+        if key_pos.device != q.device:
+            raise ValueError(f"key_pos: on {key_pos.device}, expected {q.device}")
+
+
+def _check_cuda(q, k, v, causal, window=0, key_pos=None, qpos=0):
     """What a CUDA launch checks beyond ``_check``: (plan, whether every
     stride allows 16-byte loads)."""
     B.check_cuda(q.device)
@@ -123,7 +156,10 @@ def _check_cuda(q, k, v, causal):
         raise ValueError(f"flash_attention: B·K = {Bn * K}, the grid takes at most 65535")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k, v: the last dim must be contiguous")
-    pl = plan(q.dtype, Bn, S, T, H, K, hd, causal)  # raises on any other dtype
+    if key_pos is not None and key_pos.stride(0) != 1:
+        raise ValueError("key_pos: must be contiguous")
+    # raises on any other dtype
+    pl = plan(q.dtype, Bn, S, T, H, K, hd, causal, window, key_pos is not None, qpos)
     width = 16 // q.element_size()
     return pl, all(st % width == 0 for t in (q, k, v) for st in t.stride()[:3])
 
@@ -146,24 +182,30 @@ def workspace(device: torch.device, n: int, kind: str = "partials") -> torch.Ten
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    key_pos: Optional[torch.Tensor] = None, qpos: int = 0) -> torch.Tensor:
     """q (B,S,H,hd); k/v (B,T,K,hd) with H % K == 0 → (B,S,H,hd) in q's dtype.
 
     Query head h attends KV head h // (H/K).  ``causal``: key j is kept
-    for query i when j ≤ i (i from 0); otherwise all T keys are kept.
-    Inputs may be strided views (the last dim contiguous).
+    for query i when 0 ≤ p_j ≤ qpos + i and, if ``window`` > 0, p_j >
+    qpos + i − window, where p_j is ``key_pos[j]`` (an int32 (T,) tensor of
+    slot positions, −1 for an empty slot; shared by the batch) or j.  With
+    the defaults that is j ≤ i.  Otherwise all T keys are kept.  Inputs
+    may be strided views (the last dim contiguous).
     """
     _check(q, k, v)
+    window, qpos = int(window), int(qpos)
+    _check_mask(q, k, causal, window, key_pos, qpos)
     rows = q.shape[0] * q.shape[1]
     if q.device.type == "cpu":
-        return profiled("flash_attention", flash_attention_ref, q, k, v, causal, fallback=True,
-                        rows=rows, padded=rows)
-    pl, strides_vec = _check_cuda(q, k, v, causal)
-    return profiled("flash_attention", _launch, q, k, v, causal, pl, strides_vec, rows=rows,
-                    padded=rows)
+        return profiled("flash_attention", flash_attention_ref, q, k, v, causal, window,
+                        key_pos, qpos, fallback=True, rows=rows, padded=rows)
+    pl, strides_vec = _check_cuda(q, k, v, causal, window, key_pos, qpos)
+    return profiled("flash_attention", _launch, q, k, v, causal, pl, strides_vec, window,
+                    key_pos, qpos, rows=rows, padded=rows)
 
 
-def _launch(q, k, v, causal, pl, strides_vec):
+def _launch(q, k, v, causal, pl, strides_vec, window=0, key_pos=None, qpos=0):
     Bn, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     out = torch.empty((Bn, S, H, hd), dtype=q.dtype, device=q.device)
@@ -180,8 +222,9 @@ def _launch(q, k, v, causal, pl, strides_vec):
     vec = strides_vec and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
     B.launch("svc_flash_attention", _ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             Bn, S, T, H, K, hd, int(causal), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-             pl.rows_per_tile, pl.chunk, pl.nsplit, int(vec), part_ml, part_acc, arrivals,
+             Bn, S, T, H, K, hd, int(causal), window, qpos, 1.0 / math.sqrt(hd),
+             _DTYPES[q.dtype], pl.rows_per_tile, pl.chunk, pl.nsplit, int(vec),
+             None if key_pos is None else key_pos.data_ptr(), part_ml, part_acc, arrivals,
              B.stream())
     flash_attention.launches += 1
     return out

@@ -3,26 +3,52 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 NEG_INF = -1e30
 
 
+def keep_mask(S: int, T: int, window: int = 0, key_pos: Optional[torch.Tensor] = None,
+              qpos: int = 0, device=None) -> torch.Tensor:
+    """(S, T) bool: key j is kept for query i iff 0 ≤ p_j ≤ qpos + i and,
+    when ``window`` > 0, p_j > qpos + i − window, where p_j is
+    ``key_pos[j]`` (a slot's position, −1 for an empty slot) or j."""
+    kp = (torch.arange(T, device=device) if key_pos is None
+          else key_pos.to(device=device, dtype=torch.int64))[None, :]
+    qp = (torch.arange(S, device=device) + qpos)[:, None]
+    keep = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        keep = keep & (kp > qp - window)
+    return keep
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        key_pos: Optional[torch.Tensor] = None, qpos: int = 0) -> torch.Tensor:
     """q (B,S,H,hd); k/v (B,T,K,hd), H % K == 0 → (B,S,H,hd) in q's dtype.
 
     A grouped einsum: the G = H/K query heads of KV head k are one axis,
     so K/V are never repeated.  q is scaled by 1/sqrt(hd) in f32 before
     the product, as the JAX kernel does; masked scores are -1e30.
+    ``causal`` keeps what ``keep_mask(S, T, window, key_pos, qpos)`` keeps
+    (j ≤ i with the defaults); ``window``, ``key_pos`` and ``qpos`` refine
+    the causal mask only.
     """
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     qg = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, S, K, H // K, hd)
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
     if causal:
-        keep = torch.arange(T, device=q.device)[None, :] <= torch.arange(S, device=q.device)[:, None]
+        keep = keep_mask(S, T, window, key_pos, qpos, device=q.device)
+        if (window > 0 or key_pos is not None) and not bool(keep.any(-1).all()):
+            # The banded mask keeps the diagonal key (p_j = qpos + i) and the
+            # ring-buffer decode mask the slot just written at qpos, so a
+            # caller of either never masks a whole row; -1e30 would then
+            # average the masked values instead of raising.
+            raise ValueError("flash_attention: a query row keeps no key under window="
+                             f"{window}, qpos={qpos}")
         s = torch.where(keep, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())

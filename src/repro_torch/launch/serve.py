@@ -4,10 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke \
         --requests 16 --max-new 12 --device cpu
 
-The port of ``repro.launch.serve`` for the dense, moe, vlm and encdec
-families (``--arch granite-moe-3b-a800m``, ``qwen2-vl-72b``,
-``seamless-m4t-large-v2``, …): the same flags, plus ``--device`` (the card
-unless the caller asks for the CPU), and the same returned dict.
+The port of ``repro.launch.serve`` for every family (``--arch
+granite-moe-3b-a800m``, ``qwen2-vl-72b``, ``recurrentgemma-9b``,
+``xlstm-1.3b``, ``seamless-m4t-large-v2``, …): the same flags, plus
+``--device`` (the card unless the caller asks for the CPU), and the same
+returned dict.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Uniform model interface: the port of ``repro.models.api``.
 
 ``get_model(cfg, device=...)`` returns a ``Model`` with the JAX package's
-five entry names for the dense, moe and vlm families (``Transformer``) and
-the encdec family (``EncDec``).  ``params`` is the module that ``init``
+five entry names for the dense, moe and vlm families (``Transformer``),
+the hybrid family (``rglru.RecurrentGemma``), the ssm family
+(``xlstm.XLSTM``) and the encdec family (``EncDec``).  ``params`` is the module that ``init``
 builds (or ``models.convert`` carries over from JAX):
 
   init(seed or torch.Generator)                 -> params
@@ -11,12 +12,12 @@ builds (or ``models.convert`` carries over from JAX):
   prefill(params, batch, cache_len=None)        -> (logits, cache)
   decode_step(params, cache, tokens, pos, rows=None) -> (logits, cache)
 
+Every entry point that computes runs under ``layers.f32_accumulation``:
+bf16 products accumulate in float32, as JAX's do.
+
   batch (LM):     {"tokens": (B, S) int}
   batch (vlm):    + {"vision_embeds": (B, n_vis, 1024) f32 stub}
   batch (encdec): {"frames": (B, S_src, d) f32 stub, "tokens": (B, S_tgt)}
-
-The hybrid and ssm families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import encdec
+from repro_torch.models import encdec, rglru, xlstm
+from repro_torch.models.layers import f32_accumulation
 from repro_torch.models.transformer import Transformer, check_family, init_cache
 
 
@@ -42,8 +44,12 @@ class Model:
     decode_step: Callable[..., Any]
 
 
+_MODULES = {"encdec": encdec.EncDec, "hybrid": rglru.RecurrentGemma, "ssm": xlstm.XLSTM}
+_CACHES = {"hybrid": rglru.init_cache, "ssm": xlstm.init_cache}
+
+
 def _module(cfg: ArchConfig):
-    return encdec.EncDec if cfg.family == "encdec" else Transformer
+    return _MODULES.get(cfg.family, Transformer)
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> Model:
@@ -63,25 +69,33 @@ def get_model(cfg: ArchConfig, device="cuda") -> Model:
         return module(cfg, device).init_weights(gen)
 
     def decode_step(params, cache, tokens, pos, rows=None):
-        return params.decode_step(cache, tokens, pos, rows)
+        with f32_accumulation():
+            return params.decode_step(cache, tokens, pos, rows)
 
     if cfg.family == "encdec":
-        return Model(
-            cfg=cfg, device=device, init=init,
-            forward=lambda params, batch: params(batch["frames"], batch["tokens"]),
-            init_cache=lambda B, T: encdec.init_cache(cfg, B, T, device=device),
-            prefill=lambda params, batch, cache_len=None: params.prefill(
-                batch["frames"], batch["tokens"], cache_len),
-            decode_step=decode_step,
-        )
-    return Model(
-        cfg=cfg, device=device, init=init,
-        forward=lambda params, batch: params(batch["tokens"], batch.get("vision_embeds")),
-        init_cache=lambda B, T: init_cache(cfg, B, T, device),
-        prefill=lambda params, batch, cache_len=None: params.prefill(
-            batch["tokens"], cache_len, batch.get("vision_embeds")),
-        decode_step=decode_step,
-    )
+        def forward(params, batch):
+            with f32_accumulation():
+                return params(batch["frames"], batch["tokens"])
+
+        def prefill(params, batch, cache_len=None):
+            with f32_accumulation():
+                return params.prefill(batch["frames"], batch["tokens"], cache_len)
+
+        return Model(cfg=cfg, device=device, init=init, forward=forward,
+                     init_cache=lambda B, T: encdec.init_cache(cfg, B, T, device=device),
+                     prefill=prefill, decode_step=decode_step)
+
+    def forward(params, batch):
+        with f32_accumulation():
+            return params(batch["tokens"], batch.get("vision_embeds"))
+
+    def prefill(params, batch, cache_len=None):
+        with f32_accumulation():
+            return params.prefill(batch["tokens"], cache_len, batch.get("vision_embeds"))
+
+    return Model(cfg=cfg, device=device, init=init, forward=forward,
+                 init_cache=lambda B, T: _CACHES.get(cfg.family, init_cache)(cfg, B, T, device),
+                 prefill=prefill, decode_step=decode_step)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,16 @@ returns a module that computes what the JAX model computes:
     the (L, E, …) expert stacks for moe) → ``Transformer``;
   * encdec: ``embed``, ``final_norm``, ``enc_final_norm`` and the stacked
     ``enc``/``dec`` leaves (``dec`` adds the cross-attention ``ln_x, xq,
-    xk, xv, xo``) → ``EncDec``.
+    xk, xv, xo``) → ``EncDec``;
+  * hybrid: ``embed``, ``final_norm`` and the ``rec1``, ``rec2``, ``attn``
+    leaves stacked over super-blocks (sb, …), plus ``rec_tail`` (trailing,
+    …) when n_layers % 3 → ``rglru.RecurrentGemma``;
+  * ssm: ``embed``, ``final_norm``, ``mlstm`` stacked (sb, m_per, …) and
+    ``slstm`` stacked (sb, …) → ``xlstm.XLSTM``.
 JAX's ``(in, out)`` orientation is kept; each leaf is cast to its
 parameter's dtype (``compute_dtype`` for matrices, what JAX casts to at
-use; f32 for norms and the MoE router, which JAX never casts).
+use; f32 for norms, the MoE router, rglru's ``lam``, ``b_a``, ``b_i`` and
+``conv_w``, and xlstm's ``b_f``, ``b`` and ``R``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import rglru, xlstm
 from repro_torch.models.encdec import CROSS_LEAVES, SELF_LEAVES, EncDec
 from repro_torch.models.transformer import Transformer, check_family
 
@@ -62,6 +69,28 @@ def from_jax_params(params: Mapping, cfg: ArchConfig, device="cuda"):
             _copy(getattr(model, name), params[name], name)
         _stacked(params["enc"], SELF_LEAVES, model.enc, "enc")
         _stacked(params["dec"], SELF_LEAVES + CROSS_LEAVES, model.dec, "dec")
+        return model
+    if cfg.family == "hybrid":
+        model = rglru.RecurrentGemma(cfg, device)
+        stacks = {"rec1": rglru.REC_LEAVES, "rec2": rglru.REC_LEAVES, "attn": rglru.ATTN_LEAVES}
+        if len(model.rec_tail):
+            stacks["rec_tail"] = rglru.REC_LEAVES
+        _keys(params, {"embed", "final_norm"} | set(stacks), "params")
+        for name in ("embed", "final_norm"):
+            _copy(getattr(model, name), params[name], name)
+        for name, leaves in stacks.items():
+            _stacked(params[name], leaves, getattr(model, name), name)
+        return model
+    if cfg.family == "ssm":
+        model = xlstm.XLSTM(cfg, device)
+        _keys(params, {"embed", "final_norm", "mlstm", "slstm"}, "params")
+        for name in ("embed", "final_norm"):
+            _copy(getattr(model, name), params[name], name)
+        # (sb, m_per, …) → (sb·m_per, …), super-block major as ``model.mlstm``
+        mlstm = {name: np.asarray(a).reshape((-1,) + np.shape(a)[2:])
+                 for name, a in params["mlstm"].items()}
+        _stacked(mlstm, xlstm.MLSTM_LEAVES, model.mlstm, "mlstm")
+        _stacked(params["slstm"], xlstm.SLSTM_LEAVES, model.slstm, "slstm")
         return model
     model = Transformer(cfg, device)
     expected = ({"embed", "final_norm", "layers"} | ({"lm_head"} if not cfg.tie_embeddings else set())

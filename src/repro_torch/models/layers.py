@@ -1,4 +1,4 @@
-"""Shared model layers: norms, rotary embeddings, attention, GLU MLPs.
+"""Shared model layers: norms, rotary embeddings, attention, activations, GLU MLPs.
 
 The port of ``repro.models.layers``: pure functions over tensors, with
 JAX's layouts (q (B,S,H,hd), k/v (B,T,K,hd), matrices (in, out)).
@@ -11,6 +11,7 @@ instead, which keeps scores and probabilities in f32 throughout.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -133,6 +134,52 @@ def decode_mask(T: int, pos: int, window: int = 0, device=None) -> torch.Tensor:
     return ok[None, None, None]
 
 
+def put_rows(dst: torch.Tensor, src: torch.Tensor, rows: Optional[torch.Tensor]) -> None:
+    """dst ← src in place, along the batch axis 0 at ``rows`` (row indices)
+    only when given: a decode's cache write."""
+    if rows is None:
+        dst.copy_(src)
+    else:
+        dst[rows] = src[rows].to(dst.dtype)
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """bf16 matrix products accumulate in float32 and round once, as JAX's
+    dots do: cuBLAS's reduced-precision (bf16) split-K reduction, which
+    PyTorch allows by default, is turned off for the block and restored
+    after.  It is what a skinny product such as the mLSTM's gate
+    projection (K = 4,096, N = 4) takes on the card, where it rounds each
+    partial sum to bf16."""
+    matmul = torch.backends.cuda.matmul
+    was = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = was
+
+
+# ---------------------------------------------------------------------------
+# activations (jax.nn's definitions, in the input's dtype)
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` = max(x, 0) +
+    log1p(exp(−|x|)) (no large-x cutoff, unlike ``F.softplus``)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid`` = −softplus(−x)."""
+    return -softplus(-x)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -144,9 +191,9 @@ def glu_mlp(x: torch.Tensor, w_gate, w_up, w_down, act: str) -> torch.Tensor:
     if act == "swiglu":
         h = F.silu(g) * u
     elif act == "geglu":
-        h = F.gelu(g, approximate="tanh") * u
+        h = gelu(g) * u
     elif act == "gelu":
-        h = F.gelu(g, approximate="tanh")  # w_up unused pattern, kept uniform
+        h = gelu(g)  # w_up unused pattern, kept uniform
     else:
         raise ValueError(act)
     return h @ w_down

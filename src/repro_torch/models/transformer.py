@@ -40,19 +40,14 @@ from repro_torch.models.moe import moe_capacity, moe_ffn_local
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VISION_STUB_DIM = 1024  # patch-embedding stub width (the frontend is external)
-LM_FAMILIES = ("dense", "moe", "vlm")
-
-_NOT_PORTED = {
-    "hybrid": "models/rglru.py (ROADMAP A.4, rglru)",
-    "ssm": "models/xlstm.py (ROADMAP A.4, xlstm)",
-}
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")  # the families ``Transformer`` serves
+LM_FAMILIES = TRANSFORMER_FAMILIES + ("hybrid", "ssm")  # the decoder-only LMs
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise unless the port serves ``cfg``'s family (dense, moe, vlm, encdec)."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet: "
-                                  f"{_NOT_PORTED[cfg.family]}")
+    """Raise unless the port serves ``cfg``'s family: dense, moe and vlm
+    (``Transformer``), hybrid (``models.rglru``), ssm (``models.xlstm``)
+    and encdec (``models.encdec``)."""
     if cfg.family not in LM_FAMILIES + ("encdec",):
         raise ValueError(cfg.family)
 
@@ -182,8 +177,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
         check_family(cfg)
-        if cfg.family not in LM_FAMILIES:
-            raise ValueError(f"{cfg.name}: Transformer serves {LM_FAMILIES}, not {cfg.family}")
+        if cfg.family not in TRANSFORMER_FAMILIES:
+            raise ValueError(f"{cfg.name}: Transformer serves {TRANSFORMER_FAMILIES}, "
+                             f"not {cfg.family}")
         self.cfg = cfg
         d, V, dt = cfg.d_model, cfg.vocab, compute_dtype(cfg)
         self.embed = _param((V, d), dt, device)

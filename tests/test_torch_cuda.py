@@ -1693,3 +1693,144 @@ def test_sharded_fleet_epoch_on_the_card_matches_the_cpu(dev):
     for i in range(4):
         a, b = card.query(f"v{i}", q), cpu.query(f"v{i}", q)
         np.testing.assert_allclose(float(a.value), float(b.value), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and ssm families: flash's banded window and ring-buffer
+# (key_pos) masks on both routes, the earlier modes byte for byte, and each
+# family's smoke model on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _ring_positions(W, pos, holes, seed, dev):
+    """A (W,) int32 pos_buf after decodes up to ``pos`` (slot p % W holds
+    the newest p), ``holes`` slots other than pos's emptied (-1), rotated."""
+    buf = torch.full((W,), -1, dtype=torch.int32)
+    for p in range(max(0, pos - W + 1), pos + 1):
+        buf[p % W] = p
+    g = torch.Generator().manual_seed(seed)
+    others = torch.tensor([s for s in range(W) if s != pos % W])
+    buf[others[torch.randperm(len(others), generator=g)[:holes]]] = -1
+    return buf.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,window,qpos", [
+    (2, 40, 40, 4, 1, 16, 16, 0),          # the hybrid smoke config's forward
+    (4, 3, 40, 16, 1, 16, 5, 37),          # three queries at an offset, key splits
+    (2, 33, 50, 16, 1, 16, 8, 17),
+    (1, 600, 600, 16, 1, 256, 128, 0),     # recurrentgemma's heads, a window of 128
+    (3, 1, 300, 16, 1, 256, 64, 299),      # one query, banded
+    (1, 100, 100, 16, 1, 256, 1, 0)])      # window 1: the diagonal alone
+def test_flash_banded_window_matches_plain(dev, dtype, B, S, T, H, K, hd, window, qpos):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    q, k, v = _qkv(B, S, T, H, K, hd, dtype, dev, seed=S * 7 + window)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window, qpos=qpos)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, True, window, None, qpos)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("M", [4, 64])
+def test_bf16_products_accumulate_in_f32_under_the_entry_points(dev, M):
+    """xlstm-1.3b's mLSTM gate projection (K = 4,096, N = 4), which cuBLAS
+    takes by split-K: under ``f32_accumulation`` (every model entry point)
+    each bf16 output is the float32 product rounded once, or the bf16
+    value next to it where the two float32 sums straddle a rounding."""
+    from repro_torch.models.layers import f32_accumulation
+
+    g = torch.Generator(device=dev).manual_seed(M)
+    xu = torch.randn(M, 4096, generator=g, device=dev).bfloat16()
+    w = (torch.randn(4096, 4, generator=g, device=dev) / 64).bfloat16()
+    ref = xu.float() @ w.float()
+    with f32_accumulation():
+        got = (xu @ w).float()
+    step = ref.abs() * 2.0 ** -7 + 1e-30
+    assert bool(((got - ref).abs() <= step).all())
+    assert float((got == ref.bfloat16().float()).float().mean()) >= 0.9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_past_the_keys_raises_without_a_launch(dev, dtype):
+    """An index-position window that leaves the last row no key raises on
+    the card as the plain version does, and launches nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _qkv(1, 3, 40, 16, 1, 256, dtype, dev, seed=5)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="keeps no key"):
+        flash_attention(q, k, v, causal=True, window=5, qpos=42)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,K,hd,pos,holes", [
+    (2, 16, 4, 1, 16, 37, 3),              # the smoke config's ring, wrapped
+    (3, 16, 16, 1, 16, 9, 0),              # not yet full: empty slots at -1
+    (4, 2048, 16, 1, 256, 4095, 7),        # recurrentgemma-9b's ring, wrapped, key splits
+    (1, 2048, 16, 1, 256, 3000, 100)])
+def test_flash_ring_decode_matches_plain(dev, dtype, B, W, H, K, hd, pos, holes):
+    """One query at ``pos`` against the ring's W slots through key_pos (on
+    a strided cache view), as rglru's decode calls it."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(W + pos)
+    cache = torch.randn(2, 2, B, W, K, hd, generator=g, device=dev).to(dtype)
+    k, v = cache[1, 0], cache[1, 1]
+    q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dtype)
+    kp = _ring_positions(W, pos, holes, pos, dev)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, key_pos=kp, qpos=pos, window=W)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, True, W, kp, pos)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # the slots the mask drops do not matter: scrambling them changes nothing
+    drop = (kp < 0) | (kp > pos) | (kp <= pos - W)
+    if bool(drop.any()):
+        k2 = k.clone()
+        k2[:, drop] = 1e4
+        assert torch.equal(flash_attention(q, k2, v, key_pos=kp, qpos=pos, window=W), got)
+
+
+def test_flash_default_modes_give_the_bytes_of_the_previous_kernel(dev):
+    """The causal and non-causal modes, on both routes, with and without key
+    splits, give the bytes the kernel gave before the masks were added
+    (``torch_flash_cases.DIGESTS``)."""
+    from torch_flash_cases import DIGESTS, flash_digests
+
+    assert flash_digests(str(dev)) == DIGESTS
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_recurrent_smoke_models_on_the_card_match_the_cpu(dev, arch):
+    """Each recurrent family's smoke config (f32, TF32 off) from one set of
+    weights: forward over 24 tokens (past the hybrid's window of 16) and 24
+    decode steps (the ring wraps), the last 8 for rows [0, 1] of 3, on the
+    card equal the CPU's within 1e-4, logits and every cache leaf."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    cpu, card = get_model(cfg, device="cpu"), get_model(cfg, device=dev)
+    p_cpu, p_card = cpu.init(0), card.init(0)
+    p_card.load_state_dict(p_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (3, 24), generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(card.forward(p_card, {"tokens": toks.to(dev)})[0].cpu(),
+                               cpu.forward(p_cpu, {"tokens": toks})[0], rtol=1e-4, atol=1e-4)
+    c_cpu, c_card = cpu.init_cache(3, 32), card.init_cache(3, 32)
+    for i in range(24):
+        rows = [0, 1] if i >= 16 else None
+        lc, c_cpu = cpu.decode_step(p_cpu, c_cpu, toks[:, i:i + 1], i, rows)
+        lg, c_card = card.decode_step(p_card, c_card, toks[:, i:i + 1].to(dev), i, rows)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    leaves = [(k, v) for k, v in c_cpu.items() if v is not None]
+    for key, leaf in leaves:
+        for a, b in zip(leaf if isinstance(leaf, tuple) else (leaf,),
+                        c_card[key] if isinstance(leaf, tuple) else (c_card[key],)):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)

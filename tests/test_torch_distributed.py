@@ -53,6 +53,7 @@ from repro_torch.obs import trace as ttrace
 from repro_torch.obs.reconcile import check_shard_accounting
 from repro_torch.relational.relation import from_columns, to_host
 from repro_torch.streaming import PartitionedDeltaLog
+from torch_fresh_jax import fresh_jax_traces
 
 torch.set_num_threads(1)
 
@@ -652,6 +653,7 @@ def test_sharded_fleet_epoch_reconciles_per_shard():
         finally:
             pkg.kprof.set_profiler(None)
 
+    fresh_jax_traces()  # JAX profiles the fused clean only while it traces
     j, t = _both(run)
     # both ledgers hold the score combine and each shard's clean (one view a
     # shard: svc_refresh_many cleans it per view); the port also profiles

@@ -232,3 +232,139 @@ def test_workspace_grows_zeroed_and_is_reused(kind, dtype):
     assert workspace(dev, 10, kind) is b
     other = "counters" if kind == "partials" else "partials"
     assert workspace(dev, 10, other).data_ptr() != b.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# The local-attention masks (the hybrid family): a banded causal window over
+# the prompt, and the ring-buffer decode mask over slot positions
+# ---------------------------------------------------------------------------
+
+from repro.models.layers import local_mask as jax_local_mask  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import keep_mask  # noqa: E402
+
+
+def _ring(W, pos, holes, seed):
+    """A (W,) int32 pos_buf after decodes up to ``pos`` wrapped the ring
+    (slot p % W holds the newest p), with ``holes`` slots emptied (-1)."""
+    buf = np.full(W, -1, np.int32)
+    for p in range(pos + 1):
+        buf[p % W] = p
+    rng = np.random.default_rng(seed)
+    empty = rng.choice([s for s in range(W) if s != pos % W], holes, replace=False)
+    buf[empty] = -1
+    return buf
+
+
+@pytest.mark.parametrize("S,window", [(40, 16), (33, 1), (24, 64), (300, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_banded_window_matches_jax_local_mask(S, window, dtype):
+    """causal=True, window=w equals JAX's gqa_attention under
+    local_mask(S, S, w) (rglru's chunked_attention), and keep_mask is
+    boolean-equal to local_mask, also at a position offset."""
+    (jq, jk, jv), (q, k, v) = _inputs(np.random.default_rng(S + window), 2, S, S, 4, 2, 16,
+                                      dtype)
+    got = flash_attention(q, k, v, causal=True, window=window)
+    want = np.asarray(jax_gqa_attention(jq, jk, jv, jax_local_mask(S, S, window)), np.float32)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(got), want, rtol=tol, atol=tol)
+    for off in (0, 7):
+        assert np.array_equal(keep_mask(S, S + off, window, qpos=off).numpy(),
+                              np.asarray(jax_local_mask(S, S + off, window, offset=off))[0, 0, 0])
+
+
+@pytest.mark.parametrize("W,pos,holes", [(16, 37, 3), (16, 15, 0), (2048, 4095, 5), (8, 8, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_decode_mask_matches_jax(W, pos, holes, dtype):
+    """One query at ``pos`` against a ring of W slots whose pos_buf wrapped
+    and has holes: key_pos=pos_buf, qpos=pos, window=W equals JAX's
+    gqa_attention under rglru's decode mask (models/rglru.py:208-209)."""
+    buf = _ring(W, pos, holes, pos)
+    (jq, jk, jv), (q, k, v) = _inputs(np.random.default_rng(W + pos), 2, 1, W, 16, 1, 32, dtype)
+    got = flash_attention(q, k, v, key_pos=torch.from_numpy(buf), qpos=pos, window=W)
+    pb = jnp.asarray(buf)
+    ok = (pb <= pos) & (pb > pos - W) & (pb >= 0)
+    want = np.asarray(jax_gqa_attention(jq, jk, jv, ok[None, None, None, None, :]), np.float32)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_f32(got), want, rtol=tol, atol=tol)
+    assert np.array_equal(keep_mask(1, W, W, torch.from_numpy(buf), pos)[0].numpy(),
+                          np.asarray(ok))
+
+
+def test_default_masks_are_unchanged():
+    """window 0, no key_pos and qpos 0 give the causal result bit for bit,
+    and the non-causal mode ignores nothing it used to use."""
+    _, (q, k, v) = _inputs(np.random.default_rng(9), 2, 30, 30, 4, 2, 16, "float32")
+    base = flash_attention_ref(q, k, v, True)
+    assert torch.equal(flash_attention(q, k, v, True, 0, None, 0), base)
+    assert torch.equal(flash_attention(q, k, v, True, key_pos=torch.arange(30, dtype=torch.int32)),
+                       base)
+    assert torch.equal(flash_attention(q, k, v, True, window=30), base)
+
+
+def test_mask_arguments_are_checked():
+    q, kv = torch.zeros(1, 1, 4, 16), torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="causal=True"):
+        flash_attention(q, kv, kv, causal=False, window=4)
+    with pytest.raises(ValueError, match="causal=True"):
+        flash_attention(q, kv, kv, causal=False, key_pos=torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        flash_attention(q, kv, kv, key_pos=torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, kv, kv, key_pos=torch.zeros(7, dtype=torch.int32))
+    with pytest.raises(ValueError, match=">= 0"):
+        flash_attention(q, kv, kv, window=-1)
+    with pytest.raises(ValueError, match="keeps no key"):  # every slot empty
+        flash_attention(q, kv, kv, key_pos=torch.full((8,), -1, dtype=torch.int32), qpos=3)
+
+
+@pytest.mark.parametrize("S,T,window", [(1, 8, 4), (3, 40, 5), (40, 40, 16)])
+def test_index_window_past_the_keys_raises(S, T, window):
+    """Without key_pos, a window whose last row starts past the T keys
+    (qpos + S − window ≥ T) leaves that row no key: the wrapper raises
+    before the plain version or a launch, and one position earlier the
+    last row keeps key T − 1 alone."""
+    q, kv = torch.zeros(1, S, 4, 16), torch.randn(1, T, 2, 16)
+    edge = T - S + window  # the first qpos that empties the last row
+    with pytest.raises(ValueError, match="keeps no key"):
+        flash_attention(q, kv, kv, window=window, qpos=edge)
+    before = flash_attention.launches
+    out = flash_attention(q, kv, kv, window=window, qpos=edge - 1)
+    assert flash_attention.launches == before  # a CPU tensor takes the plain version
+    torch.testing.assert_close(out[0, -1], kv[0, -1].repeat_interleave(2, 0))
+
+
+def _block_ranges(p, S, T, H, K, window, qpos):
+    """The kernel's (causal_range) key range of each row tile and split, as
+    ``csrc/flash_attention.cu`` computes them (key_pos null)."""
+    G, rows = H // K, S * (H // K)
+    for tile in range(p.row_tiles):
+        row0 = tile * p.rows_per_tile
+        row_end = min(row0 + p.rows_per_tile, rows)
+        hi = min(T, qpos + (row_end - 1) // G + 1)
+        lo = max(0, qpos + row0 // G - window + 1) if window > 0 else 0
+        yield row0, row_end, [(lo + z * p.chunk, min(lo + (z + 1) * p.chunk, hi))
+                              for z in range(p.nsplit)]
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 4096, 16, 1, 256), (2, 40, 40, 4, 1, 16),
+                                   (4, 3, 40, 16, 1, 16), (1, 1, 2048, 16, 1, 256),
+                                   (3, 17, 80, 8, 2, 64)])
+@pytest.mark.parametrize("window,qpos", [(16, 0), (2048, 0), (5, 23), (1, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_window_splits_cover_every_kept_key(shape, window, qpos, dtype):
+    """Under a window the splits start at each tile's first kept key: the
+    tile's splits, laid end to end, cover every key any of its rows keeps."""
+    B_, S, T, H, K, hd = shape
+    if qpos + S > T:
+        qpos = T - S
+    p = plan(dtype, B_, S, T, H, K, hd, True, window, False, qpos)
+    keep = keep_mask(S, T, window, qpos=qpos).numpy()
+    G = H // K
+    for row0, row_end, splits in _block_ranges(p, S, T, H, K, window, qpos):
+        covered = np.zeros(T, bool)
+        for k0, k1 in splits:
+            covered[k0:max(k0, k1)] = True
+        need = keep[row0 // G:(row_end - 1) // G + 1].any(0)
+        assert not (need & ~covered).any(), (row0, splits)
+    assert plan(dtype, B_, S, T, H, K, hd, True, 0, True, 0).chunk * \
+        plan(dtype, B_, S, T, H, K, hd, True, 0, True, 0).nsplit >= T  # key_pos: all T slots

@@ -11,8 +11,11 @@ gap is ~1e-6 on logits of magnitude ~1.  The port's own decode path
 agrees with its forward within the same tolerance, and each layer
 function agrees with JAX's on the same inputs (masks exactly).
 ``param_counts`` equals JAX's exactly for the four dense full configs
-and for granite-moe-3b-a800m, grok-1-314b, qwen2-vl-72b and
-seamless-m4t-large-v2 (meta device, no allocation).
+and for granite-moe-3b-a800m, grok-1-314b, qwen2-vl-72b,
+seamless-m4t-large-v2, recurrentgemma-9b (9,396,301,824) and xlstm-1.3b
+(1,840,990,376) (meta device, no allocation).  ``get_model`` serves every
+config; the hybrid and ssm families have their own parity files
+(``test_torch_rglru.py``, ``test_torch_xlstm.py``).
 
 The moe and vlm smoke configs (granite-moe, grok-1, qwen2-vl with and
 without its vision stub) hold ``forward`` (logits and the (L, E)
@@ -195,7 +198,8 @@ def test_decode_rows_write_only_their_cache_rows():
     _close(tl[[0, 2]], np.asarray(jl)[[0, 2]])
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + [VLM, "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", DENSE + MOE + [VLM, "seamless-m4t-large-v2",
+                                  "recurrentgemma-9b", "xlstm-1.3b"])
 def test_param_counts_equal_jax(arch):
     assert param_counts(get_config(arch)) == jax_param_counts(jax_get_config(arch))
 
@@ -212,23 +216,20 @@ def test_init_draws_from_the_generator():
     assert abs(float(a.layers[0].w_gate.std()) - cfg.d_model ** -0.5) < 0.01
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).family in ("hybrid", "ssm")])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        get_model(get_smoke_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        param_counts(get_config(arch))
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family not in ("hybrid", "ssm")])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_get_model_serves_every_dense_moe_vlm_and_encdec_config(arch):
+    """Every config of every family (the hybrid and ssm ones too) gets its
+    module on the CPU when asked for it."""
     from repro_torch.models.encdec import EncDec
+    from repro_torch.models.rglru import RecurrentGemma
     from repro_torch.models.transformer import Transformer
+    from repro_torch.models.xlstm import XLSTM
 
     cfg = get_smoke_config(arch)
     params = get_model(cfg, device="cpu").init(0)
-    assert isinstance(params, EncDec if cfg.family == "encdec" else Transformer)
+    module = {"encdec": EncDec, "hybrid": RecurrentGemma, "ssm": XLSTM}.get(cfg.family,
+                                                                          Transformer)
+    assert isinstance(params, module)
     assert {p.device.type for p in params.parameters()} == {"cpu"}
 
 
@@ -237,10 +238,13 @@ def test_modules_build_on_the_card_unless_asked_for_the_cpu():
     and ``from_jax_params`` do; ``device="cpu"`` still builds on the CPU."""
     import inspect
 
+    from repro_torch.models import rglru, xlstm
     from repro_torch.models.convert import from_jax_params as convert
     from repro_torch.models.transformer import Block, Transformer
 
-    for fn in (Block.__init__, Transformer.__init__, get_model, convert):
+    for fn in (Block.__init__, Transformer.__init__, get_model, convert,
+               rglru.RecurrentGemma.__init__, rglru.RecBlock.__init__, rglru.AttnBlock.__init__,
+               xlstm.XLSTM.__init__, xlstm.MLSTMBlock.__init__, xlstm.SLSTMBlock.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     cfg = get_smoke_config("gemma-2b")
     assert {p.device.type for p in Transformer(cfg, "cpu").parameters()} == {"cpu"}
@@ -420,3 +424,38 @@ def test_moe_init_scales_w_down_and_keeps_the_router_in_f32():
     vlm = get_model(get_smoke_config(VLM), device="cpu").init(0)
     assert tuple(vlm.vision_proj.shape) == (1024, vlm.cfg.d_model)
     assert get_model(get_smoke_config("gemma-2b"), device="cpu").init(0).vision_proj is None
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "recurrentgemma-9b", "xlstm-1.3b",
+                                  "seamless-m4t-large-v2"])
+def test_entry_points_accumulate_bf16_products_in_f32(arch):
+    """forward, prefill and decode_step run with cuBLAS's reduced-precision
+    bf16 reduction off (JAX's dots accumulate in f32) and restore it after."""
+    from repro_torch.models.layers import f32_accumulation
+
+    matmul = torch.backends.cuda.matmul
+    model = get_model(get_smoke_config(arch), device="cpu")
+    params = model.init(0)
+    seen = []
+
+    def record(*args, **kwargs):
+        seen.append(matmul.allow_bf16_reduced_precision_reduction)
+        return "done"
+
+    for name in ("forward", "prefill", "decode_step"):
+        setattr(params, name, record)
+    batch = {"frames": None, "tokens": None}
+    was = matmul.allow_bf16_reduced_precision_reduction
+    try:
+        for flag in (True, False):
+            matmul.allow_bf16_reduced_precision_reduction = flag
+            assert model.forward(params, batch) == "done"
+            assert model.prefill(params, batch, cache_len=4) == "done"
+            assert model.decode_step(params, None, None, 0) == "done"
+            assert matmul.allow_bf16_reduced_precision_reduction is flag
+            with pytest.raises(ZeroDivisionError), f32_accumulation():
+                1 / 0
+            assert matmul.allow_bf16_reduced_precision_reduction is flag
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = was
+    assert seen == [False] * 6

@@ -36,6 +36,7 @@ import repro_torch.streaming as tstream
 import repro_torch.views as tviews
 from repro.relational.relation import from_columns as jax_from_columns
 from repro_torch.relational.relation import from_columns as torch_from_columns
+from torch_fresh_jax import fresh_jax_traces
 
 torch.set_num_threads(1)
 jrec = importlib.import_module("repro.obs.reconcile")
@@ -239,6 +240,7 @@ def test_act_span_accounting_equal_jax():
 
 
 def test_observatory_panel_reconciles_live():
+    fresh_jax_traces()  # the JAX panel's kernels then do not depend on earlier tests
     for pkg in (JAX, PORT):
         pkg.obs.trace.enable()
         pkg.obs.set_profiler(pkg.obs.KernelProfiler())

@@ -80,6 +80,59 @@ def test_moe_vlm_and_encdec_engines_emit_jax_tokens(arch):
     assert got == _serve(jserving.ServeEngine, jserving.Request, jm, jp, 3, reqs, 4, max_seq=32)
 
 
+class _PortLogits:
+    """The port model's ``decode_step``, recording each call's (pos, rows,
+    logits at rows)."""
+
+    def __init__(self, model):
+        self.inner, self.calls = model.decode_step, []
+
+    def __call__(self, params, cache, tokens, pos, rows=None):
+        logits, cache = self.inner(params, cache, tokens, pos, rows)
+        self.calls.append((int(pos), list(rows), logits[list(rows)].numpy().copy()))
+        return logits, cache
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_hybrid_and_ssm_engines_emit_jax_tokens_and_logits(arch):
+    """The hybrid and ssm smoke configs through both engines: prompts of
+    4–40 tokens in a pool of 3, so the slots decode at mixed positions past
+    the hybrid's window of 16 and its ring wraps.  JAX's cache leaf
+    ``attn_pos`` has no batch axis, so its engine keeps the newest decode's
+    for every row; the port's ``decode_step(rows=...)`` writes it on every
+    call.  Greedy tokens equal, and every decoded row's logits within the
+    model tests' rtol 1e-4, atol 2e-5, call by call."""
+    import dataclasses
+
+    jm, jp, tm, tp, cfg = _models(arch)
+    rng = np.random.default_rng(5)
+    lens = (4, 40, 17, 9, 33)
+    reqs = list(enumerate(rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens))
+    probe = _PortLogits(tm)
+    got = _serve(ServeEngine, Request, dataclasses.replace(tm, decode_step=probe), tp, 3, reqs, 6)
+    jeng = jserving.ServeEngine(jm, jp, max_batch=3, max_seq=64)
+    jdecode, jcalls = jeng._decode, []
+
+    def recording(p, c, t, pos):
+        logits, cache = jdecode(p, c, t, pos)
+        jcalls.append((int(pos), np.asarray(logits)))
+        return logits, cache
+
+    jeng._decode = recording
+    for i, p in reqs:
+        jeng.submit(jserving.Request(rid=i, prompt=p, max_new=6))
+    want = {r.rid: tuple(r.out_tokens) for r in jeng.run()}
+    assert len(got) == 5 and all(len(v) == 7 for v in got.values())
+    assert got == want
+    assert [c[0] for c in probe.calls] == [c[0] for c in jcalls]
+    assert max(pos for pos, _ in jcalls) >= max(lens)
+    if cfg.family == "hybrid":
+        positions = {pos for pos, rows, _ in probe.calls if len(rows) < 3}
+        assert any(p > cfg.attn_window for p in positions)  # groups split past the window
+    for (_pos, rows, lg), (_jpos, jlg) in zip(probe.calls, jcalls):
+        np.testing.assert_allclose(lg, jlg[rows], rtol=1e-4, atol=2e-5)
+
+
 def test_mixed_length_prompts_match_isolated_decode_and_jax():
     jm, jp, tm, tp, cfg = _models("granite-3-2b")
     rng = np.random.default_rng(7)
@@ -249,7 +302,8 @@ def test_launcher_serves_on_the_cpu():
     assert set(out) == {"completed", "tokens", "tok_per_s", "p50_latency_s", "ticks"}
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "seamless-m4t-large-v2",
+                                  "recurrentgemma-9b", "xlstm-1.3b"])
 def test_launcher_serves_the_moe_and_encdec_families_on_the_cpu(arch):
     from repro_torch.launch.serve import main
 
