@@ -49,7 +49,21 @@ size, through the entry points a user calls:
      ``ServeEngine`` (no attention: the mLSTM's matrix memory and the
      sLSTM) and its forward over 2 × 512; flash ``kernel`` lines for the
      ring decode and the banded prefill; and each smoke config served on
-     the card against the CPU.
+     the card against the CPU;
+  7. training (``launch/train.py``'s ``build``): ``train_path`` —
+     gemma-2b at its published size with float32 masters, gradients and
+     AdamW states on the card, 6 steps of (8, 512) pipeline batches under
+     remat "full" (every layer's attention launches the flash kernel
+     forward and again in the recompute; its gradient is autograd through
+     the plain version, profiled as ``flash_attention_bwd``), the loss view
+     ingesting every step (refreshed every 2, the mixture re-weighted at
+     step 4, then a full maintenance whose exact answers the SVC estimates
+     are reported against), one step under the kernel profiler and one
+     under ``torch.profiler``; the flash ``kernel`` line at the training
+     shape with the backward beside SDPA's; ``train_device_vs_cpu`` — the
+     gemma-2b and grok-1-314b smoke configs trained 3 steps on the card and
+     on the CPU; ``train_restart`` — ``launch/train.main`` with checkpoints
+     and a host lost at step 6, restored bit for bit from step 4.
 
 The observatory and the chaos layer ride on these paths:
   * ``chaos_stream`` (after the streaming path): two fresh managers over
@@ -322,6 +336,39 @@ RING_SHAPE, RING_POS, RING_HOLES = (4, 1, 2048, 16, 1, 256), 4096, 64
 # smoke's window of 16, so its ring wraps
 RECURRENT_SMOKE_PROMPT_LENS = (3, 40, 9, 25, 17, 33)
 
+# Training (the port's launch/train.py): gemma-2b at its published size
+# (18 layers, d_model 2,048, 8 query heads and 1 KV head of 256, GeGLU d_ff
+# 16,384, vocabulary 256,000) with float32 masters, gradients and AdamW
+# states on the card (4 × 10.02 GB), the pipeline's (8, 512) batches from
+# seed 0, 6 steps of build()'s AdamWConfig(lr 3e-4, total 6, warmup 5);
+# the loss view ingests every step, refreshes every 2, re-weights the
+# mixture at step 4, then a full maintenance; two more steps are profiled
+# (the kernel profiler, then torch.profiler)
+TRAIN_ARCH = "gemma-2b"
+TRAIN_ARGV = ("--steps", "6", "--batch", "8", "--seq", "512", "--svc-every", "2",
+              "--mixture-every", "4", "--svc-ratio", "0.25")
+TRAIN_SVC_EVERY, TRAIN_MIXTURE_AT = 2, 4
+# the smoke configs (f32, TF32 off) trained 3 steps on the card and on the
+# CPU from one seed: loss and grad norm within 1e-5 relative; step 1's
+# gradients within 1e-4 of each leaf's largest |gradient| (the same f32
+# sums in other orders); all the parameters after each step within 2e-2 of
+# the step's update norm, taken over every leaf at once.  AdamW's first
+# steps are nearly sign updates (lr·m̂/√v̂ ≈ ±lr), so an element whose
+# gradient is within the sums' rounding of 0 may move by ±lr in either
+# run: one such flip is 2/√n of the update's norm over n elements (0.57% at
+# gemma-2b-smoke's 123,200), and 25% of a 64-element norm leaf, so leaf
+# by leaf is reported, not held (a leaf lay 1.2% apart at step 3 on the
+# card)
+TRAIN_SMOKE_ARCHS = ("gemma-2b", "grok-1-314b")
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS = 4, 32, 3
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 2e-2
+# launch/train.main on gemma-2b's smoke config with a checkpoint every 4
+# steps and a host lost at step 6
+TRAIN_RESTART_ARGV = ("--arch", "gemma-2b", "--smoke", "--steps", "12", "--ckpt-every", "4",
+                      "--fail-at", "6", "--svc-every", "2", "--mixture-every", "4",
+                      "--log-every", "100")
+TRAIN_RESTORED_STEP = 4
+
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                     "multi_agg_two", "multi_agg_one", "segment_aggsum")
@@ -335,6 +382,10 @@ SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_
                  "multi_agg_one")
 FAMILY_KERNELS = ("flash_attention",)  # vlm_prefill and encdec_generate: every attention
 SSM_KERNELS = SERVE_KERNELS[1:]  # xlstm has no attention: the telemetry's kernels
+# every attention of the train step; the loss view's unfused clean, group-bys
+# and queries
+TRAIN_KERNELS = ("flash_attention", "hash_threshold", "segment_aggsum", "multi_agg_two",
+                 "multi_agg_one")
 
 
 
@@ -472,6 +523,9 @@ def profile_ops(fn, top: int = 10, match: tuple = ()) -> dict:
         "top_cpu": sorted(rows, key=lambda r: -r["self_cpu_ms"])[:top],
         "top_device": sorted(rows, key=lambda r: -r["self_device_ms"])[:top],
         "runtime_calls": {r["op"]: r["calls"] for r in rows if r["op"] in runtime},
+        # rows with device time and no host time: the kernels, memcpys and
+        # memsets themselves (an operator's row repeats its kernels' time)
+        "device_only_ms": sum(r["self_device_ms"] for r in rows if r["self_cpu_ms"] == 0),
         "matching": [r for r in rows if any(m in r["op"] for m in match)],
     }
 
@@ -718,6 +772,27 @@ def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms, byt
     return entry
 
 
+def hold_moments(got, want, what):
+    """multi_agg's (12, Q) moments against the plain version's: the count
+    rows equal, every moment within 1e-5 of |plain| (S_D's of
+    |S_NEW| + |S_OLD|, which bound Σ|d|).  Returns (max abs error, max
+    relative error)."""
+    import torch
+
+    from repro_torch.kernels.multi_agg.ref import K_D, K_NEW, K_OLD, S_D, S_NEW, S_OLD
+
+    scale = want.abs()
+    if got.shape[0] > S_D:
+        scale[S_D] = want[S_NEW].abs() + want[S_OLD].abs()  # Σ|d| ≤ Σt_new + Σt_old
+    for k in (K_NEW, K_OLD, K_D):
+        if k < got.shape[0] and not torch.equal(got[k], want[k]):
+            fail(f"{what}: count row {k} differs")
+    err = (got - want).abs()
+    if bool((err > 1e-5 * scale).any()):
+        fail(f"{what}: moments beyond 1e-5 relative (max abs {float(err.max()):.3e})")
+    return float(err.max()), float((err / scale.clamp(min=1e-30)).max())
+
+
 def check_kernels(state, queries, m, seed, launches, iters):
     """Each kernel's wrapper against its plain version on the main path's
     tensors, timed with CUDA events; wrapper launches here are not counted
@@ -730,7 +805,7 @@ def check_kernels(state, queries, m, seed, launches, iters):
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two, selector_indices
-    from repro_torch.kernels.multi_agg.ref import K_D, K_NEW, K_OLD, S_D, S_NEW, S_OLD, multi_agg_ref
+    from repro_torch.kernels.multi_agg.ref import multi_agg_ref
     from repro_torch.core.outliers import pin_set
     from repro_torch.kernels.outlier_member.ops import digest_table, outlier_codes, pinned_hash
     from repro_torch.kernels.outlier_member.ref import (
@@ -950,18 +1025,6 @@ def check_kernels(state, queries, m, seed, launches, iters):
     new = (cache.x_new, cache.valid_new, cache.w_new, cache.ompi_new)
     old = (cache.x_old, cache.valid_old, cache.w_old, cache.ompi_old)
 
-    def compare(got, want, what):
-        scale = want.abs()
-        if got.shape[0] > S_D:
-            scale[S_D] = want[S_NEW].abs() + want[S_OLD].abs()  # Σ|d| ≤ Σt_new + Σt_old
-        for k in (K_NEW, K_OLD, K_D):
-            if k < got.shape[0] and not torch.equal(got[k], want[k]):
-                fail(f"{what}: count row {k} differs")
-        err = (got - want).abs()
-        if bool((err > 1e-5 * scale).any()):
-            fail(f"{what}: moments beyond 1e-5 relative (max abs {float(err.max()):.3e})")
-        return float(err.max()), float((err / scale.clamp(min=1e-30)).max())
-
     def same_bits(call, got, what):
         if not torch.equal(call(), got):
             fail(f"{what}: a repeated call gave other bits")
@@ -973,7 +1036,8 @@ def check_kernels(state, queries, m, seed, launches, iters):
                              sel_idx=None if decode else sel_idx)
 
     got = two()
-    err2, rel2 = compare(got, multi_agg_ref(*new, batch.sel, batch.meta, *old), "multi_agg_two")
+    err2, rel2 = hold_moments(got, multi_agg_ref(*new, batch.sel, batch.meta, *old),
+                              "multi_agg_two")
     same_bits(two, got, "multi_agg_two")
     RJ = int(cache.x_new.shape[0])
     out.append(kernel_entry(
@@ -996,7 +1060,7 @@ def check_kernels(state, queries, m, seed, launches, iters):
         return multi_agg_one(*view, batch.sel, batch.meta, sel_idx=None if decode else sel_idx)
 
     got = one()
-    err1, rel1 = compare(got, multi_agg_ref(*view, batch.sel, batch.meta), "multi_agg_one")
+    err1, rel1 = hold_moments(got, multi_agg_ref(*view, batch.sel, batch.meta), "multi_agg_one")
     same_bits(one, got, "multi_agg_one")
     RV = int(x.shape[0])
     out.append(kernel_entry(
@@ -2227,7 +2291,7 @@ class FlashCapture:
                     None if key_pos is None else key_pos.clone()))
                 self.captured[label] = tuple(
                     torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                        device=t.device).copy_(t) for t in (q, k, v))
+                                        device=t.device).copy_(t.detach()) for t in (q, k, v))
         return out
 
     def __enter__(self):
@@ -2266,6 +2330,46 @@ class MoeCapture:
 
     def __exit__(self, *exc):
         self.mod.moe_ffn_local = self.real
+
+
+def _copied(x):
+    """``x`` with every tensor in it (also inside lists and tuples) copied."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copied(y) for y in x)
+    return x
+
+
+class CallCapture:
+    """Stands in for ``module.name`` while a path runs: calls it and keeps,
+    for every call, a copy of its arguments by parameter name (defaults
+    filled in) and of what it returned, so the kernel it reaches can be
+    held against its plain version on the path's own inputs afterwards.
+    The copies launch no kernel."""
+
+    def __init__(self, module, name: str):
+        import inspect
+
+        self.mod, self.name, self.real = module, name, getattr(module, name)
+        self.sig = inspect.signature(self.real)
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        bound = self.sig.bind(*args, **kw)
+        bound.apply_defaults()
+        out = self.real(*args, **kw)
+        self.calls.append((_copied(dict(bound.arguments)), _copied(out)))
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
 
 
 def attention_layers(params) -> int:
@@ -3118,6 +3222,552 @@ def recurrent_phases(smi: str, device: str = "cuda") -> None:
     emit({"phase": "ssm_device_vs_cpu", **serve_device_vs_cpu(
         SSM_ARCH, RECURRENT_SMOKE_PROMPT_LENS, 4, 64, 8, SEED, devices=(device, "cpu")),
         "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# Training: gemma-2b's train step at its published size, the smoke configs
+# on the card against the CPU, and the launcher's restart from a checkpoint
+# ---------------------------------------------------------------------------
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """Model operations of one train step over (B, S) tokens: 6·N·tokens
+    (every parameter's product forward and twice backward; the tied
+    embedding counted once, as the unembedding) plus the causal attention's
+    two products, 4·B·H·hd·S(S+1)/2 a layer forward and twice that
+    backward.  The remat recompute is not counted."""
+    from repro_torch.models.api import param_counts
+
+    pairs = S * (S + 1) // 2
+    return (6.0 * param_counts(cfg)["total"] * B * S
+            + 3 * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers)
+
+
+def probe_params(params) -> dict:
+    """Copies of a few small slices of the parameters, to show they moved."""
+    return {"final_norm": params.final_norm.detach()[:64].clone(),
+            "layers.0.ln1": params.layers[0].ln1.detach()[:64].clone(),
+            "layers.0.wq": params.layers[0].wq.detach()[:8, :8].clone(),
+            "embed": params.embed.detach()[:8, :8].clone()}
+
+
+def run_train_path(argv, seed, device="cuda"):
+    """``launch.train.build`` on ``argv`` (float32 masters and AdamW state
+    on ``device``), its steps with the loss view's cadences, the SVC
+    estimates against the truth after a full maintenance, then one step
+    under the kernel profiler and one under ``torch.profiler``.  The launch
+    counters are set to 0 just before the steps and read after the
+    maintenance.  Returns (report, the FlashCapture, launches, the loss
+    view's CallCaptures)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import LOSS_VIEW
+    from repro_torch.launch import train
+    from repro_torch.obs.kprof import KernelProfiler
+    from repro_torch.training import init_train_state
+
+    args = train.parser().parse_args(list(argv) + ["--device", device, "--seed", str(seed)])
+    cfg, model, pipe, stats, step_fn = train.build(args)
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = wall(lambda: init_train_state(model, seed))
+    leaves = [p for p in state.params.parameters() if p.requires_grad]
+    n_params = sum(p.numel() for p in leaves)
+    before = probe_params(state.params)
+    B, S = args.batch, args.seq
+    cap = FlashCapture(wants={"train causal": lambda q, k, causal, qpos: (
+        causal and q.shape[1] == S and k.shape[1] == S)})
+    svc_caps = train_svc_captures()
+    box = [state]
+
+    def one_step(batch):
+        box[0], met = step_fn(box[0], batch)
+        return met
+
+    steps = []
+    kernels.reset_launches()
+    with cap, svc_caps["hash_threshold"], svc_caps["segment_aggsum"], svc_caps["multi_agg"]:
+        for i in range(args.steps):
+            batch = pipe.batch(i)
+            flash0 = kernels.launch_counts()["flash_attention"]
+            met, step_s = wall(lambda: one_step(batch))
+            steps.append({"step": i + 1, "wall_s": step_s, "tok_per_s": B * S / step_s,
+                          "flash_launches": kernels.launch_counts()["flash_attention"] - flash0,
+                          **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
+            stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
+            if i > 0 and i % args.svc_every == 0:
+                stats.svc_refresh()
+            if i > 0 and i % args.mixture_every == 0:
+                pipe.set_mixture(stats.mixture_weights())
+        estimates = [stats.loss_estimate(d) for d in range(stats.n_domains)]
+        _, maintain_s = wall(stats.full_maintenance)
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = 2 * cfg.n_layers if cfg.remat == "full" else cfg.n_layers
+    bad = [s for s in steps if s["flash_launches"] != per_step]
+    if bad:
+        fail(f"train_path: flash_attention launches per step {[s['flash_launches'] for s in steps]}"
+             f", expected {per_step} (forward and the remat recompute of {cfg.n_layers} layers)")
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps):
+        fail(f"train_path: a non-finite loss or grad norm: {steps}")
+    after = probe_params(state.params)
+    still = [k for k in before if bool(torch.equal(before[k], after[k]))]
+    if still:
+        fail(f"train_path: parameters did not move: {still}")
+    if bool(np.allclose(pipe.mixture, 1.0 / len(pipe.mixture))):
+        fail("train_path: the mixture was not re-weighted from the SVC estimates")
+    # after the maintenance the view is exact: its stale answers are the truth
+    truth, svc = [], []
+    for d in range(stats.n_domains):
+        exact = []
+        for q in stats.domain_queries(d):
+            a = float(stats.vm.query_stale(LOSS_VIEW, q))
+            b = float(stats.vm.query_exact_fresh(LOSS_VIEW, q))
+            if a != b:
+                fail(f"train_path: domain {d} query_stale {a} != query_exact_fresh {b} after "
+                     "full_maintenance")
+            exact.append(a)
+        mean = exact[0] / max(exact[1], 1.0)
+        est, (lo, hi) = estimates[d]
+        truth.append(mean)
+        svc.append({"domain": d, "tokens_seen": exact[1], "true_mean_loss": mean,
+                    "svc_estimate": est, "ci": [lo, hi], "covered": lo <= mean <= hi})
+    # one more step under the kernel profiler (every dispatch synchronized):
+    # no op takes its plain version
+    prof = KernelProfiler()
+    kernels.set_profiler(prof)
+    try:
+        with uncounted():
+            one_step(pipe.batch(args.steps))
+    finally:
+        kernels.set_profiler(None)
+    ops = prof.summary()
+    for op, want in (("flash_attention", per_step), ("flash_attention_bwd", cfg.n_layers)):
+        got = ops.get(op, {})
+        if got.get("dispatches") != want or got.get("fallbacks") != 0:
+            fail(f"train_path: under the kernel profiler {op} read {got}, expected {want} "
+                 "dispatches and 0 fallbacks")
+    with uncounted():
+        profile = profile_ops(lambda: one_step(pipe.batch(args.steps + 1)), top=12)
+    # AdamW alone: one more update of every leaf from the last step's
+    # gradients (the phase's checks are done), against its bytes bound
+    # (each parameter's f32 p, g, m, v read and p, m, v written: 28 bytes)
+    from repro_torch.models.convert import jax_leaves
+    from repro_torch.training import adamw_update
+
+    ranks = {n: r for n, (_k, _i, r) in jax_leaves(box[0].params).items()}
+    named = {n: p for n, p in box[0].params.named_parameters()}
+    _, adamw_s = wall(lambda: adamw_update(step_fn.opt_cfg, named,
+                                           {n: p.grad for n, p in named.items()},
+                                           box[0].opt_state, ranks))
+    del box, state, leaves, before, after, named
+    errs = [abs(e[0] - t) / abs(t) for e, t in zip(estimates, truth) if t]
+    warm = steps[1:]
+    warm_s = sum(s["wall_s"] for s in warm) / len(warm)
+    flops = train_flops(cfg, B, S)
+    report = {
+        "arch": cfg.name, "params": n_params, "dtype": cfg.compute_dtype, "remat": cfg.remat,
+        "state_bytes": {"params": 4 * n_params, "grads": 4 * n_params, "adamw_m": 4 * n_params,
+                        "adamw_v": 4 * n_params},
+        "batch": B, "seq": S, "steps": steps, "init_s": init_s,
+        "warm_tok_per_s": B * S * len(warm) / sum(s["wall_s"] for s in warm),
+        "warm_step_s": warm_s, "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / warm_s / BF16_OPS_PER_S,
+        "svc": {"m": stats.vm.views[LOSS_VIEW].m, "refreshes_every": args.svc_every,
+                "mixture_at": args.mixture_every, "mixture": [float(w) for w in pipe.mixture],
+                "maintain_s": maintain_s, "domains": svc,
+                "rel_err_vs_truth": {"median": float(np.median(errs)), "max": float(np.max(errs))},
+                "ci_coverage": sum(r["covered"] for r in svc) / len(svc)},
+        "stale_eq_exact_fresh_after_maintenance": True,
+        "peak_device_gb": peak_gb, "launches": launches,
+        "flash_launches_per_step": per_step, "kprof_step": {k: ops[k] for k in sorted(ops)},
+        "adamw_s": adamw_s, "adamw_bound_s": 28 * n_params / HBM_BYTES_PER_S,
+        "device_busy_share_of_warm_step": profile.get("device_only_ms", 0.0) / 1e3 / warm_s
+        if warm_s else None,
+        "step_profile": profile,
+    }
+    return report, cap, launches, svc_caps
+
+
+def train_svc_captures() -> dict:
+    """CallCaptures of the functions through which the loss view reaches
+    its kernels: ``apply_hash``'s ``hash_threshold_mask`` (hash_threshold),
+    the group-by's ``segment_groupby`` (segment_aggsum) and the query
+    engine's ``multi_agg_moments`` (multi_agg, one- and two-sided)."""
+    from repro_torch.core import hashing
+    from repro_torch.query import engine
+    from repro_torch.relational import ops
+
+    return {"hash_threshold": CallCapture(hashing, "hash_threshold_mask"),
+            "segment_aggsum": CallCapture(ops, "segment_groupby"),
+            "multi_agg": CallCapture(engine, "multi_agg_moments")}
+
+
+def hold_groupby(got, gid, vals, G, what) -> float:
+    """segment_groupby's (counts, sums) on (gid, vals, G): counts equal the
+    plain version's and the exact counts; the kernel's sums (each group's
+    float64 sum rounded once) within F64_SUM_RTOL·Σ|x| of the float64 sums,
+    the plain version's (float32, row order) within γ_{n−1}·Σ|x|.  Returns
+    max |kernel − plain| over the sums."""
+    import torch
+
+    from repro_torch.kernels.segment_aggsum import segment_groupby_ref
+
+    counts, sums = got
+    pc, ps = segment_groupby_ref(gid, vals, G)
+    keep = (gid >= 0) & (gid < G)
+    g = torch.where(keep, gid.long(), torch.full_like(gid, G, dtype=torch.int64))
+    if not (torch.equal(counts, pc) and
+            torch.equal(counts.long(), torch.bincount(g, minlength=G + 1)[:G])):
+        fail(f"{what}: segment_groupby's counts differ from the plain and the exact counts")
+    if vals.shape[1] == 0:
+        return 0.0
+    exact = torch.zeros((G + 1, vals.shape[1]), dtype=torch.float64, device=gid.device).index_add_(
+        0, g, vals.double())[:G]
+    abs_sum = torch.zeros((G + 1, vals.shape[1]), dtype=torch.float64,
+                          device=gid.device).index_add_(0, g, vals.double().abs())[:G]
+    if bool(((sums.double() - exact).abs() > F64_SUM_RTOL * abs_sum).any()):
+        fail(f"{what}: segment_groupby's sums beyond {F64_SUM_RTOL} of sum|x| from the float64 "
+             "sums")
+    rtol = torch.from_numpy(f32_sum_rtol(pc.cpu().numpy())).to(gid.device)[:, None]
+    if bool(((ps.double() - exact).abs() > rtol * abs_sum).any()):
+        fail(f"{what}: the plain version's sums beyond gamma_(n-1)*sum|x| of the float64 sums")
+    return float((sums - ps).abs().max())
+
+
+def check_train_svc_kernels(caps, launches, iters) -> list:
+    """The loss view's kernels held against their plain versions on every
+    input ``train_path`` gave them (``caps``: train_svc_captures after the
+    path; one captured call for each launch counted in ``launches``), each
+    timed on the path's largest call.  A ``kernel`` line each, with the
+    path's launches."""
+    import torch
+
+    from repro_torch.kernels.hash_threshold import hash_threshold, hash_threshold_ref
+    from repro_torch.kernels.multi_agg.ops import multi_agg_moments, selector_indices
+    from repro_torch.kernels.multi_agg.ref import multi_agg_ref
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_groupby_ref
+
+    def held(name, n_calls):
+        if n_calls != launches[name]:
+            fail(f"train_path: {n_calls} captured calls reach {name}, which launched "
+                 f"{launches[name]} times")
+
+    def timed(kernel, plain):
+        return {"ms": cuda_ms(kernel, iters), "plain_ms": cuda_ms(plain, iters),
+                "host_enqueue_us": host_enqueue_us(kernel, iters)}
+
+    out = []
+    with uncounted():
+        # hash_threshold, as apply_hash calls it: (cols, m, seed, valid)
+        calls = caps["hash_threshold"].calls
+        held("hash_threshold", len(calls))
+        for a, got in calls:
+            want = hash_threshold_ref(a["cols"], a["m"], a["seed"])
+            if not torch.equal(got, want if a["valid"] is None else a["valid"] & want):
+                fail("train_path: hash_threshold differs from its plain version")
+        a, _ = max(calls, key=lambda c: c[0]["cols"][0].shape[0])
+        cols, m, seed, valid = tuple(a["cols"]), float(a["m"]), int(a["seed"]), a["valid"]
+        R = int(cols[0].shape[0])
+        t = timed(lambda: hash_threshold(cols, m, seed, valid),
+                  lambda: hash_threshold_ref(cols, m, seed) & (True if valid is None else valid))
+        out.append(kernel_entry(
+            "hash_threshold", "cuda", "src/repro_torch/csrc/hash_threshold.cu",
+            "src/repro/kernels/hash_threshold/kernel.py:45", launches["hash_threshold"], 0.0,
+            t["ms"], t["plain_ms"], bytes_=R * (4 * len(cols) + 1 + 1), ops=0,
+            path="train_path", calls_held=len(calls),
+            rows_per_call=[int(c[0]["cols"][0].shape[0]) for c in calls], rows=R,
+            host_enqueue_us=t["host_enqueue_us"],
+            entry="hash_threshold(cols, m, seed, valid), as apply_hash calls it in the loss "
+                  "view's unfused clean; timed on the path's largest call",
+            tolerance="equal masks on every call of the path"))
+
+        # segment_aggsum, as the group-by calls it: (gid, vals, num_groups)
+        calls = caps["segment_aggsum"].calls
+        held("segment_aggsum", len(calls))
+        err = max(hold_groupby(got, a["gid"], a["vals"], a["num_groups"],
+                               f"train_path group-by {i}") for i, (a, got) in enumerate(calls))
+        a, _ = max(calls, key=lambda c: c[0]["gid"].shape[0])
+        gid, vals, G = a["gid"], a["vals"], int(a["num_groups"])
+        R, C = int(gid.shape[0]), int(vals.shape[1])
+        g_idx = torch.where((gid >= 0) & (gid < G), gid.long(),
+                            torch.full_like(gid, G, dtype=torch.int64))
+        kept = int((g_idx < G).sum())
+        ones_vals = torch.cat([torch.ones_like(vals[:, :1]), vals], 1)
+        t = timed(lambda: segment_groupby(gid, vals, G),
+                  lambda: segment_groupby_ref(gid, vals, G))
+        out.append(kernel_entry(
+            "segment_aggsum", "cuda", "src/repro_torch/csrc/segment_aggsum.cu",
+            "src/repro/kernels/segment_aggsum/kernel.py:48", launches["segment_aggsum"], err,
+            t["ms"], t["plain_ms"], bytes_=R * 4 + kept * C * 4 + G * 4 * (1 + C),
+            ops=kept * (1 + C),
+            library_ms=cuda_ms(lambda: torch.zeros((G + 1, C + 1), dtype=torch.float32,
+                                                   device=gid.device).index_add_(0, g_idx,
+                                                                                 ones_vals),
+                               iters),
+            library_call="index_add_ of [1 | vals] into a (G + 1, C + 1) zeroed tensor, gid "
+                         "remapped beforehand",
+            path="train_path", calls_held=len(calls),
+            rows_per_call=[int(c[0]["gid"].shape[0]) for c in calls], rows=R, columns=C,
+            groups=G, kept_rows=kept, host_enqueue_us=t["host_enqueue_us"],
+            entry="segment_groupby(gid, vals, G), as the loss view's group-bys call it; timed "
+                  "on the path's largest call",
+            tolerance=(f"counts equal to the plain and the exact counts; the kernel's sums within "
+                       f"{F64_SUM_RTOL}*sum|x| of the float64 sums, the plain version's within "
+                       "gamma_(n-1)*sum|x|; on every call of the path")))
+
+        # multi_agg, as the query engine calls it: one-sided over a sample
+        # or a view, two-sided over a correspondence panel
+        sides = {"multi_agg_one": [], "multi_agg_two": []}
+        for a, got in caps["multi_agg"].calls:
+            sides["multi_agg_two" if a["x_old"] is not None else "multi_agg_one"].append((a, got))
+        for name, calls in sides.items():
+            held(name, len(calls))
+            two = name == "multi_agg_two"
+            keys = ("x_new", "valid_new", "w_new", "ompi_new", "sel", "meta") + (
+                ("x_old", "valid_old", "w_old", "ompi_old") if two else ())
+            errs = [hold_moments(got, multi_agg_ref(*[a[k] for k in keys]),
+                                 f"train_path {name} call {i}")
+                    for i, (a, got) in enumerate(calls)]
+            a, _ = max(calls, key=lambda c: c[0]["x_new"].shape[0])
+            args = [a[k] for k in keys]
+            sel_idx = a["sel_idx"]
+            if sel_idx is None:
+                sel_idx = selector_indices(a["sel"], a["x_new"].shape[1])
+            used = int(torch.unique(sel_idx[sel_idx >= 0]).numel())
+            P, Q = int(sel_idx.shape[0]) - 1, int(sel_idx.shape[1])
+            R = int(a["x_new"].shape[0])
+            t = timed(lambda: multi_agg_moments(*args, sel_idx=a["sel_idx"]),
+                      lambda: multi_agg_ref(*args))
+            out.append(kernel_entry(
+                name, "cuda", "src/repro_torch/csrc/multi_agg.cu",
+                "src/repro/kernels/multi_agg/kernel.py:" + ("128" if two else "159"),
+                launches[name], max(e for e, _r in errs), t["ms"], t["plain_ms"],
+                bytes_=(2 if two else 1) * R * (4 * used + 1 + 4 + 4),
+                ops=R * Q * ((2 * (8 + 4 * P) + 9) if two else (8 + 4 * P)),
+                path="train_path", calls_held=len(calls), rows=R, queries=Q,
+                predicate_slots=P, max_rel_err=max(r for _e, r in errs),
+                host_enqueue_us=t["host_enqueue_us"],
+                entry="multi_agg_moments as the query engine calls it (sel_idx given) for the "
+                      "loss view's queries; timed on the path's largest call",
+                tolerance="counts exact; moments 1e-5 relative (S_D: of S_NEW + S_OLD); on "
+                          "every call of the path"))
+    return out
+
+
+def flash_bwd_entry(q, k, v, iters) -> dict:
+    """``flash_attention_bwd`` (autograd through the plain version) on
+    (q, k, v) and a random output gradient, timed beside
+    scaled_dot_product_attention's backward on the same inputs (its forward
+    graph built once, outside the timing); the gradients' largest
+    difference from SDPA's is reported, not held."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.autograd import flash_attention_bwd
+
+    H, K = q.shape[2], k.shape[2]
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED),
+                    device=q.device).to(q.dtype)
+    ours = flash_attention_bwd(q, k, v, g, True)
+    ins = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*ins, is_causal=True, enable_gqa=H != K)
+    go = g.transpose(1, 2)
+    lib = torch.autograd.grad(out, ins, go, retain_graph=True)
+    diff = max(float((a.float() - b.transpose(1, 2).float()).abs().max()) for a, b in
+               zip(ours, lib))
+    scale = max(float(b.float().abs().max()) for b in lib)
+    return {"bwd_op": "flash_attention_bwd (autograd of the plain version)",
+            "bwd_ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, g, True), iters),
+            "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(out, ins, go,
+                                                                  retain_graph=True), iters),
+            "bwd_library_call": "torch.autograd.grad of scaled_dot_product_attention(enable_gqa)",
+            "bwd_max_abs_diff_vs_library": diff, "bwd_max_abs_library": scale}
+
+
+def train_device_vs_cpu(archs, B, S, n_steps, seed, devices=("cuda", "cpu")) -> dict:
+    """Each smoke config of ``archs`` (f32, TF32 off), and the first again
+    with remat="full", trained ``n_steps`` from one seed on ``devices[0]``
+    and on ``devices[1]`` (the CPU): loss and grad norm within
+    TRAIN_LOSS_RTOL, step 1's gradients within TRAIN_GRAD_TOL of each
+    leaf's largest |gradient|, all the parameters after each step within
+    TRAIN_PARAM_TOL of the step's update norm (each leaf's ratio and the
+    elements apart by more than lr/2 are reported).  The control, the first
+    config with TF32 on for ``devices[0]``'s products, is read the same
+    way and held to nothing: it shows what each limit separates."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    cfgs = [get_smoke_config(a) for a in archs]
+    cfgs.append(dataclasses.replace(cfgs[0], remat="full"))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=n_steps)
+
+    def compare(cfg, what, hold):
+        runs = []
+        for dev in devices:
+            model = get_model(cfg, device=dev, train=True)
+            runs.append([model, init_train_state(model, seed), make_train_step(model, opt),
+                         TokenPipeline(PipelineConfig(cfg.vocab, S, B, seed=seed), device=dev)])
+        runs[0][1].params.load_state_dict(runs[1][1].params.state_dict())
+        rows = []
+        for i in range(n_steps):
+            prev = {n: p.detach().clone() for n, p in runs[1][1].params.named_parameters()}
+            mets = []
+            for run in runs:
+                run[1], met = run[2](run[1], run[3].batch(i))
+                mets.append(met)
+            row = {"step": i + 1}
+            for key in ("loss", "grad_norm"):
+                a, b = float(mets[0][key]), float(mets[1][key])
+                row[key] = [a, b]
+                row[f"{key}_rel_diff"] = abs(a - b) / abs(b)
+                if hold and not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b):
+                    fail(f"train_device_vs_cpu {what} step {i + 1}: {key} {a} against the CPU's "
+                         f"{b}")
+            cpu = dict(runs[1][1].params.named_parameters())
+            worst_p = worst_g = err2 = upd2 = 0.0
+            flips = 0
+            for name, p in runs[0][1].params.named_parameters():
+                q = cpu[name]
+                diff = p.detach().cpu() - q.detach()
+                upd = float((q.detach() - prev[name]).norm())
+                err = float(diff.norm())
+                err2, upd2 = err2 + err * err, upd2 + upd * upd
+                flips += int((diff.abs() > 0.5 * float(mets[1]["lr"])).sum())
+                worst_p = max(worst_p, err / upd if upd else err)
+                if i == 0:
+                    gs = float(q.grad.abs().max())
+                    ge = float((p.grad.cpu() - q.grad).abs().max())
+                    if hold and ge > TRAIN_GRAD_TOL * gs:
+                        fail(f"train_device_vs_cpu {what}: {name}'s gradient {ge} from the CPU's "
+                             f"beyond {TRAIN_GRAD_TOL} of its max {gs}")
+                    worst_g = max(worst_g, ge / gs if gs else ge)
+            whole = math.sqrt(err2 / upd2) if upd2 else math.sqrt(err2)
+            if hold and whole > TRAIN_PARAM_TOL:
+                fail(f"train_device_vs_cpu {what} step {i + 1}: the parameters lie {whole} of "
+                     f"the update's norm from the CPU's (limit {TRAIN_PARAM_TOL})")
+            row.update(param_err_over_update_norm=whole, worst_leaf_err_over_update_norm=worst_p,
+                       elements_apart_over_half_lr=flips)
+            if i == 0:
+                row["grad_err_over_max_grad"] = worst_g
+            if "moe_load" in mets[1]:
+                row["moe_load_equal"] = bool(torch.equal(mets[0]["moe_load"].cpu(),
+                                                         mets[1]["moe_load"]))
+            rows.append(row)
+        return rows
+
+    out = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cfg in cfgs:
+        what = f"{cfg.name} remat={cfg.remat}"
+        out[what] = compare(cfg, what, hold=True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = compare(cfgs[0], "control", hold=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"archs": list(out), "batch": B, "seq": S, "steps": n_steps, "runs": out,
+            "control_tf32": {"arch": cfgs[0].name, "runs": control},
+            "tolerance": f"loss and grad_norm within {TRAIN_LOSS_RTOL} relative; step 1's "
+                         f"gradients within {TRAIN_GRAD_TOL} of each leaf's max |grad|; the "
+                         f"parameters within {TRAIN_PARAM_TOL} of the update's norm over all "
+                         "leaves (f32, TF32 off); the TF32 control is read, not held"}
+
+
+def train_restart(argv, seed, restored_step, device="cuda") -> dict:
+    """``launch.train.main`` on ``argv`` with a checkpoint directory under
+    ``build/``: the lost host's step restores ``restored_step``'s
+    checkpoint, the restored state equals the saved one bit for bit (every
+    leaf, as saved and as read back), and the run ends with a finite loss.
+    Reports ``main``'s dict, its log, and the checkpoints' bytes and
+    save/restore walls."""
+    import io
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import host_leaves
+    from repro_torch.launch import train
+
+    saved, restored, walls = {}, [], {"save_s": [], "restore_s": []}
+
+    class Recording(CheckpointManager):
+        def save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            out = super().save(step, tree, extra)
+            walls["save_s"].append(time.perf_counter() - t0)
+            saved[step] = dict(host_leaves(tree))
+            return out
+
+        def restore(self, template, step=None):
+            t0 = time.perf_counter()
+            tree, extra = super().restore(template, step)
+            walls["restore_s"].append(time.perf_counter() - t0)
+            got, want = dict(host_leaves(tree)), saved[extra["step"]]
+            same = sorted(got) == sorted(want) and all(
+                np.array_equal(got[k], want[k]) for k in want)
+            restored.append({"step": extra["step"], "leaves": len(got), "bit_equal": same})
+            return tree, extra
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    real, log = train.CheckpointManager, io.StringIO()
+    train.CheckpointManager = Recording
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            with contextlib.redirect_stdout(log):
+                out, wall_s = wall(lambda: train.main(
+                    list(argv) + ["--ckpt", tmp, "--device", device, "--seed", str(seed)]))
+            files = [p for p in Path(tmp).rglob("*") if p.is_file()]
+            ckpt_bytes = sum(p.stat().st_size for p in files)
+            kept = sorted(p.name for p in Path(tmp).iterdir())
+    finally:
+        train.CheckpointManager = real
+    if [r["step"] for r in restored] != [restored_step]:
+        fail(f"train_restart: restored {restored}, expected step {restored_step} once")
+    if not all(r["bit_equal"] for r in restored):
+        fail(f"train_restart: a restored state differs from the saved one: {restored}")
+    if out["last_loss"] is None or not math.isfinite(out["last_loss"]):
+        fail(f"train_restart: the run ended with loss {out['last_loss']}")
+    return {"main": out, "wall_s": wall_s, "restores": restored, "saves": sorted(saved),
+            "save_s": walls["save_s"], "restore_s": walls["restore_s"],
+            "checkpoint_bytes_on_disk": ckpt_bytes, "kept": kept,
+            "bytes_per_checkpoint": ckpt_bytes // max(len(kept), 1),
+            "log": log.getvalue().splitlines()}
+
+
+def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
+    """train_path (gemma-2b at its published size; ``path_argv`` replaces
+    its arch flags, as a CPU rehearsal's smoke config does), its flash
+    ``kernel`` line at the training shape with the backward beside it, the
+    loss view's kernels against their plain versions on the path's inputs,
+    train_device_vs_cpu and train_restart.  Returns the kernel lines."""
+    import torch
+
+    argv = (("--arch", TRAIN_ARCH) if path_argv is None else tuple(path_argv)) + TRAIN_ARGV
+    report, cap, launches, svc = run_train_path(argv, SEED, device=device)
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the train path: {missing}")
+    emit({"phase": "train_path", **report, "card": smi})
+    torch.cuda.empty_cache()
+    q, k, v = cap.captured["train causal"]
+    del cap
+    lines = [flash_entry("train_path causal (layer 0, captured)", q, k, v, True,
+                         launches["flash_attention"], ITERS, **flash_bwd_entry(q, k, v, ITERS))]
+    del q, k, v
+    lines += check_train_svc_kernels(svc, launches, ITERS)
+    del svc
+    for line in lines:
+        emit({"phase": "kernel", **line, "card": smi})
+    torch.cuda.empty_cache()
+    emit({"phase": "train_device_vs_cpu", **train_device_vs_cpu(
+        TRAIN_SMOKE_ARCHS, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS, SEED,
+        devices=(device, "cpu")), "card": smi})
+    emit({"phase": "train_restart", **train_restart(TRAIN_RESTART_ARGV, SEED, TRAIN_RESTORED_STEP,
+                                                    device=device), "card": smi})
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -4145,8 +4795,12 @@ def main(argv=None) -> int:
     # the hybrid and ssm families
     torch.cuda.empty_cache()
     recurrent_phases(smi)
+    # training, on a card the serving phases have let go of
+    torch.cuda.empty_cache()
+    train_lines = train_phases(smi)
 
-    emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]})
+    emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]
+          + train_lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -20,7 +20,10 @@ arrival counters in another (zeroed once; every launch leaves them at 0),
 both grown on demand and never shrunk.  They serve one stream: two calls
 in flight on different streams would share them.  Every call dispatches
 through ``obs.kprof.profiled`` as ``"flash_attention"`` (the JAX package
-has no profiled attention: its flash kernel is on no path).
+has no profiled attention: its flash kernel is on no path).  With grad on
+and an input that requires it, the call goes through
+``autograd.FlashAttention``: the same dispatch forward, and the plain
+version's gradient backward (``"flash_attention_bwd"``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build as B
+from repro_torch.kernels.flash_attention.autograd import FlashAttention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.obs.kprof import profiled
 
@@ -191,11 +195,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qpos + i − window, where p_j is ``key_pos[j]`` (an int32 (T,) tensor of
     slot positions, −1 for an empty slot; shared by the batch) or j.  With
     the defaults that is j ≤ i.  Otherwise all T keys are kept.  Inputs
-    may be strided views (the last dim contiguous).
+    may be strided views (the last dim contiguous).  Differentiable in q,
+    k and v (``autograd.FlashAttention``).
     """
     _check(q, k, v)
     window, qpos = int(window), int(qpos)
     _check_mask(q, k, causal, window, key_pos, qpos)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(_dispatch, q, k, v, bool(causal), window, key_pos, qpos)
+    return _dispatch(q, k, v, causal, window, key_pos, qpos)
+
+
+def _dispatch(q, k, v, causal, window, key_pos, qpos):
+    """The checked call's forward: the plain version on the CPU, the
+    kernel's launch on the card."""
     rows = q.shape[0] * q.shape[1]
     if q.device.type == "cpu":
         return profiled("flash_attention", flash_attention_ref, q, k, v, causal, window,

@@ -49,7 +49,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # average the masked values instead of raising.
             raise ValueError("flash_attention: a query row keeps no key under window="
                              f"{window}, qpos={qpos}")
-        s = torch.where(keep, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+        s = s.masked_fill(~keep, NEG_INF)  # no host scalar copied to the device
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)

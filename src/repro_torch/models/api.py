@@ -4,7 +4,9 @@
 five entry names for the dense, moe and vlm families (``Transformer``),
 the hybrid family (``rglru.RecurrentGemma``), the ssm family
 (``xlstm.XLSTM``) and the encdec family (``EncDec``).  ``params`` is the module that ``init``
-builds (or ``models.convert`` carries over from JAX):
+builds (or ``models.convert`` carries over from JAX); with ``train=True``
+(the dense, moe and vlm families only; the others raise) ``init`` builds
+the float32-master form that ``training`` updates:
 
   init(seed or torch.Generator)                 -> params
   forward(params, batch)                        -> (logits, aux)
@@ -37,6 +39,7 @@ from repro_torch.models.transformer import Transformer, check_family, init_cache
 class Model:
     cfg: ArchConfig
     device: torch.device
+    train: bool  # whether ``init`` builds float32 masters
     init: Callable[..., Any]
     forward: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -52,10 +55,11 @@ def _module(cfg: ArchConfig):
     return _MODULES.get(cfg.family, Transformer)
 
 
-def get_model(cfg: ArchConfig, device="cuda") -> Model:
+def get_model(cfg: ArchConfig, device="cuda", train: bool = False) -> Model:
     """``cfg``'s entry points on ``device`` (the card unless the caller asks
-    for the CPU)."""
-    check_family(cfg)
+    for the CPU); ``train``: ``init`` builds float32 masters, and a family
+    the port does not train raises here."""
+    check_family(cfg, train=train)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"get_model(device={str(device)!r}): no CUDA device is available; "
@@ -66,7 +70,8 @@ def get_model(cfg: ArchConfig, device="cuda") -> Model:
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=device).manual_seed(int(seed))
-        return module(cfg, device).init_weights(gen)
+        made = module(cfg, device, masters=True) if train else module(cfg, device)
+        return made.init_weights(gen)
 
     def decode_step(params, cache, tokens, pos, rows=None):
         with f32_accumulation():
@@ -81,7 +86,7 @@ def get_model(cfg: ArchConfig, device="cuda") -> Model:
             with f32_accumulation():
                 return params.prefill(batch["frames"], batch["tokens"], cache_len)
 
-        return Model(cfg=cfg, device=device, init=init, forward=forward,
+        return Model(cfg=cfg, device=device, train=train, init=init, forward=forward,
                      init_cache=lambda B, T: encdec.init_cache(cfg, B, T, device=device),
                      prefill=prefill, decode_step=decode_step)
 
@@ -93,7 +98,7 @@ def get_model(cfg: ArchConfig, device="cuda") -> Model:
         with f32_accumulation():
             return params.prefill(batch["tokens"], cache_len, batch.get("vision_embeds"))
 
-    return Model(cfg=cfg, device=device, init=init, forward=forward,
+    return Model(cfg=cfg, device=device, train=train, init=init, forward=forward,
                  init_cache=lambda B, T: _CACHES.get(cfg.family, init_cache)(cfg, B, T, device),
                  prefill=prefill, decode_step=decode_step)
 

@@ -3,19 +3,30 @@
 Covers phi3-mini, gemma-2b/7b, granite-3-2b (dense GQA/MQA), grok-1-314b
 and granite-moe-3b-a800m (MoE blocks, ``models.moe``) and qwen2-vl-72b
 (M-RoPE positions and the patch-embedding stub).  The port of
-``repro.models.transformer`` as an ``nn.Module`` that serves (no
-backward: the JAX flash kernel has none).  Every attention goes through
-``kernels.flash_attention``: causal over the prompt in ``forward``/
-``prefill``, non-causal against the cache slice ``[:, :pos+1]`` in
-``decode_step`` (the slice is a view; keys past ``pos`` are exactly the
-ones ``decode_mask(T, pos)`` masks).
+``repro.models.transformer`` as an ``nn.Module`` in two forms: served
+(matrices in ``compute_dtype``, nothing trainable) and float32 masters
+(``masters=True``: every leaf float32 and trainable, as JAX trains).
+Every matrix is cast to the activations' dtype at its use, as JAX casts
+its masters; for a served leaf, already in that dtype, the cast returns
+the leaf itself (no copy, no launch).  ``forward`` runs under the
+caller's grad mode, each layer under ``torch.utils.checkpoint`` when
+``cfg.remat == "full"`` and grad is on (JAX's ``jax.checkpoint``);
+``prefill`` and ``decode_step`` build no graph.  Every attention goes
+through ``kernels.flash_attention`` (its gradient: the plain version's,
+``kernels/flash_attention/autograd.py``): causal over the prompt in
+``forward``/``prefill``, non-causal against the cache slice
+``[:, :pos+1]`` in ``decode_step`` (the slice is a view; keys past
+``pos`` are exactly the ones ``decode_mask(T, pos)`` masks).
 
 Differences from the JAX module, all deliberate:
-  * matrices are held in ``compute_dtype`` (the bf16 cast of an f32 master
-    gives the same values JAX casts to at use); norm weights and the MoE
-    router (which JAX never casts) stay f32;
+  * served matrices are held in ``compute_dtype`` (the bf16 cast of an f32
+    master gives the same values JAX casts to at use); norm weights and
+    the MoE router (which JAX never casts) stay f32;
+  * per-layer leaves (``layers[i].wq``) where JAX stacks them over layers
+    (``layers/wq`` (L, …)); ``models.convert`` maps the two;
   * no ``ParallelCtx``, sharding pins or K/V repeat: JAX's serving path
-    builds none, and its trainer and dry run come with ROADMAP A.5/A.6;
+    builds none, and its model-parallel rules come with the dry run
+    (ROADMAP A.6);
   * ``decode_step`` writes the new K/V into the cache in place, and only
     at the batch rows it is given (``rows``): the same cache JAX's
     functional update followed by the serving engine's masked merge gives.
@@ -32,6 +43,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -42,22 +54,30 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VISION_STUB_DIM = 1024  # patch-embedding stub width (the frontend is external)
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")  # the families ``Transformer`` serves
 LM_FAMILIES = TRANSFORMER_FAMILIES + ("hybrid", "ssm")  # the decoder-only LMs
+TRAIN_FAMILIES = TRANSFORMER_FAMILIES  # the families the port trains
 
 
-def check_family(cfg: ArchConfig) -> None:
+def check_family(cfg: ArchConfig, train: bool = False) -> None:
     """Raise unless the port serves ``cfg``'s family: dense, moe and vlm
     (``Transformer``), hybrid (``models.rglru``), ssm (``models.xlstm``)
-    and encdec (``models.encdec``)."""
+    and encdec (``models.encdec``); with ``train``, unless it trains it
+    (``TRAIN_FAMILIES``: the hybrid, ssm and encdec modules build no
+    graph)."""
     if cfg.family not in LM_FAMILIES + ("encdec",):
         raise ValueError(cfg.family)
+    if train and cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the port trains the {TRAIN_FAMILIES} families, "
+                                  f"not {cfg.family} (it serves it)")
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+def _param(shape, dtype, device, masters: bool = False) -> nn.Parameter:
+    """A served leaf in ``dtype``, or a trainable float32 master."""
+    dtype = torch.float32 if masters else dtype
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=masters)
 
 
 def build_positions(cfg: ArchConfig, B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
@@ -97,27 +117,28 @@ class Block(nn.Module):
     """One transformer block: ``full`` over a sequence (JAX ``_layer_full``),
     ``decode`` for one token against the cache (``_layer_decode``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         self.cfg = cfg
         d, F, dt = cfg.d_model, cfg.d_ff, compute_dtype(cfg)
-        self.ln1 = _param((d,), torch.float32, device)
-        self.ln2 = _param((d,), torch.float32, device)
-        self.wq = _param((d, cfg.q_dim), dt, device)
-        self.wk = _param((d, cfg.kv_dim), dt, device)
-        self.wv = _param((d, cfg.kv_dim), dt, device)
-        self.wo = _param((cfg.q_dim, d), dt, device)
+        self.ln1 = _param((d,), torch.float32, device, masters)
+        self.ln2 = _param((d,), torch.float32, device, masters)
+        self.wq = _param((d, cfg.q_dim), dt, device, masters)
+        self.wk = _param((d, cfg.kv_dim), dt, device, masters)
+        self.wv = _param((d, cfg.kv_dim), dt, device, masters)
+        self.wo = _param((cfg.q_dim, d), dt, device, masters)
         E = cfg.moe_experts
         if E:
-            self.router = _param((d, E), torch.float32, device)
-        self.w_gate = _param((E, d, F) if E else (d, F), dt, device)
-        self.w_up = _param((E, d, F) if E else (d, F), dt, device)
-        self.w_down = _param((E, F, d) if E else (F, d), dt, device)
+            self.router = _param((d, E), torch.float32, device, masters)
+        self.w_gate = _param((E, d, F) if E else (d, F), dt, device, masters)
+        self.w_up = _param((E, d, F) if E else (d, F), dt, device, masters)
+        self.w_down = _param((E, F, d) if E else (F, d), dt, device, masters)
 
     def _qkv(self, x, positions):
         c = self.cfg
         h = L.rmsnorm(x, self.ln1, c.norm_eps)
-        q, k, v = L.qkv_project(h, self.wq, self.wk, self.wv, c.n_heads, c.n_kv_heads, c.head_dim)
+        q, k, v = L.qkv_project(h, self.wq.to(h.dtype), self.wk.to(h.dtype), self.wv.to(h.dtype),
+                                c.n_heads, c.n_kv_heads, c.head_dim)
         return _rope(c, q, positions), _rope(c, k, positions), v
 
     def ffn(self, h):
@@ -125,7 +146,8 @@ class Block(nn.Module):
         The MoE capacity comes from all B·S tokens of the call."""
         c = self.cfg
         if not c.moe_experts:
-            return L.glu_mlp(h, self.w_gate, self.w_up, self.w_down, c.act), None
+            return L.glu_mlp(h, self.w_gate.to(h.dtype), self.w_up.to(h.dtype),
+                             self.w_down.to(h.dtype), c.act), None
         B, S, d = h.shape
         y, load = moe_ffn_local(h.reshape(B * S, d), self.router, self.w_gate, self.w_up,
                                 self.w_down, c, moe_capacity(c, B * S))
@@ -134,7 +156,7 @@ class Block(nn.Module):
     def _out(self, x, attn):
         c = self.cfg
         B, S = x.shape[:2]
-        x = x + attn.reshape(B, S, c.q_dim) @ self.wo
+        x = x + attn.reshape(B, S, c.q_dim) @ self.wo.to(x.dtype)
         f, load = self.ffn(L.rmsnorm(x, self.ln2, c.norm_eps))
         return x + f, load
 
@@ -144,6 +166,11 @@ class Block(nn.Module):
         q, k, v = self._qkv(x, positions)
         x, load = self._out(x, flash_attention(q, k, v, causal=True))
         return x, k, v, load
+
+    def train_full(self, x, positions):
+        """``full`` without its K/V: (x', load), what a remat layer keeps."""
+        x, _k, _v, load = self.full(x, positions)
+        return x, load
 
     def decode(self, x, k_cache, v_cache, pos: int, positions, rows=None):
         """One token per sequence at cache position ``pos``; writes its K/V
@@ -172,29 +199,32 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters as in ``init_params`` (names and (in, out) orientation),
-    the stacked ``layers`` leaves split into one ``Block`` per layer."""
+    the stacked ``layers`` leaves split into one ``Block`` per layer;
+    served (``compute_dtype`` matrices, frozen) or, with ``masters``,
+    float32 and trainable."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
-        check_family(cfg)
+        check_family(cfg, train=masters)
         if cfg.family not in TRANSFORMER_FAMILIES:
             raise ValueError(f"{cfg.name}: Transformer serves {TRANSFORMER_FAMILIES}, "
                              f"not {cfg.family}")
         self.cfg = cfg
         d, V, dt = cfg.d_model, cfg.vocab, compute_dtype(cfg)
-        self.embed = _param((V, d), dt, device)
-        self.final_norm = _param((d,), torch.float32, device)
-        self.lm_head = None if cfg.tie_embeddings else _param((d, V), dt, device)
-        self.vision_proj = (_param((VISION_STUB_DIM, d), dt, device)
+        self.embed = _param((V, d), dt, device, masters)
+        self.final_norm = _param((d,), torch.float32, device, masters)
+        self.lm_head = None if cfg.tie_embeddings else _param((d, V), dt, device, masters)
+        self.vision_proj = (_param((VISION_STUB_DIM, d), dt, device, masters)
                             if cfg.n_vision_tokens else None)
-        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, device, masters) for _ in range(cfg.n_layers))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "Transformer":
         """Draw every weight from ``gen`` (on the parameters' device) as
         ``init_params`` does: f32 normals, matrices scaled by 1/sqrt(fan_in)
         (the MoE ``w_down`` by 1/sqrt(d_ff)), the embedding by 0.02, norms at
-        1; matrices then cast to ``compute_dtype``."""
+        1; served matrices then cast to ``compute_dtype`` (masters keep the
+        f32 draws, so a served model's weights are its masters rounded)."""
         dev = self.embed.device
         self.embed.copy_(L.embed_init(gen, *self.embed.shape, device=dev))
         self.final_norm.fill_(1.0)
@@ -219,13 +249,13 @@ class Transformer(nn.Module):
         dt = compute_dtype(self.cfg)
         x = self.embed[tokens.long()].to(dt)
         if self.cfg.name.startswith("gemma"):
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=dt, device=x.device)
+            x = x * torch.full((), math.sqrt(self.cfg.d_model), dtype=dt, device=x.device)
         if self.vision_proj is not None and vision_embeds is not None:
             n_vis = vision_embeds.shape[1]
             if n_vis > x.shape[1]:
                 raise ValueError(f"vision_embeds: {n_vis} positions, the sequence has "
                                  f"{x.shape[1]}")
-            x[:, :n_vis] = vision_embeds.to(dt) @ self.vision_proj
+            x[:, :n_vis] = vision_embeds.to(dt) @ self.vision_proj.to(dt)
         return x
 
     def _unembed(self, x):
@@ -233,17 +263,25 @@ class Transformer(nn.Module):
         head = self.embed.T if self.lm_head is None else self.lm_head
         return x @ head.to(x.dtype)
 
-    @torch.no_grad()
     def forward(self, tokens, vision_embeds=None):
         """Full-sequence logits and ``{"moe_load": (L, E)}`` ((L, 1) zeros
         for a dense model).  tokens (B, S) int; ``vision_embeds`` (B, n_vis,
-        1024) overwrite the first n_vis positions (vlm)."""
+        1024) overwrite the first n_vis positions (vlm).  Runs under the
+        caller's grad mode; with grad on, ``cfg.remat`` "full" recomputes
+        each layer in the backward (``"dots"`` raises: no config uses it)."""
         B, S = tokens.shape
         x = self._embed(tokens, vision_embeds)
         positions = build_positions(self.cfg, B, S, device=x.device)
+        remat = torch.is_grad_enabled() and self.cfg.remat != "none"
+        if remat and self.cfg.remat != "full":
+            raise NotImplementedError(f"{self.cfg.name}: remat={self.cfg.remat!r}; the port "
+                                      "recomputes whole layers ('full') or none")
         loads = []
         for blk in self.layers:
-            x, _k, _v, load = blk.full(x, positions)
+            if remat:
+                x, load = checkpoint(blk.train_full, x, positions, use_reentrant=False)
+            else:
+                x, load = blk.train_full(x, positions)
             loads.append(load if load is not None
                          else torch.zeros((1,), dtype=torch.float32, device=x.device))
         return self._unembed(x), {"moe_load": torch.stack(loads)}

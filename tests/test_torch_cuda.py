@@ -26,7 +26,13 @@ kernel profiler every wrapper dispatches once per call and never takes
 its plain version; an injected kernel_error degrades the batched clean on
 the card to per-view cleans whose samples equal a fault-free manager's
 (keys and counts exact, sums within 1e-5 relative), while a real failure
-still raises.
+still raises.  Training (``-k train``): the flash gradient on the card
+within 1e-4 (f32) and 2^-7 (bf16) of each gradient's largest magnitude
+from the CPU's autograd of the plain version, one train step of the
+gemma-2b smoke config within 1e-5 (loss, grad norm) and 1e-4 (each
+gradient, of its leaf's largest) of the CPU's, the backward's bf16
+products accumulated in f32, 2 × n_layers flash launches a step under
+remat, and a served decode step that casts no parameter.
 """
 
 import numpy as np
@@ -1834,3 +1840,155 @@ def test_recurrent_smoke_models_on_the_card_match_the_cpu(dev, arch):
         for a, b in zip(leaf if isinstance(leaf, tuple) else (leaf,),
                         c_card[key] if isinstance(leaf, tuple) else (c_card[key],)):
             torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the flash gradient, the train step, the served decode's casts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,window", [(2, 200, 8, 1, 256, 0), (2, 77, 8, 2, 64, 0),
+                                               (1, 96, 4, 4, 32, 0), (1, 130, 4, 1, 64, 40)])
+def test_train_flash_gradient_on_the_card_matches_the_cpu(dev, dtype, B, S, H, K, hd, window):
+    """dq, dk, dv through ``autograd.FlashAttention`` on the card against the
+    CPU's autograd of the plain version on the same values: one kernel
+    launch forward, none backward."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator().manual_seed(B * S + hd)
+    cpu = [torch.randn(shape, generator=g).to(dtype) for shape in
+           ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd))]
+    ins = [t.to(dev).requires_grad_(True) for t in cpu[:3]]
+    before = flash_attention.launches
+    out = flash_attention(*ins, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    out.backward(cpu[3].to(dev))
+    assert flash_attention.launches == before + 1
+    ref = [t.clone().requires_grad_(True) for t in cpu[:3]]
+    flash_attention_ref(*ref, True, window).backward(cpu[3])
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for name, a, b in zip("qkv", ins, ref):
+        assert a.grad.dtype == dtype
+        err = float((a.grad.cpu().float() - b.grad.float()).abs().max())
+        assert err <= tol * float(b.grad.float().abs().max()), (name, err)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """gemma-2b's smoke config (f32, TF32 off), one step from the same
+    masters on the same batch: loss and grad norm within 1e-5 relative,
+    every gradient within 1e-4 of its leaf's largest."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("gemma-2b")
+    toks = torch.randint(0, cfg.vocab, (4, 32), generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32)
+    models = [get_model(cfg, device=device, train=True) for device in ("cpu", dev)]
+    states = [init_train_state(m, 0) for m in models]
+    states[1].params.load_state_dict(states[0].params.state_dict())
+    runs = []
+    for model, state in zip(models, states):
+        d = model.device
+        batch = {"tokens": toks.to(d), "labels": toks.roll(-1, 1).to(d),
+                 "domain": torch.arange(4, dtype=torch.int32, device=d)}
+        runs.append(make_train_step(model, AdamWConfig(lr=1e-3))(state, batch))
+    (cs, cm), (ds, dm) = runs
+    for key in ("loss", "grad_norm"):
+        assert abs(float(dm[key]) - float(cm[key])) <= 1e-5 * abs(float(cm[key])), key
+    cpu = dict(cs.params.named_parameters())
+    for name, p in ds.params.named_parameters():
+        want = cpu[name].grad
+        assert float((p.grad.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.parametrize("F", [4, 64])
+def test_train_backward_accumulates_bf16_products_in_f32(dev, F):
+    """A skinny projection's weight gradient, dW = x^T·dy of (F, 4,096) by
+    (4,096, 4), K = 4,096 tokens and N = 4 (the backward's analogue of the
+    mLSTM gate projection, split-K on the card): inside the train step's
+    ``f32_accumulation`` each bf16 value is the float32 product rounded once
+    (or its neighbour where the two float32 sums straddle a rounding), as
+    ``test_bf16_products_accumulate_in_f32_under_the_entry_points`` holds
+    the forward; and a real train step runs its backward with cuBLAS's bf16
+    reduction off."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import f32_accumulation
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    g = torch.Generator(device=dev).manual_seed(F)
+    x = torch.randn(4096, F, generator=g, device=dev).bfloat16().requires_grad_(True)
+    w = (torch.randn(F, 4, generator=g, device=dev) / 64).requires_grad_(True)  # f32 master
+    dy = torch.randn(4096, 4, generator=g, device=dev).bfloat16()
+    with f32_accumulation(), torch.enable_grad():
+        (x @ w.to(torch.bfloat16)).backward(dy)
+    ref = x.detach().float().T @ dy.float()
+    got = w.grad
+    assert bool(((got - ref).abs() <= ref.abs() * 2.0 ** -7 + 1e-30).all())
+    assert float((got == ref.bfloat16().float()).float().mean()) >= 0.9
+
+    seen = []
+    cfg = dataclasses.replace(get_smoke_config("gemma-2b"), compute_dtype="bfloat16")
+    model = get_model(cfg, device=dev, train=True)
+    state = init_train_state(model, 0)
+    state.params.layers[0].wq.register_hook(lambda grad: seen.append(
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction))
+    toks = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    make_train_step(model, AdamWConfig())(state, {"tokens": toks, "labels": toks})
+    assert seen == [False]
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def test_train_step_launches_flash_twice_a_layer_under_remat(dev):
+    """remat="full": each layer's forward and its recompute in the backward
+    launch the kernel; the backward itself launches none."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    for remat, per_layer in (("full", 2), ("none", 1)):
+        cfg = dataclasses.replace(get_smoke_config("gemma-2b"), compute_dtype="bfloat16",
+                                  remat=remat)
+        model = get_model(cfg, device=dev, train=True)
+        state = init_train_state(model, 0)
+        step = make_train_step(model, AdamWConfig())
+        toks = torch.randint(0, cfg.vocab, (2, 64), device=dev, dtype=torch.int32)
+        before = flash_attention.launches
+        state, _ = step(state, {"tokens": toks, "labels": toks})
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == per_layer * cfg.n_layers, remat
+
+
+def test_served_decode_casts_no_parameter(dev):
+    """Cast at use is free for the served module: in a bf16 decode step no
+    ``aten._to_copy`` reads a parameter (``.to`` of a leaf already in the
+    activations' dtype returns the leaf)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config("grok-1-314b"), compute_dtype="bfloat16")
+    model = get_model(cfg, device=dev)
+    params = model.init(0)
+    leaves = {p.data_ptr() for p in params.parameters() if p.dtype == torch.bfloat16}
+    read = []
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._to_copy.default:
+                read.append(args[0].data_ptr())
+            return func(*args, **(kwargs or {}))
+
+    cache = model.init_cache(2, 8)
+    toks = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with Casts():
+        model.decode_step(params, cache, toks, 0)
+    assert read and not leaves & set(read)

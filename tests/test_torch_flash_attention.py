@@ -368,3 +368,70 @@ def test_plan_window_splits_cover_every_kept_key(shape, window, qpos, dtype):
         assert not (need & ~covered).any(), (row0, splits)
     assert plan(dtype, B_, S, T, H, K, hd, True, 0, True, 0).chunk * \
         plan(dtype, B_, S, T, H, K, hd, True, 0, True, 0).nsplit >= T  # key_pos: all T slots
+
+
+# ---------------------------------------------------------------------------
+# the gradient (autograd.FlashAttention): the plain version's, which is the
+# gradient XLA's autodiff takes of the JAX model's attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,K", [(4, 4), (8, 2), (8, 1)], ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("window", [0, 5])
+def test_gradients_match_jax_grad_of_gqa_attention(H, K, window):
+    """dq, dk, dv of ``flash_attention`` (causal; banded under ``window``)
+    on the CPU against ``jax.grad`` of ``repro.models.layers.gqa_attention``
+    under ``causal_mask``/``local_mask``, float32, within 1e-5 of each
+    gradient's largest magnitude (the same f32 sums in other orders)."""
+    import jax
+
+    from repro.models.layers import causal_mask as jax_causal_mask
+    from repro.models.layers import local_mask as jax_local_mask
+
+    rng = np.random.default_rng(H * 10 + K + window)
+    B, S, hd = 2, 24, 16
+    (jq, jk, jv), (tq, tk, tv) = _inputs(rng, B, S, S, H, K, hd, "float32")
+    g = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    mask = jax_local_mask(S, S, window) if window else jax_causal_mask(S, S)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_gqa_attention(q, k, v, mask) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    ins = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = flash_attention(*ins, causal=True, window=window)
+    out.backward(torch.from_numpy(g))
+    for name, t, w in zip("qkv", ins, want):
+        w = np.asarray(w)
+        assert np.abs(t.grad.numpy() - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
+def test_gradient_launches_once_forward_and_labels_its_backward():
+    """With grad on, the forward is the wrapper's one dispatch (as
+    ``"flash_attention"``, counting no launch on the CPU); the backward
+    dispatches as ``"flash_attention_bwd"``, a kernel-path dispatch
+    (fallback False), and leaves the launch count alone.  Without an input
+    that requires grad no graph is built."""
+    from repro_torch.kernels import set_profiler
+    from repro_torch.obs.kprof import KernelProfiler
+
+    rng = np.random.default_rng(3)
+    _, (q, k, v) = _inputs(rng, 1, 12, 12, 4, 2, 16, "float32")
+    assert not flash_attention(q, k, v).requires_grad
+    launches = flash_attention.launches
+    prof = KernelProfiler()
+    set_profiler(prof)
+    try:
+        qq = q.clone().requires_grad_(True)
+        out = flash_attention(qq, k, v)
+        assert out.requires_grad and out.grad_fn is not None
+        out.sum().backward()
+    finally:
+        set_profiler(None)
+    ops = prof.summary()
+    assert ops["flash_attention"]["dispatches"] == 1
+    assert ops["flash_attention_bwd"]["dispatches"] == 1
+    assert ops["flash_attention_bwd"]["fallbacks"] == 0
+    assert flash_attention.launches == launches
+    assert qq.grad is not None and k.grad is None
+    with torch.no_grad():
+        assert not flash_attention(qq, k, v).requires_grad

@@ -74,6 +74,40 @@ def jax_activations_in_f32():
         jax.clear_caches()
 
 
+@contextlib.contextmanager
+def jax_attention_as_port():
+    """JAX's ``gqa_attention`` computed as the port's plain attention is
+    (``flash_attention_ref``, and the JAX package's flash kernel): q scaled
+    in float32, the scores, the softmax and P·V in float32, the output
+    rounded once to q's dtype.  JAX's own rounds the scores and the
+    probabilities to bf16, the one deliberate difference of the port's
+    attention (ROADMAP C), which would otherwise dominate a bf16 step's
+    comparison.  JAX's caches are cleared on entry and exit."""
+    from repro.models import layers
+
+    real = layers.gqa_attention
+
+    def as_port(q, k, v, mask, scale=None):
+        B, S, H, hd = q.shape
+        K = k.shape[2]
+        scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+        qg = (q.astype(jnp.float32) * scale).reshape(B, S, K, H // K, hd)
+        scores = jnp.einsum("bskgh,btkh->bkgst", qg, k.astype(jnp.float32))
+        if mask is not None:
+            scores = jnp.where(mask, scores, layers.NEG_INF)
+        probs = jax.nn.softmax(scores, axis=-1)
+        out = jnp.einsum("bkgst,btkh->bskgh", probs, v.astype(jnp.float32))
+        return out.reshape(B, S, H, hd).astype(q.dtype)
+
+    jax.clear_caches()
+    layers.gqa_attention = as_port
+    try:
+        yield
+    finally:
+        layers.gqa_attention = real
+        jax.clear_caches()
+
+
 def bf16_stats(got: torch.Tensor, want) -> tuple:
     """(max |got − want| / max |want|, share of bit-equal values)."""
     g, w = got.float().numpy(), np.asarray(want, np.float32)
