@@ -61,9 +61,20 @@ size, through the entry points a user calls:
      are reported against), one step under the kernel profiler and one
      under ``torch.profiler``; the flash ``kernel`` line at the training
      shape with the backward beside SDPA's; ``train_device_vs_cpu`` — the
-     gemma-2b and grok-1-314b smoke configs trained 3 steps on the card and
-     on the CPU; ``train_restart`` — ``launch/train.main`` with checkpoints
-     and a host lost at step 6, restored bit for bit from step 4.
+     smoke configs of gemma-2b, grok-1-314b and the hybrid, ssm and encdec
+     archs trained 3 steps on the card and on the CPU; ``train_restart`` —
+     ``launch/train.main`` with checkpoints and a host lost at step 6,
+     restored bit for bit from step 4;
+  8. training the other families through ``make_train_step`` in bf16 with
+     float32 masters and remat "full" (``train_family``): xlstm-1.3b (48
+     layers, no attention: the mLSTM's chunked parallel form and the
+     sLSTM's loop over time under autograd) and seamless-m4t-large-v2 (12 +
+     12 layers, a frames stub) at their published sizes on (8, 512)
+     batches, recurrentgemma-9b at its published widths and 8 of its 38
+     layers on one 4,096-token sequence (the 2,048 window binds); each a
+     warm-up and 3 timed steps with the loss view ingesting, one step under
+     each profiler, and flash ``kernel`` lines at the banded, encoder and
+     cross shapes with the backward beside SDPA's.
 
 The observatory and the chaos layer ride on these paths:
   * ``chaos_stream`` (after the streaming path): two fresh managers over
@@ -359,15 +370,45 @@ TRAIN_SVC_EVERY, TRAIN_MIXTURE_AT = 2, 4
 # gemma-2b-smoke's 123,200), and 25% of a 64-element norm leaf, so leaf
 # by leaf is reported, not held (a leaf lay 1.2% apart at step 3 on the
 # card)
-TRAIN_SMOKE_ARCHS = ("gemma-2b", "grok-1-314b")
+TRAIN_SMOKE_ARCHS = ("gemma-2b", "grok-1-314b", "recurrentgemma-9b", "xlstm-1.3b",
+                     "seamless-m4t-large-v2")
 TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS = 4, 32, 3
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 2e-2
+# the ulp control: the CPU's run again from masters each moved by this much
+# relative (one float32 ulp's order, what a sum in another order moves),
+# reported beside each card/CPU pair.  Where that control alone moves a
+# reading past its limit, the limit cannot tell a sound card from an
+# unsound one: those (arch, step, quantity) cases, and only those, are held
+# at TRAIN_SMOKE_WIDE's limits, 3x the control's reading on the H100's host
+# (xlstm-smoke's grad norm at steps 2 and 3: the control 7.1e-4 and 9.8e-4,
+# the card 1.0e-5 and 1.2e-4; its parameters after step 3: the control
+# 0.0691 of the update's norm, the card 0.0091).  Every other case is held
+# at the limits above
+ULP_CONTROL = 1e-7
+TRAIN_SMOKE_WIDE = {("xlstm-1.3b", 2, "grad_norm"): 3e-3, ("xlstm-1.3b", 3, "grad_norm"): 3e-3,
+                    ("xlstm-1.3b", 3, "params"): 0.2}
 # launch/train.main on gemma-2b's smoke config with a checkpoint every 4
 # steps and a host lost at step 6
 TRAIN_RESTART_ARGV = ("--arch", "gemma-2b", "--smoke", "--steps", "12", "--ckpt-every", "4",
                       "--fail-at", "6", "--svc-every", "2", "--mixture-every", "4",
                       "--log-every", "100")
 TRAIN_RESTORED_STEP = 4
+# the hybrid, ssm and encdec families trained on the card, bf16 compute,
+# float32 masters and AdamW states, the configs' remat="full", weights
+# drawn on the card from seed 0, the pipeline's batches from seed 0 with
+# the loss view ingesting every step and refreshing every
+# TRAIN_SVC_EVERY: (arch, layers or None for the published depth, batch,
+# sequence).  xlstm-1.3b (48 layers) and seamless-m4t-large-v2 (12 + 12)
+# at their published sizes; recurrentgemma-9b at its published widths with
+# its depth cut 38 -> 8 (2 super-blocks and 2 trailing rec layers): its 38
+# layers hold 150.3 GB of float32 state, the card 80 GB.  S 4,096 makes
+# the 2,048 window bind in the banded attention.  The encdec batch adds a
+# (B, S, d_model) float32 frames stub drawn on the card from seed 1.
+TRAIN_FAMILY_RUNS = (("xlstm-1.3b", None, 8, 512), ("seamless-m4t-large-v2", None, 8, 512),
+                     ("recurrentgemma-9b", 8, 1, 4096))
+TRAIN_FAMILY_STEPS = 3  # timed, after one warm-up; then one under each profiler
+TRAIN_FAMILY_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=6)
+FRAMES_SEED = 1
 
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
@@ -386,6 +427,11 @@ SSM_KERNELS = SERVE_KERNELS[1:]  # xlstm has no attention: the telemetry's kerne
 # and queries
 TRAIN_KERNELS = ("flash_attention", "hash_threshold", "segment_aggsum", "multi_agg_two",
                  "multi_agg_one")
+TRAIN_SSM_KERNELS = TRAIN_KERNELS[1:]  # xlstm has no attention: the loss view's kernels
+# multi_agg_moments' arguments by name: the one-sided call's six, then the
+# two-sided call's other four
+MULTI_AGG_ARGS = ("x_new", "valid_new", "w_new", "ompi_new", "sel", "meta", "x_old", "valid_old",
+                  "w_old", "ompi_old")
 
 
 
@@ -528,6 +574,39 @@ def profile_ops(fn, top: int = 10, match: tuple = ()) -> dict:
         "device_only_ms": sum(r["self_device_ms"] for r in rows if r["self_cpu_ms"] == 0),
         "matching": [r for r in rows if any(m in r["op"] for m in match)],
     }
+
+
+def profile_raw(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, read from the profiler's
+    raw events, not its per-operator table (which takes minutes to build
+    for a step of ~400k launches): device milliseconds and count of the
+    kernels, copies and memsets, the ``top`` kernels by device time, and
+    the calls of the CUDA runtime entries that launch kernels, copy or
+    wait."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    runtime = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+               "cudaStreamSynchronize", "cudaDeviceSynchronize")
+    dev_ns, calls = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev_ns[e.name()] += e.duration_ns()
+            calls[e.name()] += 1
+        elif e.name() in runtime:
+            calls[e.name()] += 1
+    device = [k for k in dev_ns]
+    return {"device_only_ms": sum(dev_ns.values()) / 1e6,
+            "device_launches": sum(calls[k] for k in device),
+            "runtime_calls": {k: calls[k] for k in runtime if calls[k]},
+            "top_device": [{"op": k, "calls": calls[k], "device_ms": dev_ns[k] / 1e6}
+                           for k in sorted(device, key=lambda k: -dev_ns[k])[:top]]}
 
 
 # ---------------------------------------------------------------------------
@@ -3229,17 +3308,41 @@ def recurrent_phases(smi: str, device: str = "cuda") -> None:
 # on the card against the CPU, and the launcher's restart from a checkpoint
 # ---------------------------------------------------------------------------
 
+def kept_pairs(S: int, T: int, causal: bool = True, window: int = 0) -> int:
+    """(query, key) pairs an attention keeps: S·T without the causal mask,
+    else Σ_i min(i + 1, window or T) (query i at position i)."""
+    if not causal:
+        return S * T
+    W = min(window or T, T)
+    m = min(S, W)
+    return m * (m + 1) // 2 + (S - m) * W
+
+
 def train_flops(cfg, B: int, S: int) -> float:
-    """Model operations of one train step over (B, S) tokens: 6·N·tokens
-    (every parameter's product forward and twice backward; the tied
-    embedding counted once, as the unembedding) plus the causal attention's
-    two products, 4·B·H·hd·S(S+1)/2 a layer forward and twice that
-    backward.  The remat recompute is not counted."""
+    """Model operations of one train step over (B, S) tokens (the encdec
+    source also S long): 6·N·tokens (every parameter's product forward and
+    twice backward; the tied embedding counted once, as the unembedding)
+    plus each attention-like core's two products over its kept pairs,
+    4·B·H·hd·pairs a layer forward and twice that backward: the causal
+    attention of every transformer layer; the hybrid's banded attention
+    (window 2,048) of each super-block; the encoder's non-causal, the
+    decoder's causal and the cross attention (S·S); the mLSTM parallel
+    form's q·k and scores·v (H 4, hd 2·d/H) over the causal pairs of each
+    mLSTM layer.  Elementwise work (the RG-LRU scan, the sLSTM cell, the
+    mLSTM's decay matrix) and the remat recompute are not counted."""
+    from repro_torch.models import rglru, xlstm
     from repro_torch.models.api import param_counts
 
-    pairs = S * (S + 1) // 2
-    return (6.0 * param_counts(cfg)["total"] * B * S
-            + 3 * 4.0 * B * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers)
+    per_pair = 3 * 4.0 * B * cfg.n_heads * cfg.head_dim
+    core = {
+        "hybrid": lambda: per_pair * kept_pairs(S, S, window=cfg.attn_window)
+        * rglru.n_superblocks(cfg)[0],
+        "ssm": lambda: 3 * 4.0 * B * cfg.mlstm_heads * xlstm.head_dim(cfg) * kept_pairs(S, S)
+        * xlstm.n_superblocks(cfg) * (cfg.slstm_every - 1),
+        "encdec": lambda: per_pair * (S * S * cfg.enc_layers
+                                      + (kept_pairs(S, S) + S * S) * cfg.dec_layers),
+    }.get(cfg.family, lambda: per_pair * kept_pairs(S, S) * cfg.n_layers)
+    return 6.0 * param_counts(cfg)["total"] * B * S + core()
 
 
 def probe_params(params) -> dict:
@@ -3434,29 +3537,23 @@ def hold_groupby(got, gid, vals, G, what) -> float:
     return float((sums - ps).abs().max())
 
 
-def check_train_svc_kernels(caps, launches, iters) -> list:
+def hold_train_svc_calls(caps, launches, path: str) -> dict:
     """The loss view's kernels held against their plain versions on every
-    input ``train_path`` gave them (``caps``: train_svc_captures after the
-    path; one captured call for each launch counted in ``launches``), each
-    timed on the path's largest call.  A ``kernel`` line each, with the
-    path's launches."""
+    input ``path`` gave them (``caps``: train_svc_captures after the path;
+    one captured call for each launch counted in ``launches``).  Returns,
+    per kernel, (its captured calls, max |kernel − plain|, max relative
+    error or None)."""
     import torch
 
-    from repro_torch.kernels.hash_threshold import hash_threshold, hash_threshold_ref
-    from repro_torch.kernels.multi_agg.ops import multi_agg_moments, selector_indices
+    from repro_torch.kernels.hash_threshold import hash_threshold_ref
     from repro_torch.kernels.multi_agg.ref import multi_agg_ref
-    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_groupby_ref
 
     def held(name, n_calls):
         if n_calls != launches[name]:
-            fail(f"train_path: {n_calls} captured calls reach {name}, which launched "
+            fail(f"{path}: {n_calls} captured calls reach {name}, which launched "
                  f"{launches[name]} times")
 
-    def timed(kernel, plain):
-        return {"ms": cuda_ms(kernel, iters), "plain_ms": cuda_ms(plain, iters),
-                "host_enqueue_us": host_enqueue_us(kernel, iters)}
-
-    out = []
+    out = {}
     with uncounted():
         # hash_threshold, as apply_hash calls it: (cols, m, seed, valid)
         calls = caps["hash_threshold"].calls
@@ -3464,7 +3561,50 @@ def check_train_svc_kernels(caps, launches, iters) -> list:
         for a, got in calls:
             want = hash_threshold_ref(a["cols"], a["m"], a["seed"])
             if not torch.equal(got, want if a["valid"] is None else a["valid"] & want):
-                fail("train_path: hash_threshold differs from its plain version")
+                fail(f"{path}: hash_threshold differs from its plain version")
+        out["hash_threshold"] = (calls, 0.0, None)
+        # segment_aggsum, as the group-by calls it: (gid, vals, num_groups)
+        calls = caps["segment_aggsum"].calls
+        held("segment_aggsum", len(calls))
+        out["segment_aggsum"] = (calls, max(
+            (hold_groupby(got, a["gid"], a["vals"], a["num_groups"], f"{path} group-by {i}")
+             for i, (a, got) in enumerate(calls)), default=0.0), None)
+        # multi_agg, as the query engine calls it: one-sided over a sample
+        # or a view, two-sided over a correspondence panel
+        sides = {"multi_agg_one": [], "multi_agg_two": []}
+        for a, got in caps["multi_agg"].calls:
+            sides["multi_agg_two" if a["x_old"] is not None else "multi_agg_one"].append((a, got))
+        for name, calls in sides.items():
+            held(name, len(calls))
+            keys = MULTI_AGG_ARGS[:6] + (MULTI_AGG_ARGS[6:] if name == "multi_agg_two" else ())
+            errs = [hold_moments(got, multi_agg_ref(*[a[k] for k in keys]),
+                                 f"{path} {name} call {i}")
+                    for i, (a, got) in enumerate(calls)]
+            out[name] = (calls, max((e for e, _r in errs), default=0.0),
+                         max((r for _e, r in errs), default=0.0))
+    return out
+
+
+def check_train_svc_kernels(caps, launches, iters) -> list:
+    """The loss view's kernels held against their plain versions on every
+    input ``train_path`` gave them (hold_train_svc_calls), each timed on the
+    path's largest call.  A ``kernel`` line each, with the path's
+    launches."""
+    import torch
+
+    from repro_torch.kernels.hash_threshold import hash_threshold, hash_threshold_ref
+    from repro_torch.kernels.multi_agg.ops import multi_agg_moments, selector_indices
+    from repro_torch.kernels.multi_agg.ref import multi_agg_ref
+    from repro_torch.kernels.segment_aggsum import segment_groupby, segment_groupby_ref
+
+    def timed(kernel, plain):
+        return {"ms": cuda_ms(kernel, iters), "plain_ms": cuda_ms(plain, iters),
+                "host_enqueue_us": host_enqueue_us(kernel, iters)}
+
+    heldc = hold_train_svc_calls(caps, launches, "train_path")
+    out = []
+    with uncounted():
+        calls = heldc["hash_threshold"][0]
         a, _ = max(calls, key=lambda c: c[0]["cols"][0].shape[0])
         cols, m, seed, valid = tuple(a["cols"]), float(a["m"]), int(a["seed"]), a["valid"]
         R = int(cols[0].shape[0])
@@ -3481,11 +3621,7 @@ def check_train_svc_kernels(caps, launches, iters) -> list:
                   "view's unfused clean; timed on the path's largest call",
             tolerance="equal masks on every call of the path"))
 
-        # segment_aggsum, as the group-by calls it: (gid, vals, num_groups)
-        calls = caps["segment_aggsum"].calls
-        held("segment_aggsum", len(calls))
-        err = max(hold_groupby(got, a["gid"], a["vals"], a["num_groups"],
-                               f"train_path group-by {i}") for i, (a, got) in enumerate(calls))
+        calls, err, _ = heldc["segment_aggsum"]
         a, _ = max(calls, key=lambda c: c[0]["gid"].shape[0])
         gid, vals, G = a["gid"], a["vals"], int(a["num_groups"])
         R, C = int(gid.shape[0]), int(vals.shape[1])
@@ -3515,19 +3651,10 @@ def check_train_svc_kernels(caps, launches, iters) -> list:
                        f"{F64_SUM_RTOL}*sum|x| of the float64 sums, the plain version's within "
                        "gamma_(n-1)*sum|x|; on every call of the path")))
 
-        # multi_agg, as the query engine calls it: one-sided over a sample
-        # or a view, two-sided over a correspondence panel
-        sides = {"multi_agg_one": [], "multi_agg_two": []}
-        for a, got in caps["multi_agg"].calls:
-            sides["multi_agg_two" if a["x_old"] is not None else "multi_agg_one"].append((a, got))
-        for name, calls in sides.items():
-            held(name, len(calls))
+        for name in ("multi_agg_one", "multi_agg_two"):
+            calls, err, rel = heldc[name]
             two = name == "multi_agg_two"
-            keys = ("x_new", "valid_new", "w_new", "ompi_new", "sel", "meta") + (
-                ("x_old", "valid_old", "w_old", "ompi_old") if two else ())
-            errs = [hold_moments(got, multi_agg_ref(*[a[k] for k in keys]),
-                                 f"train_path {name} call {i}")
-                    for i, (a, got) in enumerate(calls)]
+            keys = MULTI_AGG_ARGS[:6] + (MULTI_AGG_ARGS[6:] if two else ())
             a, _ = max(calls, key=lambda c: c[0]["x_new"].shape[0])
             args = [a[k] for k in keys]
             sel_idx = a["sel_idx"]
@@ -3541,11 +3668,11 @@ def check_train_svc_kernels(caps, launches, iters) -> list:
             out.append(kernel_entry(
                 name, "cuda", "src/repro_torch/csrc/multi_agg.cu",
                 "src/repro/kernels/multi_agg/kernel.py:" + ("128" if two else "159"),
-                launches[name], max(e for e, _r in errs), t["ms"], t["plain_ms"],
+                launches[name], err, t["ms"], t["plain_ms"],
                 bytes_=(2 if two else 1) * R * (4 * used + 1 + 4 + 4),
                 ops=R * Q * ((2 * (8 + 4 * P) + 9) if two else (8 + 4 * P)),
                 path="train_path", calls_held=len(calls), rows=R, queries=Q,
-                predicate_slots=P, max_rel_err=max(r for _e, r in errs),
+                predicate_slots=P, max_rel_err=rel,
                 host_enqueue_us=t["host_enqueue_us"],
                 entry="multi_agg_moments as the query engine calls it (sel_idx given) for the "
                       "loss view's queries; timed on the path's largest call",
@@ -3554,46 +3681,55 @@ def check_train_svc_kernels(caps, launches, iters) -> list:
     return out
 
 
-def flash_bwd_entry(q, k, v, iters) -> dict:
+def flash_bwd_entry(q, k, v, iters, causal=True, window=0) -> dict:
     """``flash_attention_bwd`` (autograd through the plain version) on
     (q, k, v) and a random output gradient, timed beside
     scaled_dot_product_attention's backward on the same inputs (its forward
-    graph built once, outside the timing); the gradients' largest
-    difference from SDPA's is reported, not held."""
+    graph built once, outside the timing; a band as an explicit boolean
+    mask); the gradients' largest difference from SDPA's is reported, not
+    held."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.autograd import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import keep_mask
 
-    H, K = q.shape[2], k.shape[2]
+    S, H, T, K = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
     g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED),
                     device=q.device).to(q.dtype)
-    ours = flash_attention_bwd(q, k, v, g, True)
+    ours = flash_attention_bwd(q, k, v, g, causal, window)
     ins = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*ins, is_causal=True, enable_gqa=H != K)
+    mask = (dict(attn_mask=keep_mask(S, T, window, device=q.device)) if causal and window
+            else dict(is_causal=causal))
+    out = F.scaled_dot_product_attention(*ins, enable_gqa=H != K, **mask)
     go = g.transpose(1, 2)
     lib = torch.autograd.grad(out, ins, go, retain_graph=True)
     diff = max(float((a.float() - b.transpose(1, 2).float()).abs().max()) for a, b in
                zip(ours, lib))
     scale = max(float(b.float().abs().max()) for b in lib)
     return {"bwd_op": "flash_attention_bwd (autograd of the plain version)",
-            "bwd_ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, g, True), iters),
+            "bwd_ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, g, causal, window), iters),
             "bwd_library_ms": cuda_ms(lambda: torch.autograd.grad(out, ins, go,
                                                                   retain_graph=True), iters),
-            "bwd_library_call": "torch.autograd.grad of scaled_dot_product_attention(enable_gqa)",
+            "bwd_library_call": "torch.autograd.grad of scaled_dot_product_attention(enable_gqa"
+                                + (", attn_mask=keep_mask(...))" if "attn_mask" in mask else ")"),
             "bwd_max_abs_diff_vs_library": diff, "bwd_max_abs_library": scale}
 
 
 def train_device_vs_cpu(archs, B, S, n_steps, seed, devices=("cuda", "cpu")) -> dict:
-    """Each smoke config of ``archs`` (f32, TF32 off), and the first again
-    with remat="full", trained ``n_steps`` from one seed on ``devices[0]``
-    and on ``devices[1]`` (the CPU): loss and grad norm within
-    TRAIN_LOSS_RTOL, step 1's gradients within TRAIN_GRAD_TOL of each
-    leaf's largest |gradient|, all the parameters after each step within
-    TRAIN_PARAM_TOL of the step's update norm (each leaf's ratio and the
-    elements apart by more than lr/2 are reported).  The control, the first
-    config with TF32 on for ``devices[0]``'s products, is read the same
-    way and held to nothing: it shows what each limit separates."""
+    """Each smoke config of ``archs`` (f32, TF32 off; the encdec batches
+    with a seeded frames stub), and the first again with remat="full",
+    trained ``n_steps`` from one seed on ``devices[0]`` and on
+    ``devices[1]`` (the CPU): loss and grad norm within TRAIN_LOSS_RTOL,
+    step 1's gradients within TRAIN_GRAD_TOL of each leaf's largest
+    |gradient|, all the parameters after each step within TRAIN_PARAM_TOL
+    of the step's update norm (each leaf's ratio and the elements apart by
+    more than lr/2 are reported); the cases of TRAIN_SMOKE_WIDE at its
+    limits instead.  Beside each pair runs an ulp control, reported: the
+    CPU again from masters each moved by ULP_CONTROL relative (seeded), the
+    size of a sum taken in another order.  The TF32 control, the first
+    config with TF32 on for ``devices[0]``'s products, is read the same way
+    and held to nothing: it shows what each limit separates."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -3601,58 +3737,88 @@ def train_device_vs_cpu(archs, B, S, n_steps, seed, devices=("cuda", "cpu")) -> 
     from repro_torch.models import get_model
     from repro_torch.training import AdamWConfig, init_train_state, make_train_step
 
-    cfgs = [get_smoke_config(a) for a in archs]
-    cfgs.append(dataclasses.replace(cfgs[0], remat="full"))
+    cfgs = [(a, get_smoke_config(a)) for a in archs]
+    cfgs.append((archs[0], dataclasses.replace(cfgs[0][1], remat="full")))
+    wide_used = set()
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=n_steps)
 
-    def compare(cfg, what, hold):
+    def distance(params, ref, prev, lr):
+        """(all leaves' error over the update's norm, the worst leaf's, the
+        elements apart by more than lr/2) of ``params`` from ``ref``."""
+        ref = dict(ref.named_parameters())
+        worst = err2 = upd2 = 0.0
+        flips = 0
+        for name, p in params.named_parameters():
+            q = ref[name].detach()
+            diff = p.detach().cpu() - q
+            upd, err = float((q - prev[name]).norm()), float(diff.norm())
+            err2, upd2 = err2 + err * err, upd2 + upd * upd
+            flips += int((diff.abs() > 0.5 * lr).sum())
+            worst = max(worst, err / upd if upd else err)
+        return (math.sqrt(err2 / upd2) if upd2 else math.sqrt(err2)), worst, flips
+
+    def limit(arch, step, key, default):
+        if (arch, step, key) in TRAIN_SMOKE_WIDE:
+            wide_used.add((arch, step, key))
+            return TRAIN_SMOKE_WIDE[arch, step, key]
+        return default
+
+    def compare(arch, cfg, what, hold):
         runs = []
-        for dev in devices:
+        for dev in devices + devices[1:]:
             model = get_model(cfg, device=dev, train=True)
             runs.append([model, init_train_state(model, seed), make_train_step(model, opt),
                          TokenPipeline(PipelineConfig(cfg.vocab, S, B, seed=seed), device=dev)])
         runs[0][1].params.load_state_dict(runs[1][1].params.state_dict())
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for p in runs[2][1].params.parameters():
+                p.mul_(1 + ULP_CONTROL * torch.randn(p.shape, generator=gen))
         rows = []
         for i in range(n_steps):
             prev = {n: p.detach().clone() for n, p in runs[1][1].params.named_parameters()}
+            frames = (torch.randn((B, S, cfg.d_model), generator=torch.Generator().manual_seed(
+                FRAMES_SEED + i)) if cfg.family == "encdec" else None)
             mets = []
             for run in runs:
-                run[1], met = run[2](run[1], run[3].batch(i))
+                batch = run[3].batch(i)
+                if frames is not None:
+                    batch["frames"] = frames.to(run[0].device)
+                run[1], met = run[2](run[1], batch)
                 mets.append(met)
-            row = {"step": i + 1}
+            row, limits = {"step": i + 1}, {}
             for key in ("loss", "grad_norm"):
-                a, b = float(mets[0][key]), float(mets[1][key])
+                a, b, c = (float(m[key]) for m in mets)
                 row[key] = [a, b]
                 row[f"{key}_rel_diff"] = abs(a - b) / abs(b)
-                if hold and not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b):
-                    fail(f"train_device_vs_cpu {what} step {i + 1}: {key} {a} against the CPU's "
-                         f"{b}")
-            cpu = dict(runs[1][1].params.named_parameters())
-            worst_p = worst_g = err2 = upd2 = 0.0
-            flips = 0
-            for name, p in runs[0][1].params.named_parameters():
-                q = cpu[name]
-                diff = p.detach().cpu() - q.detach()
-                upd = float((q.detach() - prev[name]).norm())
-                err = float(diff.norm())
-                err2, upd2 = err2 + err * err, upd2 + upd * upd
-                flips += int((diff.abs() > 0.5 * float(mets[1]["lr"])).sum())
-                worst_p = max(worst_p, err / upd if upd else err)
-                if i == 0:
-                    gs = float(q.grad.abs().max())
-                    ge = float((p.grad.cpu() - q.grad).abs().max())
+                row[f"{key}_ulp_control_rel_diff"] = abs(c - b) / abs(b)
+                if hold:
+                    tol = limits[key] = limit(arch, i + 1, key, TRAIN_LOSS_RTOL)
+                    if not abs(a - b) <= tol * abs(b):
+                        fail(f"train_device_vs_cpu {what} step {i + 1}: {key} {a} against the "
+                             f"CPU's {b} (limit {tol} relative)")
+            lr = float(mets[1]["lr"])
+            whole, worst_p, flips = distance(runs[0][1].params, runs[1][1].params, prev, lr)
+            ctrl = distance(runs[2][1].params, runs[1][1].params, prev, lr)
+            if hold:
+                tol = limits["params"] = limit(arch, i + 1, "params", TRAIN_PARAM_TOL)
+                if not whole <= tol:
+                    fail(f"train_device_vs_cpu {what} step {i + 1}: the parameters lie {whole} "
+                         f"of the update's norm from the CPU's (limit {tol})")
+            if i == 0:
+                cpu = dict(runs[1][1].params.named_parameters())
+                worst_g = 0.0
+                for name, p in runs[0][1].params.named_parameters():
+                    gs = float(cpu[name].grad.abs().max())
+                    ge = float((p.grad.cpu() - cpu[name].grad).abs().max())
                     if hold and ge > TRAIN_GRAD_TOL * gs:
                         fail(f"train_device_vs_cpu {what}: {name}'s gradient {ge} from the CPU's "
                              f"beyond {TRAIN_GRAD_TOL} of its max {gs}")
                     worst_g = max(worst_g, ge / gs if gs else ge)
-            whole = math.sqrt(err2 / upd2) if upd2 else math.sqrt(err2)
-            if hold and whole > TRAIN_PARAM_TOL:
-                fail(f"train_device_vs_cpu {what} step {i + 1}: the parameters lie {whole} of "
-                     f"the update's norm from the CPU's (limit {TRAIN_PARAM_TOL})")
-            row.update(param_err_over_update_norm=whole, worst_leaf_err_over_update_norm=worst_p,
-                       elements_apart_over_half_lr=flips)
-            if i == 0:
                 row["grad_err_over_max_grad"] = worst_g
+            row.update(param_err_over_update_norm=whole, worst_leaf_err_over_update_norm=worst_p,
+                       elements_apart_over_half_lr=flips, ulp_control_param_err=ctrl[0],
+                       limits=limits)
             if "moe_load" in mets[1]:
                 row["moe_load_equal"] = bool(torch.equal(mets[0]["moe_load"].cpu(),
                                                          mets[1]["moe_load"]))
@@ -3661,20 +3827,26 @@ def train_device_vs_cpu(archs, B, S, n_steps, seed, devices=("cuda", "cpu")) -> 
 
     out = {}
     torch.backends.cuda.matmul.allow_tf32 = False
-    for cfg in cfgs:
+    for arch, cfg in cfgs:
         what = f"{cfg.name} remat={cfg.remat}"
-        out[what] = compare(cfg, what, hold=True)
+        out[what] = compare(arch, cfg, what, hold=True)
+    if wide_used != set(TRAIN_SMOKE_WIDE):
+        fail(f"train_device_vs_cpu: TRAIN_SMOKE_WIDE's {sorted(set(TRAIN_SMOKE_WIDE) - wide_used)}"
+             " matched no run")
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        control = compare(cfgs[0], "control", hold=False)
+        control = compare(*cfgs[0], "control", hold=False)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     return {"archs": list(out), "batch": B, "seq": S, "steps": n_steps, "runs": out,
-            "control_tf32": {"arch": cfgs[0].name, "runs": control},
+            "control_tf32": {"arch": cfgs[0][1].name, "runs": control},
             "tolerance": f"loss and grad_norm within {TRAIN_LOSS_RTOL} relative; step 1's "
                          f"gradients within {TRAIN_GRAD_TOL} of each leaf's max |grad|; the "
                          f"parameters within {TRAIN_PARAM_TOL} of the update's norm over all "
-                         "leaves (f32, TF32 off); the TF32 control is read, not held"}
+                         f"leaves (f32, TF32 off); the (arch, step, quantity) cases at the "
+                         f"limits of {TRAIN_SMOKE_WIDE}, where the CPU's own run from "
+                         f"masters moved by {ULP_CONTROL} relative lies past the limit (a "
+                         "row's limits); the TF32 control is read, not held"}
 
 
 def train_restart(argv, seed, restored_step, device="cuda") -> dict:
@@ -3767,6 +3939,233 @@ def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
         devices=(device, "cpu")), "card": smi})
     emit({"phase": "train_restart", **train_restart(TRAIN_RESTART_ARGV, SEED, TRAIN_RESTORED_STEP,
                                                     device=device), "card": smi})
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# Training the hybrid, ssm and encdec families: xlstm-1.3b and
+# seamless-m4t-large-v2 at their published sizes, recurrentgemma-9b at its
+# published widths and 8 layers
+# ---------------------------------------------------------------------------
+
+def family_flash_wants(family: str, S: int) -> dict:
+    """FlashCapture predicates for a family's train step: the hybrid's
+    banded self attention (every one of its attentions), the encoder's
+    non-causal self attention (the first non-causal call of a step) and
+    the cross attention (the first non-causal call after a causal one: the
+    decoder's layer 0)."""
+    if family == "hybrid":
+        return {"hybrid banded": lambda q, k, causal, qpos: causal and q.shape[1] == S}
+    if family != "encdec":
+        return {}
+    seen = {"causal": False}
+
+    def cross(q, k, causal, qpos):
+        seen["causal"] |= bool(causal)
+        return not causal and seen["causal"]
+
+    return {"encoder non-causal": lambda q, k, causal, qpos: not causal and not seen["causal"],
+            "cross": cross}
+
+
+def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
+    """``arch`` trained on ``device`` (bf16 compute, float32 masters, the
+    config's remat) through ``make_train_step``: one warm-up step and
+    TRAIN_FAMILY_STEPS timed ones on the pipeline's batches, the loss view
+    ingesting every step and refreshing every TRAIN_SVC_EVERY, its
+    per-domain estimates read after, every call that reached the loss
+    view's kernels held against their plain versions (hold_train_svc_calls);
+    then one step under the kernel profiler (every dispatch a kernel's, none
+    a fallback) and one under ``torch.profiler``.  The launch counters are
+    set to 0 just before the steps and read after the estimates.  Returns
+    (report, FlashCapture, launches)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, PipelineStats, TokenPipeline
+    from repro_torch.models import get_model
+    from repro_torch.models.api import param_counts
+    from repro_torch.models.convert import jax_leaves
+    from repro_torch.obs.kprof import KernelProfiler
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.train_step import cross_entropy
+
+    published = get_config(arch)
+    cfg = published if n_layers is None else dc.replace(published, n_layers=n_layers)
+    model = get_model(cfg, device=device, train=True)
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed),
+                         device=device)
+    stats = PipelineStats(m=0.25, seed=seed, device=device)
+    step_fn = make_train_step(model, AdamWConfig(**TRAIN_FAMILY_OPT))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = wall(lambda: init_train_state(model, seed))
+    named = [(n, p) for n, p in state.params.named_parameters()]
+    n_params = sum(p.numel() for _n, p in named)
+    before = {n: p.detach().flatten()[:64].clone() for n, p in named}
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.randn((B, S, cfg.d_model), device=device,
+                             generator=torch.Generator(device=device).manual_seed(FRAMES_SEED))
+    box = [state]
+    del state
+
+    def batch(i):
+        b = pipe.batch(i)
+        if frames is not None:
+            b["frames"] = frames
+        return b
+
+    def one_step(b):
+        box[0], met = step_fn(box[0], b)
+        return met
+
+    def first_batch_loss():
+        """The loss of batch 0 under the current parameters, no graph: it
+        falls over the steps, where each step's own loss, on its own
+        batch, moves by less than the batches differ."""
+        b = batch(0)
+        with torch.no_grad():
+            return float(cross_entropy(model.forward(box[0].params, b)[0], b["labels"])[0])
+
+    cap = FlashCapture(wants=family_flash_wants(cfg.family, S))
+    svc_caps = train_svc_captures()
+    n_steps = 1 + TRAIN_FAMILY_STEPS
+    steps = []
+    first_before = first_batch_loss()
+    kernels.reset_launches()
+    with cap, svc_caps["hash_threshold"], svc_caps["segment_aggsum"], svc_caps["multi_agg"]:
+        for i in range(n_steps):
+            b = batch(i)
+            flash0 = kernels.launch_counts()["flash_attention"]
+            met, step_s = wall(lambda: one_step(b))
+            steps.append({"step": i + 1, "wall_s": step_s, "tok_per_s": B * S / step_s,
+                          "flash_launches": kernels.launch_counts()["flash_attention"] - flash0,
+                          **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
+            stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
+            if i > 0 and i % TRAIN_SVC_EVERY == 0:
+                stats.svc_refresh()
+        estimates = [stats.loss_estimate(d) for d in range(stats.n_domains)]
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    svc_held = {name: {"calls_held": len(calls), "max_abs_err": err, "max_rel_err": rel}
+                for name, (calls, err, rel) in hold_train_svc_calls(
+                    svc_caps, launches, f"train_family {cfg.name}").items()}
+    del svc_caps
+    losses = [s["loss"] for s in steps]
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps):
+        fail(f"train_family {cfg.name}: a non-finite loss or grad norm: {steps}")
+    # every decayed leaf (JAX rank >= 2: matrices and the stacked per-layer
+    # vectors) must move; an undecayed one (the top-level norms) may not,
+    # when the clipped step's update falls below its float32 resolution
+    ranks = {n: r for n, (_k, _i, r) in jax_leaves(box[0].params).items()}
+    still = [n for n, p in box[0].params.named_parameters()
+             if bool(torch.equal(before[n], p.detach().flatten()[:64]))]
+    if any(ranks[n] >= 2 for n in still):
+        fail(f"train_family {cfg.name}: parameters did not move: {still[:8]} ({len(still)}); "
+             f"steps {steps}")
+    # attentions a forward: the hybrid's one a super-block, the encoder's
+    # and the decoder's self and cross; each launched again in the recompute
+    attentions = {"hybrid": cfg.n_layers // 3, "ssm": 0,
+                  "encdec": cfg.enc_layers + 2 * cfg.dec_layers}[cfg.family]
+    per_step = attentions * (1 if cfg.remat == "none" else 2)
+    if any(s["flash_launches"] != per_step for s in steps):
+        fail(f"train_family {cfg.name}: flash_attention launches per step "
+             f"{[s['flash_launches'] for s in steps]}, expected {per_step} (every attention "
+             "and its remat recompute)")
+    # one step under the kernel profiler (every dispatch synchronized)
+    prof = KernelProfiler()
+    kernels.set_profiler(prof)
+    try:
+        with uncounted():
+            one_step(batch(n_steps))
+    finally:
+        kernels.set_profiler(None)
+    ops = prof.summary()
+    want_ops = {"flash_attention": per_step, "flash_attention_bwd": attentions} if attentions \
+        else {}
+    for op, got in ops.items():
+        if got.get("fallbacks") != 0:
+            fail(f"train_family {cfg.name}: under the kernel profiler {op} read {got}")
+    for op, want in want_ops.items():
+        if ops.get(op, {}).get("dispatches") != want:
+            fail(f"train_family {cfg.name}: under the kernel profiler {op} read "
+                 f"{ops.get(op)}, expected {want} dispatches")
+    with uncounted():
+        profile, profile_wall_s = wall(lambda: profile_raw(lambda: one_step(batch(n_steps + 1))))
+        first_after = first_batch_loss()
+    del box
+    if not first_after < first_before:
+        fail(f"train_family {cfg.name}: the first batch's loss did not fall: {first_before} "
+             f"before the steps, {first_after} after; steps {steps}")
+    warm = steps[1:]
+    warm_s = sum(s["wall_s"] for s in warm) / len(warm)
+    flops = train_flops(cfg, B, S)
+    full = param_counts(published)["total"]
+    report = {
+        "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers, "params": n_params,
+        "dtype": cfg.compute_dtype, "remat": cfg.remat, "batch": B, "seq": S,
+        "frames": None if frames is None else list(frames.shape),
+        "state_gb": 16 * n_params / 1e9,
+        "reduced": None if n_layers is None else {
+            "n_layers": [published.n_layers, cfg.n_layers],
+            "reason": f"{published.n_layers} layers hold {16 * full / 1e9:.1f} GB of float32 "
+                      f"state ({full:,} parameters, gradients, AdamW m and v), more than the "
+                      f"card's 80 GB; {cfg.n_layers} layers hold {16 * n_params / 1e9:.1f} GB"},
+        "steps": steps, "init_s": init_s, "warm_step_s": warm_s,
+        "warm_tok_per_s": B * S / warm_s, "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / warm_s / BF16_OPS_PER_S,
+        "loss_first_last": [losses[0], losses[-1]],
+        "first_batch_loss_before_after": [first_before, first_after],
+        "unmoved_undecayed_leaves": still,
+        "peak_device_gb": peak_gb,
+        "launches": launches, "flash_launches_per_step": per_step,
+        "kprof_step": {k: ops[k] for k in sorted(ops)},
+        "svc_estimates": [{"domain": d, "estimate": e, "ci": [lo, hi]}
+                          for d, (e, (lo, hi)) in enumerate(estimates)],
+        "svc_kernels_vs_plain": svc_held,
+        "device_busy_share_of_warm_step": profile.get("device_only_ms", 0.0) / 1e3 / warm_s,
+        "step_profile": profile, "profiled_step_wall_s": profile_wall_s,
+    }
+    return report, cap, launches
+
+
+def train_family_phases(smi: str, device: str = "cuda", runs=TRAIN_FAMILY_RUNS) -> list:
+    """``train_family`` for each of ``runs``, and the flash ``kernel`` lines
+    at the new training shapes (the hybrid's banded window, the encoder's
+    non-causal self attention, the cross attention), each captured on its
+    path and held against the plain version, with its backward beside it.
+    Returns the kernel lines."""
+    import gc
+
+    import torch
+
+    lines = []
+    for arch, n_layers, B, S in runs:
+        t0 = time.perf_counter()
+        report, cap, launches = run_family_train(arch, n_layers, B, S, SEED, device=device)
+        want = TRAIN_KERNELS if report["family"] != "ssm" else TRAIN_SSM_KERNELS
+        missing = [k for k in want if launches[k] == 0]
+        if missing:
+            fail(f"kernels never launched on {arch}'s train path: {missing}")
+        report["phase_s"] = time.perf_counter() - t0
+        emit({"phase": "train_family", **report, "card": smi})
+        gc.collect()
+        torch.cuda.empty_cache()
+        for label, (q, k, v) in cap.captured.items():
+            mask, causal = cap.masks[label], cap.causal[label]
+            lines.append(flash_entry(
+                f"train_family {arch} {label} (layer 0, captured)", q, k, v, causal,
+                launches["flash_attention"], ITERS, mask=mask,
+                **flash_bwd_entry(q, k, v, ITERS, causal, mask["window"])))
+        del cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    for line in lines:
+        emit({"phase": "kernel", **line, "card": smi})
     return lines
 
 
@@ -4798,6 +5197,9 @@ def main(argv=None) -> int:
     # training, on a card the serving phases have let go of
     torch.cuda.empty_cache()
     train_lines = train_phases(smi)
+    # the hybrid, ssm and encdec families' training
+    torch.cuda.empty_cache()
+    train_lines += train_family_phases(smi)
 
     emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]
           + train_lines})

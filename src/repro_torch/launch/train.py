@@ -17,9 +17,12 @@ it, the elastic planner shrinks the data axis, and training resumes from
 the last committed checkpoint.  SVC runs at its cadences: ingest every
 step, ``svc_refresh`` every ``--svc-every`` steps, ``mixture_weights``
 every ``--mixture-every`` steps, ``full_maintenance`` at checkpoint
-cadence.  One difference from JAX, deliberate: before restoring on a
-failure the loop waits for the async checkpoint writer, so the newest
-save is the one restored (JAX reads whatever the writer has committed).
+cadence.  Every family trains but encdec, whose batches need ``frames``
+that the token pipeline does not make: JAX's launcher fails at its first
+step, this one in ``build``, before it.  One difference from JAX,
+deliberate: before restoring on a failure the loop waits for the async
+checkpoint writer, so the newest save is the one restored (JAX reads
+whatever the writer has committed).
 """
 
 from __future__ import annotations
@@ -37,6 +40,12 @@ from repro_torch.training import AdamWConfig, init_train_state, make_train_step
 
 def build(args):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        # JAX's launcher fails at its first step (its forward reads
+        # batch["frames"]); this one fails before it, saying why
+        raise ValueError(f"{cfg.name}: the encdec family trains on batches with 'frames' "
+                         "(B, S_src, d_model); TokenPipeline's batches carry no frames "
+                         "(train it through training.make_train_step)")
     model = get_model(cfg, device=args.device, train=True)
     pipe = TokenPipeline(
         PipelineConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,

@@ -4,9 +4,9 @@
 five entry names for the dense, moe and vlm families (``Transformer``),
 the hybrid family (``rglru.RecurrentGemma``), the ssm family
 (``xlstm.XLSTM``) and the encdec family (``EncDec``).  ``params`` is the module that ``init``
-builds (or ``models.convert`` carries over from JAX); with ``train=True``
-(the dense, moe and vlm families only; the others raise) ``init`` builds
-the float32-master form that ``training`` updates:
+builds (or ``models.convert`` carries over from JAX); with ``train=True`` (every
+family) ``init`` builds the float32-master form that ``training``
+updates, and ``forward`` runs under the caller's grad mode:
 
   init(seed or torch.Generator)                 -> params
   forward(params, batch)                        -> (logits, aux)
@@ -51,27 +51,26 @@ _MODULES = {"encdec": encdec.EncDec, "hybrid": rglru.RecurrentGemma, "ssm": xlst
 _CACHES = {"hybrid": rglru.init_cache, "ssm": xlstm.init_cache}
 
 
-def _module(cfg: ArchConfig):
+def module_of(cfg: ArchConfig):
+    """The ``nn.Module`` class that holds ``cfg``'s parameters."""
     return _MODULES.get(cfg.family, Transformer)
 
 
 def get_model(cfg: ArchConfig, device="cuda", train: bool = False) -> Model:
     """``cfg``'s entry points on ``device`` (the card unless the caller asks
-    for the CPU); ``train``: ``init`` builds float32 masters, and a family
-    the port does not train raises here."""
-    check_family(cfg, train=train)
+    for the CPU); ``train``: ``init`` builds float32 masters."""
+    check_family(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"get_model(device={str(device)!r}): no CUDA device is available; "
                            "pass device='cpu' to run on the CPU")
-    module = _module(cfg)
+    module = module_of(cfg)
 
     def init(seed=0):
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=device).manual_seed(int(seed))
-        made = module(cfg, device, masters=True) if train else module(cfg, device)
-        return made.init_weights(gen)
+        return module(cfg, device, masters=train).init_weights(gen)
 
     def decode_step(params, cache, tokens, pos, rows=None):
         with f32_accumulation():
@@ -113,7 +112,7 @@ def param_counts(cfg: ArchConfig) -> Dict[str, int]:
     E experts' matrices for a MoE model, as JAX's does."""
     check_family(cfg)
     total = embed = expert = 0
-    for name, p in _module(cfg)(cfg, "meta").named_parameters():
+    for name, p in module_of(cfg)(cfg, "meta").named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         total += p.numel()
         if leaf in ("embed", "lm_head"):

@@ -22,8 +22,8 @@ JAX's ``(in, out)`` orientation is kept; each leaf is cast to its
 parameter's dtype: served, ``compute_dtype`` for matrices (what JAX casts
 to at use) and f32 for norms, the MoE router, rglru's ``lam``, ``b_a``,
 ``b_i`` and ``conv_w``, and xlstm's ``b_f``, ``b`` and ``R``; as float32
-masters (``masters=True``, the dense, moe and vlm families), f32
-throughout, JAX's training leaves unrounded.
+masters (``masters=True``, every family), f32 throughout, JAX's training
+leaves unrounded.
 """
 
 from __future__ import annotations
@@ -35,8 +35,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rglru, xlstm
-from repro_torch.models.encdec import CROSS_LEAVES, SELF_LEAVES, EncDec
-from repro_torch.models.transformer import Transformer, check_family
+from repro_torch.models.api import module_of
+from repro_torch.models.encdec import CROSS_LEAVES, SELF_LEAVES
+from repro_torch.models.transformer import check_family
 
 LAYER_LEAVES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -149,15 +150,8 @@ def write_leaf(leaf: Leaf, arr) -> None:
 def from_jax_params(params: Mapping, cfg: ArchConfig, device="cuda", masters: bool = False):
     """The port's module of ``cfg`` holding JAX's ``params``: served, or
     with ``masters`` the float32-master form that the port trains."""
-    check_family(cfg, train=masters)
-    if cfg.family == "encdec":
-        model = EncDec(cfg, device)
-    elif cfg.family == "hybrid":
-        model = rglru.RecurrentGemma(cfg, device)
-    elif cfg.family == "ssm":
-        model = xlstm.XLSTM(cfg, device)
-    else:
-        model = Transformer(cfg, device, masters=masters)
+    check_family(cfg)
+    model = module_of(cfg)(cfg, device, masters=masters)
     leaves = layout(model)
     _check_keys(params, leaves)
     for leaf in leaves:

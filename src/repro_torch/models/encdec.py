@@ -11,9 +11,17 @@ bidirectional self-attention (non-causal, S = T), the decoder's causal
 self-attention over the target, cross attention (non-causal, S_tgt
 queries against S_src keys), and decode against the cache slice
 ``[:, :pos+1]``.  As in ``models.transformer``, matrices are held in
-``compute_dtype``, norms in f32, and ``decode_step`` writes the cache in
-place at ``rows`` only when given.  No gemma embed scale; the unembedding
-is tied (``embed.T``).
+``compute_dtype``, norms in f32 (or, with ``masters=True``, every leaf a
+trainable float32 master, each cast where JAX casts it), and
+``decode_step`` writes the cache in place at ``rows`` only when given.
+No gemma embed scale; the unembedding is tied (``embed.T``).
+``encode``, ``decode_train`` and ``forward`` run under the caller's grad
+mode, each encoder and decoder layer under ``layers.remat`` (JAX's two
+``scan(_remat(body))``); the memory's cross-attention K/V are projected
+before the decoder's layers and outside their remat, as JAX's
+``_mem_kv`` is, and get their gradient through the cross attention's
+(non-causal, S_tgt queries against S_src keys).  ``prefill`` and
+``decode_step`` build no graph.
 """
 
 from __future__ import annotations
@@ -27,7 +35,13 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _param, build_positions, check_family, compute_dtype
+from repro_torch.models.transformer import (
+    _add_params,
+    _param,
+    build_positions,
+    check_family,
+    compute_dtype,
+)
 
 SELF_LEAVES = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up", "w_down")
 CROSS_LEAVES = ("ln_x", "xq", "xk", "xv", "xo")
@@ -50,39 +64,30 @@ class EncDecBlock(nn.Module):
     """One encoder block (self-attention, MLP), or one decoder block with
     cross attention between them (``cross``)."""
 
-    def __init__(self, cfg: ArchConfig, cross: bool, device="cuda"):
+    def __init__(self, cfg: ArchConfig, cross: bool, device="cuda", masters: bool = False):
         super().__init__()
         self.cfg = cfg
-        d, F, dt = cfg.d_model, cfg.d_ff, compute_dtype(cfg)
-        self.ln1 = _param((d,), torch.float32, device)
-        self.wq = _param((d, cfg.q_dim), dt, device)
-        self.wk = _param((d, cfg.kv_dim), dt, device)
-        self.wv = _param((d, cfg.kv_dim), dt, device)
-        self.wo = _param((cfg.q_dim, d), dt, device)
-        self.ln2 = _param((d,), torch.float32, device)
-        self.w_gate = _param((d, F), dt, device)
-        self.w_up = _param((d, F), dt, device)
-        self.w_down = _param((F, d), dt, device)
+        d, F = cfg.d_model, cfg.d_ff
         self.cross = cross
-        if cross:
-            self.ln_x = _param((d,), torch.float32, device)
-            self.xq = _param((d, cfg.q_dim), dt, device)
-            self.xk = _param((d, cfg.kv_dim), dt, device)
-            self.xv = _param((d, cfg.kv_dim), dt, device)
-            self.xo = _param((cfg.q_dim, d), dt, device)
+        shapes = {"ln1": (d,), "wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim),
+                  "wv": (d, cfg.kv_dim), "wo": (cfg.q_dim, d), "ln2": (d,), "w_gate": (d, F),
+                  "w_up": (d, F), "w_down": (F, d), "ln_x": (d,), "xq": (d, cfg.q_dim),
+                  "xk": (d, cfg.kv_dim), "xv": (d, cfg.kv_dim), "xo": (cfg.q_dim, d)}
+        _add_params(self, self.leaves(), shapes, ("ln1", "ln2", "ln_x"), device, masters)
 
     def leaves(self):
         return SELF_LEAVES + (CROSS_LEAVES if self.cross else ())
 
     def qkv(self, x, positions):
-        c = self.cfg
+        c, dt = self.cfg, x.dtype
         h = L.rmsnorm(x, self.ln1, c.norm_eps)
-        q, k, v = L.qkv_project(h, self.wq, self.wk, self.wv, c.n_heads, c.n_kv_heads, c.head_dim)
+        q, k, v = L.qkv_project(h, self.wq.to(dt), self.wk.to(dt), self.wv.to(dt), c.n_heads,
+                                c.n_kv_heads, c.head_dim)
         return L.apply_rope(q, positions, c.rope_theta), L.apply_rope(k, positions, c.rope_theta), v
 
     def attn_out(self, x, attn):
         B, S = x.shape[:2]
-        return x + attn.reshape(B, S, self.cfg.q_dim) @ self.wo
+        return x + attn.reshape(B, S, self.cfg.q_dim) @ self.wo.to(x.dtype)
 
     def self_attn(self, x, positions, causal: bool):
         """(x + self-attention, (k, v)) over the whole sequence."""
@@ -91,48 +96,65 @@ class EncDecBlock(nn.Module):
 
     def mem_kv(self, memory):
         """This decoder layer's cross-attention K/V of the memory (B, S_src, K, hd)."""
-        c = self.cfg
+        c, dt = self.cfg, memory.dtype
         B, S = memory.shape[:2]
-        return ((memory @ self.xk).reshape(B, S, c.n_kv_heads, c.head_dim),
-                (memory @ self.xv).reshape(B, S, c.n_kv_heads, c.head_dim))
+        return ((memory @ self.xk.to(dt)).reshape(B, S, c.n_kv_heads, c.head_dim),
+                (memory @ self.xv.to(dt)).reshape(B, S, c.n_kv_heads, c.head_dim))
 
     def cross_attn(self, x, mem_k, mem_v):
-        c = self.cfg
+        c, dt = self.cfg, x.dtype
         B, S = x.shape[:2]
         h = L.rmsnorm(x, self.ln_x, c.norm_eps)
-        q = (h @ self.xq).reshape(B, S, c.n_heads, c.head_dim)
+        q = (h @ self.xq.to(dt)).reshape(B, S, c.n_heads, c.head_dim)
         attn = flash_attention(q, mem_k, mem_v, causal=False)
-        return x + attn.reshape(B, S, c.q_dim) @ self.xo
+        return x + attn.reshape(B, S, c.q_dim) @ self.xo.to(dt)
 
     def mlp(self, x):
-        c = self.cfg
+        c, dt = self.cfg, x.dtype
         h = L.rmsnorm(x, self.ln2, c.norm_eps)
-        return x + L.glu_mlp(h, self.w_gate, self.w_up, self.w_down, c.act)
+        return x + L.glu_mlp(h, self.w_gate.to(dt), self.w_up.to(dt), self.w_down.to(dt), c.act)
+
+    def encoder_layer(self, x, positions):
+        """One encoder layer: JAX ``encode``'s scanned ``body``."""
+        return self.mlp(self.self_attn(x, positions, causal=False)[0])
+
+    def decoder_layer(self, x, positions, mem_k, mem_v):
+        """One teacher-forced decoder layer: JAX ``decode_train``'s ``body``;
+        returns (x', (k, v)) with its self-attention K/V."""
+        x, kv = self.self_attn(x, positions, causal=True)
+        return self.mlp(self.cross_attn(x, mem_k, mem_v)), kv
+
+    def train_decoder_layer(self, x, positions, mem_k, mem_v):
+        """``decoder_layer`` without its K/V: what a remat layer keeps."""
+        return self.decoder_layer(x, positions, mem_k, mem_v)[0]
 
 
 class EncDec(nn.Module):
     """Parameters as in ``repro.models.encdec.init_params``: ``embed``,
     ``final_norm``, ``enc_final_norm`` and the stacked ``enc``/``dec``
-    leaves split into one ``EncDecBlock`` per layer."""
+    leaves split into one ``EncDecBlock`` per layer; served, or with
+    ``masters`` float32 and trainable."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         check_family(cfg)
         if cfg.family != "encdec":
             raise ValueError(f"{cfg.name}: EncDec serves the encdec family, not {cfg.family}")
         self.cfg = cfg
         d = cfg.d_model
-        self.embed = _param((cfg.vocab, d), compute_dtype(cfg), device)
-        self.final_norm = _param((d,), torch.float32, device)
-        self.enc_final_norm = _param((d,), torch.float32, device)
-        self.enc = nn.ModuleList(EncDecBlock(cfg, False, device) for _ in range(cfg.enc_layers))
-        self.dec = nn.ModuleList(EncDecBlock(cfg, True, device) for _ in range(cfg.dec_layers))
+        self.embed = _param((cfg.vocab, d), compute_dtype(cfg), device, masters)
+        self.final_norm = _param((d,), torch.float32, device, masters)
+        self.enc_final_norm = _param((d,), torch.float32, device, masters)
+        self.enc = nn.ModuleList(EncDecBlock(cfg, False, device, masters)
+                                 for _ in range(cfg.enc_layers))
+        self.dec = nn.ModuleList(EncDecBlock(cfg, True, device, masters)
+                                 for _ in range(cfg.dec_layers))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "EncDec":
         """Draw every weight from ``gen`` as ``init_params`` does: the
         embedding by 0.02, matrices by 1/sqrt(fan_in) (``w_down`` by
-        1/sqrt(d_ff)), norms at 1."""
+        1/sqrt(d_ff)), norms at 1 (masters keep the f32 draws)."""
         dev = self.embed.device
         self.embed.copy_(L.embed_init(gen, *self.embed.shape, device=dev))
         for norm in (self.final_norm, self.enc_final_norm):
@@ -153,40 +175,32 @@ class EncDec(nn.Module):
 
     def _unembed(self, x):
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return x @ self.embed.T
+        return x @ self.embed.T.to(x.dtype)
 
-    @torch.no_grad()
     def encode(self, frames):
-        """frames (B, S_src, d_model) stub embeddings → encoder memory."""
+        """frames (B, S_src, d_model) stub embeddings → encoder memory.
+        Runs under the caller's grad mode, each layer under ``layers.remat``."""
         B, S, _ = frames.shape
         x = frames.to(compute_dtype(self.cfg))
         positions = build_positions(self.cfg, B, S, device=x.device)
         for blk in self.enc:
-            x, _kv = blk.self_attn(x, positions, causal=False)
-            x = blk.mlp(x)
+            x = L.remat(blk.encoder_layer, self.cfg)(x, positions)
         return L.rmsnorm(x, self.enc_final_norm, self.cfg.norm_eps)
 
-    def _decoder(self, tokens, mem):
-        """The teacher-forced decoder over ``tokens`` against the per-layer
-        memory K/V ``mem``; returns (logits, per-layer self (k, v))."""
+    def decode_train(self, tokens, memory):
+        """Teacher-forced decoder logits over target tokens (B, S_tgt).
+        Runs under the caller's grad mode, each layer under ``layers.remat``."""
         B, S = tokens.shape
+        mem = [blk.mem_kv(memory) for blk in self.dec]
         x = self._tokens(tokens)
         positions = build_positions(self.cfg, B, S, device=x.device)
-        kvs = []
         for blk, (mk, mv) in zip(self.dec, mem):
-            x, kv = blk.self_attn(x, positions, causal=True)
-            x = blk.mlp(blk.cross_attn(x, mk, mv))
-            kvs.append(kv)
-        return self._unembed(x), kvs
+            x = L.remat(blk.train_decoder_layer, self.cfg)(x, positions, mk, mv)
+        return self._unembed(x)
 
-    @torch.no_grad()
-    def decode_train(self, tokens, memory):
-        """Teacher-forced decoder logits over target tokens (B, S_tgt)."""
-        return self._decoder(tokens, [blk.mem_kv(memory) for blk in self.dec])[0]
-
-    @torch.no_grad()
     def forward(self, frames, tokens):
-        """(decoder logits, {}) for frames (B, S_src, d) and tokens (B, S_tgt)."""
+        """(decoder logits, {}) for frames (B, S_src, d) and tokens (B, S_tgt),
+        under the caller's grad mode."""
         return self.decode_train(tokens, self.encode(frames)), {}
 
     def init_cache(self, B: int, T: int, mem_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -199,15 +213,17 @@ class EncDec(nn.Module):
         and the memory's K/V."""
         memory = self.encode(frames)
         B, S = tokens.shape
-        mem = [blk.mem_kv(memory) for blk in self.dec]
-        logits, kvs = self._decoder(tokens, mem)
         cache = init_cache(self.cfg, B, cache_len or S, memory.shape[1], memory.device)
-        for i, ((k, v), (mk, mv)) in enumerate(zip(kvs, mem)):
+        x = self._tokens(tokens)
+        positions = build_positions(self.cfg, B, S, device=x.device)
+        for i, blk in enumerate(self.dec):
+            mk, mv = blk.mem_kv(memory)
+            x, (k, v) = blk.decoder_layer(x, positions, mk, mv)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
             cache["mem_k"][i] = mk
             cache["mem_v"][i] = mv
-        return logits, cache
+        return self._unembed(x), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None):

@@ -19,8 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 NEG_INF = -1e30
+REMATS = ("none", "dots", "full")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +160,34 @@ def f32_accumulation():
         yield
     finally:
         matmul.allow_bf16_reduced_precision_reduction = was
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (JAX's ``transformer._remat``)
+# ---------------------------------------------------------------------------
+
+def _dots_saveable():
+    """``dots_with_no_batch_dims_saveable``: the outputs of ``aten.mm``
+    (every ``x @ W`` of an activation and a matrix, a product with no batch
+    dimension) are saved; everything else is recomputed, ``bmm`` (the
+    einsums over a head axis) and the attention included, as JAX
+    recomputes its dots with batch dimensions."""
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default])
+
+
+def remat(fn, cfg):
+    """``fn`` as ``cfg.remat`` trains it, for one call: itself under
+    ``"none"`` or with grad off; under ``"full"`` (``nothing_saveable``)
+    inside ``torch.utils.checkpoint``, every op recomputed in the
+    backward; under ``"dots"`` inside a selective checkpoint that keeps
+    the ``aten.mm`` outputs.  One body per call, as JAX wraps each scanned
+    layer or super-block: ``remat(body, cfg)(*args)``."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"{cfg.name}: remat={cfg.remat!r}, expected one of {REMATS}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    extra = {"context_fn": _dots_saveable} if cfg.remat == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **extra)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,12 @@ Dtypes follow JAX's: matrices in ``compute_dtype``; ``lam`` used in f32,
 ``b_a``/``b_i`` cast to the compute dtype at use; ``conv_w`` kept in f32,
 cast to the activations' dtype in the forward and contracted in f32 at
 decode; the recurrent state h in f32 and the conv history in the compute
-dtype.
+dtype.  With ``masters=True`` every leaf is a trainable float32 master and
+each is cast where JAX casts it (a served leaf's cast returns the leaf).
+``forward`` runs under the caller's grad mode, each (rec, rec, attn)
+super-block under ``layers.remat`` (JAX's ``scan(_remat(body))``; the
+trailing rec layers are not rematerialised, as in JAX); ``prefill`` and
+``decode_step`` build no graph.
 
 Differences from the JAX module, all deliberate: parameters are split
 into one block module per layer; ``decode_step(rows=...)`` writes K/V and
@@ -45,7 +50,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _param, build_positions, compute_dtype
+from repro_torch.models.transformer import _add_params, _param, build_positions, compute_dtype
 
 RGLRU_C = 8.0
 REC_LEAVES = ("ln", "w_in", "w_gate_branch", "conv_w", "w_a", "b_a", "w_i", "b_i", "lam",
@@ -76,8 +81,8 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def rglru_gates(xb: torch.Tensor, blk: "RecBlock") -> Tuple[torch.Tensor, torch.Tensor]:
     """(a, b), both f32, of h_t = a_t h_{t−1} + b_t for inputs xb (…, D)."""
     dt = xb.dtype
-    r = torch.sigmoid(xb @ blk.w_a + blk.b_a.to(dt))
-    i = torch.sigmoid(xb @ blk.w_i + blk.b_i.to(dt))
+    r = torch.sigmoid(xb @ blk.w_a.to(dt) + blk.b_a.to(dt))
+    i = torch.sigmoid(xb @ blk.w_i.to(dt) + blk.b_i.to(dt))
     log_a = (-RGLRU_C * L.softplus(blk.lam.float())) * r.float()
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-6)) * (i.float() * xb.float())
@@ -100,34 +105,34 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(blk, x: torch.Tensor) -> torch.Tensor:
-    c = blk.cfg
-    return x + L.glu_mlp(L.rmsnorm(x, blk.ln2, c.norm_eps), blk.w_gate, blk.w_up, blk.w_down,
-                         c.act)
+    c, dt = blk.cfg, x.dtype
+    return x + L.glu_mlp(L.rmsnorm(x, blk.ln2, c.norm_eps), blk.w_gate.to(dt), blk.w_up.to(dt),
+                         blk.w_down.to(dt), c.act)
+
 
 
 class RecBlock(nn.Module):
     """One RG-LRU block: ``full`` over a sequence (JAX ``_rec_block_full``),
     ``decode`` for one token (``_rec_block_decode``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         self.cfg = cfg
-        d, F, dt, f32 = cfg.d_model, cfg.d_ff, compute_dtype(cfg), torch.float32
+        d, F = cfg.d_model, cfg.d_ff
         shapes = {"ln": (d,), "w_in": (d, d), "w_gate_branch": (d, d),
                   "conv_w": (cfg.rglru_conv_width, d), "w_a": (d, d), "b_a": (d,),
                   "w_i": (d, d), "b_i": (d,), "lam": (d,), "w_out": (d, d), "ln2": (d,),
                   "w_gate": (d, F), "w_up": (d, F), "w_down": (F, d)}
-        for name in REC_LEAVES:
-            setattr(self, name, _param(shapes[name], f32 if name in _F32_LEAVES else dt, device))
+        _add_params(self, REC_LEAVES, shapes, _F32_LEAVES, device, masters)
 
     def full(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         h = L.rmsnorm(x, self.ln, self.cfg.norm_eps)
-        xb = causal_conv1d(h @ self.w_in, self.conv_w)
+        xb = causal_conv1d(h @ self.w_in.to(dt), self.conv_w)
         a, b = rglru_gates(xb, self)
         rec = rglru_scan(a, b).to(dt)
-        gate = L.gelu(h @ self.w_gate_branch)
-        return _ffn(self, x + (gate * rec) @ self.w_out)
+        gate = L.gelu(h @ self.w_gate_branch.to(dt))
+        return _ffn(self, x + (gate * rec) @ self.w_out.to(dt))
 
     def decode(self, x: torch.Tensor, h_state: torch.Tensor, conv_state: torch.Tensor,
                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -135,13 +140,13 @@ class RecBlock(nn.Module):
         in place (at ``rows`` only when given)."""
         dt = x.dtype
         h = L.rmsnorm(x, self.ln, self.cfg.norm_eps)
-        xb = (h @ self.w_in)[:, 0]
+        xb = (h @ self.w_in.to(dt))[:, 0]
         hist = torch.cat([conv_state, xb[:, None]], 1)  # (B, W, d)
         xc = (hist.float() * self.conv_w).sum(1).to(dt)
         a, b = rglru_gates(xc, self)
         h_new = a * h_state + b
-        gate = L.gelu(h[:, 0] @ self.w_gate_branch)
-        y = _ffn(self, x + ((gate * h_new.to(dt)) @ self.w_out)[:, None])
+        gate = L.gelu(h[:, 0] @ self.w_gate_branch.to(dt))
+        y = _ffn(self, x + ((gate * h_new.to(dt)) @ self.w_out.to(dt))[:, None])
         L.put_rows(h_state, h_new, rows)
         L.put_rows(conv_state, hist[:, 1:], rows)
         return y
@@ -150,26 +155,25 @@ class RecBlock(nn.Module):
 class AttnBlock(nn.Module):
     """One local-attention block (JAX ``_attn_block_full`` / ``_attn_block_decode``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         self.cfg = cfg
-        d, F, dt, f32 = cfg.d_model, cfg.d_ff, compute_dtype(cfg), torch.float32
+        d, F = cfg.d_model, cfg.d_ff
         shapes = {"ln1": (d,), "wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim),
                   "wv": (d, cfg.kv_dim), "wo": (cfg.q_dim, d), "ln2": (d,),
                   "w_gate": (d, F), "w_up": (d, F), "w_down": (F, d)}
-        for name in ATTN_LEAVES:
-            setattr(self, name, _param(shapes[name], f32 if name in _F32_LEAVES else dt, device))
+        _add_params(self, ATTN_LEAVES, shapes, _F32_LEAVES, device, masters)
 
     def _qkv(self, x, positions):
-        c = self.cfg
+        c, dt = self.cfg, x.dtype
         h = L.rmsnorm(x, self.ln1, c.norm_eps)
-        q, k, v = L.qkv_project(h, self.wq, self.wk, self.wv, c.n_heads, c.n_kv_heads,
-                                c.head_dim)
+        q, k, v = L.qkv_project(h, self.wq.to(dt), self.wk.to(dt), self.wv.to(dt), c.n_heads,
+                                c.n_kv_heads, c.head_dim)
         return L.apply_rope(q, positions, c.rope_theta), L.apply_rope(k, positions, c.rope_theta), v
 
     def _out(self, x, attn):
         B, S = x.shape[:2]
-        return _ffn(self, x + attn.reshape(B, S, self.cfg.q_dim) @ self.wo)
+        return _ffn(self, x + attn.reshape(B, S, self.cfg.q_dim) @ self.wo.to(x.dtype))
 
     def full(self, x, positions):
         """(x', k, v) over a whole sequence under the banded causal mask."""
@@ -212,30 +216,36 @@ def init_cache(cfg: ArchConfig, B: int, T: int, device=None) -> Dict[str, object
             "rec_tail": rec_state(trailing) if trailing else None}
 
 
+def _superblock(x, r1: RecBlock, r2: RecBlock, at: AttnBlock, positions) -> torch.Tensor:
+    """One (rec, rec, attn) super-block over a sequence: JAX's scanned ``body``."""
+    return at.full(r2.full(r1.full(x)), positions)[0]
+
+
 class RecurrentGemma(nn.Module):
     """Parameters as in JAX's ``init_params``: ``rec1``, ``rec2`` and
-    ``attn`` (one block per super-block) and ``rec_tail``."""
+    ``attn`` (one block per super-block) and ``rec_tail``; served, or with
+    ``masters`` float32 and trainable."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         if cfg.family != "hybrid":
             raise ValueError(f"{cfg.name}: RecurrentGemma serves the hybrid family, "
                              f"not {cfg.family}")
         self.cfg = cfg
         sb, trailing = n_superblocks(cfg)
-        self.embed = _param((cfg.vocab, cfg.d_model), compute_dtype(cfg), device)
-        self.final_norm = _param((cfg.d_model,), torch.float32, device)
-        self.rec1 = nn.ModuleList(RecBlock(cfg, device) for _ in range(sb))
-        self.rec2 = nn.ModuleList(RecBlock(cfg, device) for _ in range(sb))
-        self.attn = nn.ModuleList(AttnBlock(cfg, device) for _ in range(sb))
-        self.rec_tail = nn.ModuleList(RecBlock(cfg, device) for _ in range(trailing))
+        self.embed = _param((cfg.vocab, cfg.d_model), compute_dtype(cfg), device, masters)
+        self.final_norm = _param((cfg.d_model,), torch.float32, device, masters)
+        self.rec1 = nn.ModuleList(RecBlock(cfg, device, masters) for _ in range(sb))
+        self.rec2 = nn.ModuleList(RecBlock(cfg, device, masters) for _ in range(sb))
+        self.attn = nn.ModuleList(AttnBlock(cfg, device, masters) for _ in range(sb))
+        self.rec_tail = nn.ModuleList(RecBlock(cfg, device, masters) for _ in range(trailing))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "RecurrentGemma":
         """Draw every weight from ``gen`` as JAX's ``init_params`` does: f32
         normals, matrices scaled by 1/sqrt(fan_in) (``conv_w`` by 0.5,
         ``w_down`` by 1/sqrt(d_ff)), the embedding by 0.02; norms at 1,
-        ``b_a``/``b_i`` at 0, ``lam`` at 0.5."""
+        ``b_a``/``b_i`` at 0, ``lam`` at 0.5 (masters keep the f32 draws)."""
         dev = self.embed.device
         self.embed.copy_(L.embed_init(gen, *self.embed.shape, device=dev))
         self.final_norm.fill_(1.0)
@@ -258,14 +268,14 @@ class RecurrentGemma(nn.Module):
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.embed.T.to(x.dtype)
 
-    @torch.no_grad()
     def forward(self, tokens, vision_embeds=None):
-        """Full-sequence logits and ``{}``.  tokens (B, S) int."""
+        """Full-sequence logits and ``{}``.  tokens (B, S) int.  Runs under
+        the caller's grad mode, each super-block under ``layers.remat``."""
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = build_positions(self.cfg, B, S, device=x.device)
         for r1, r2, at in zip(self.rec1, self.rec2, self.attn):
-            x = at.full(r2.full(r1.full(x)), positions)[0]
+            x = L.remat(_superblock, self.cfg)(x, r1, r2, at, positions)
         for blk in self.rec_tail:
             x = blk.full(x)
         return self._unembed(x), {}

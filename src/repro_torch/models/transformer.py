@@ -9,9 +9,10 @@ and granite-moe-3b-a800m (MoE blocks, ``models.moe``) and qwen2-vl-72b
 Every matrix is cast to the activations' dtype at its use, as JAX casts
 its masters; for a served leaf, already in that dtype, the cast returns
 the leaf itself (no copy, no launch).  ``forward`` runs under the
-caller's grad mode, each layer under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"`` and grad is on (JAX's ``jax.checkpoint``);
-``prefill`` and ``decode_step`` build no graph.  Every attention goes
+caller's grad mode, each layer under ``layers.remat`` when grad is on
+(JAX's ``_remat``: ``"full"`` recomputes the layer in the backward,
+``"dots"`` keeps its ``aten.mm`` outputs); ``prefill`` and
+``decode_step`` build no graph.  Every attention goes
 through ``kernels.flash_attention`` (its gradient: the plain version's,
 ``kernels/flash_attention/autograd.py``): causal over the prompt in
 ``forward``/``prefill``, non-causal against the cache slice
@@ -43,7 +44,6 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -54,20 +54,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VISION_STUB_DIM = 1024  # patch-embedding stub width (the frontend is external)
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")  # the families ``Transformer`` serves
 LM_FAMILIES = TRANSFORMER_FAMILIES + ("hybrid", "ssm")  # the decoder-only LMs
-TRAIN_FAMILIES = TRANSFORMER_FAMILIES  # the families the port trains
+FAMILIES = LM_FAMILIES + ("encdec",)  # the families the port serves and trains
 
 
-def check_family(cfg: ArchConfig, train: bool = False) -> None:
-    """Raise unless the port serves ``cfg``'s family: dense, moe and vlm
-    (``Transformer``), hybrid (``models.rglru``), ssm (``models.xlstm``)
-    and encdec (``models.encdec``); with ``train``, unless it trains it
-    (``TRAIN_FAMILIES``: the hybrid, ssm and encdec modules build no
-    graph)."""
-    if cfg.family not in LM_FAMILIES + ("encdec",):
-        raise ValueError(cfg.family)
-    if train and cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: the port trains the {TRAIN_FAMILIES} families, "
-                                  f"not {cfg.family} (it serves it)")
+def check_family(cfg: ArchConfig) -> None:
+    """Raise unless the port serves and trains ``cfg``'s family: dense, moe
+    and vlm (``Transformer``), hybrid (``models.rglru``), ssm
+    (``models.xlstm``) and encdec (``models.encdec``)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -78,6 +73,16 @@ def _param(shape, dtype, device, masters: bool = False) -> nn.Parameter:
     """A served leaf in ``dtype``, or a trainable float32 master."""
     dtype = torch.float32 if masters else dtype
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=masters)
+
+
+def _add_params(module: nn.Module, names, shapes, f32_names, device, masters: bool) -> None:
+    """``module.<name>`` = ``_param`` of ``shapes[name]`` for each of
+    ``names``, in order: served in float32 for ``f32_names`` and in
+    ``compute_dtype`` for the rest, or float32 masters."""
+    dt = compute_dtype(module.cfg)
+    for name in names:
+        setattr(module, name, _param(shapes[name], torch.float32 if name in f32_names else dt,
+                                     device, masters))
 
 
 def build_positions(cfg: ArchConfig, B: int, S: int, offset: int = 0, device=None) -> torch.Tensor:
@@ -205,7 +210,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
-        check_family(cfg, train=masters)
+        check_family(cfg)
         if cfg.family not in TRANSFORMER_FAMILIES:
             raise ValueError(f"{cfg.name}: Transformer serves {TRANSFORMER_FAMILIES}, "
                              f"not {cfg.family}")
@@ -267,21 +272,14 @@ class Transformer(nn.Module):
         """Full-sequence logits and ``{"moe_load": (L, E)}`` ((L, 1) zeros
         for a dense model).  tokens (B, S) int; ``vision_embeds`` (B, n_vis,
         1024) overwrite the first n_vis positions (vlm).  Runs under the
-        caller's grad mode; with grad on, ``cfg.remat`` "full" recomputes
-        each layer in the backward (``"dots"`` raises: no config uses it)."""
+        caller's grad mode; with grad on, each layer under ``layers.remat``
+        (``cfg.remat``)."""
         B, S = tokens.shape
         x = self._embed(tokens, vision_embeds)
         positions = build_positions(self.cfg, B, S, device=x.device)
-        remat = torch.is_grad_enabled() and self.cfg.remat != "none"
-        if remat and self.cfg.remat != "full":
-            raise NotImplementedError(f"{self.cfg.name}: remat={self.cfg.remat!r}; the port "
-                                      "recomputes whole layers ('full') or none")
         loads = []
         for blk in self.layers:
-            if remat:
-                x, load = checkpoint(blk.train_full, x, positions, use_reentrant=False)
-            else:
-                x, load = blk.train_full(x, positions)
+            x, load = L.remat(blk.train_full, self.cfg)(x, positions)
             loads.append(load if load is not None
                          else torch.zeros((1,), dtype=torch.float32, device=x.device))
         return self._unembed(x), {"moe_load": torch.stack(loads)}

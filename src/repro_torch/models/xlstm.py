@@ -14,6 +14,13 @@ and scores in the compute dtype, accumulates both contractions in f32 and
 keeps the row max in f32; the decode state (C, n, m and the sLSTM's h, c,
 n, m) is f32.  The mLSTM decode's stabilizer starts at m = 0 while the
 parallel form uses the row max, so the two agree only to JAX's own 5e-2.
+With ``masters=True`` every leaf is a trainable float32 master, each cast
+where JAX casts it.  ``forward`` runs under the caller's grad mode, each
+super-block (its mLSTM layers and its sLSTM) under ``layers.remat``, as
+JAX scans ``_remat(sb_body)``; the gradient flows through the parallel
+form's chunks (the row max's through ``amax``, which splits it evenly
+between tied maxima, as ``jnp.max``'s does) and the sLSTM's loop over
+time.  ``prefill`` and ``decode_step`` build no graph.
 
 Differences from the JAX module, all deliberate: one block module per
 layer; ``decode_step(rows=...)`` writes the state at ``rows`` only (JAX
@@ -34,13 +41,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _param, compute_dtype
+from repro_torch.models.transformer import _add_params, _param, compute_dtype
 
 MLSTM_PF = 2  # up-projection factor
 CHUNK = 256
 MLSTM_LEAVES = ("ln", "w_up", "w_gate", "wq", "wk", "wv", "w_i", "w_f", "b_f", "w_down")
 SLSTM_LEAVES = ("ln", "W", "R", "b", "w_out")
 _F32_LEAVES = ("ln", "b_f", "R", "b")
+
 
 
 def inner_dim(cfg: ArchConfig) -> int:
@@ -91,49 +99,48 @@ def mlstm_parallel(q, k, v, itil, logf) -> torch.Tensor:
 class MLSTMBlock(nn.Module):
     """One mLSTM layer (JAX ``_mlstm_block_full`` / ``_mlstm_block_decode``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         self.cfg = cfg
         d, di, H = cfg.d_model, inner_dim(cfg), cfg.mlstm_heads
-        dt, hd = compute_dtype(cfg), di // H
+        hd = di // H
         shapes = {"ln": (d,), "w_up": (d, di), "w_gate": (d, di), "wq": (H, hd, hd),
                   "wk": (H, hd, hd), "wv": (H, hd, hd), "w_i": (di, H), "w_f": (di, H),
                   "b_f": (H,), "w_down": (di, d)}
-        for name in MLSTM_LEAVES:
-            setattr(self, name, _param(shapes[name],
-                                       torch.float32 if name in _F32_LEAVES else dt, device))
+        _add_params(self, MLSTM_LEAVES, shapes, _F32_LEAVES, device, masters)
 
     def _proj(self, x):
+        dt = x.dtype
         h = L.rmsnorm(x, self.ln, self.cfg.norm_eps)
-        xu = h @ self.w_up
-        gate = F.silu(h @ self.w_gate)
-        itil = (xu @ self.w_i).float()
-        logf = L.log_sigmoid((xu @ self.w_f).float() + self.b_f)
+        xu = h @ self.w_up.to(dt)
+        gate = F.silu(h @ self.w_gate.to(dt))
+        itil = (xu @ self.w_i.to(dt)).float()
+        logf = L.log_sigmoid((xu @ self.w_f.to(dt)).float() + self.b_f)
         return xu, gate, itil, logf
 
     def full(self, x):
         B, S, _ = x.shape
-        H = self.cfg.mlstm_heads
+        H, dt = self.cfg.mlstm_heads, x.dtype
         xu, gate, itil, logf = self._proj(x)
         xh = xu.reshape(B, S, H, -1)
-        q = torch.einsum("bshd,hde->bshe", xh, self.wq)
-        k = torch.einsum("bshd,hde->bshe", xh, self.wk)
-        v = torch.einsum("bshd,hde->bshe", xh, self.wv)
+        q = torch.einsum("bshd,hde->bshe", xh, self.wq.to(dt))
+        k = torch.einsum("bshd,hde->bshe", xh, self.wk.to(dt))
+        v = torch.einsum("bshd,hde->bshe", xh, self.wv.to(dt))
         out = mlstm_parallel(q, k, v, itil, logf).reshape(B, S, -1)
-        return x + (gate * out) @ self.w_down
+        return x + (gate * out) @ self.w_down.to(dt)
 
     def decode(self, x, C_state, n_state, m_state, rows=None):
         """x (B,1,d); C (B,H,hd,hd), n (B,H,hd), m (B,H), all f32, updated
         in place (at ``rows`` only when given)."""
-        B = x.shape[0]
+        B, dt = x.shape[0], x.dtype
         H = self.cfg.mlstm_heads
         xu, gate, itil, logf = self._proj(x)
         xu, gate, itil, logf = xu[:, 0], gate[:, 0], itil[:, 0], logf[:, 0]
         xh = xu.reshape(B, H, -1)
         hd = xh.shape[-1]
-        q = torch.einsum("bhd,hde->bhe", xh, self.wq).float()
-        k = torch.einsum("bhd,hde->bhe", xh, self.wk).float() / np.sqrt(hd)
-        v = torch.einsum("bhd,hde->bhe", xh, self.wv).float()
+        q = torch.einsum("bhd,hde->bhe", xh, self.wq.to(dt)).float()
+        k = torch.einsum("bhd,hde->bhe", xh, self.wk.to(dt)).float() / np.sqrt(hd)
+        v = torch.einsum("bhd,hde->bhe", xh, self.wv.to(dt)).float()
         m_new = torch.maximum(logf + m_state, itil)
         fprime = torch.exp(logf + m_state - m_new)
         iprime = torch.exp(itil - m_new)
@@ -143,8 +150,8 @@ class MLSTMBlock(nn.Module):
         num = torch.einsum("bhd,bhde->bhe", q, C_new)
         # the stabilized normalizer's floor is exp(−m_t), as in the parallel form
         den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(), torch.exp(-m_new))
-        out = (num / den[..., None]).reshape(B, -1).to(x.dtype)
-        y = x + ((gate * out) @ self.w_down)[:, None]
+        out = (num / den[..., None]).reshape(B, -1).to(dt)
+        y = x + ((gate * out) @ self.w_down.to(dt))[:, None]
         L.put_rows(C_state, C_new, rows)
         L.put_rows(n_state, n_new, rows)
         L.put_rows(m_state, m_new, rows)
@@ -174,18 +181,16 @@ def slstm_cell(state, g):
 class SLSTMBlock(nn.Module):
     """One sLSTM layer (JAX ``_slstm_block_full`` / ``_slstm_block_decode``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         self.cfg = cfg
-        d, dt = cfg.d_model, compute_dtype(cfg)
+        d = cfg.d_model
         shapes = {"ln": (d,), "W": (d, 4 * d), "R": (4, d // 4, d), "b": (4 * d,),
                   "w_out": (d, d)}
-        for name in SLSTM_LEAVES:
-            setattr(self, name, _param(shapes[name],
-                                       torch.float32 if name in _F32_LEAVES else dt, device))
+        _add_params(self, SLSTM_LEAVES, shapes, _F32_LEAVES, device, masters)
 
     def _gates_in(self, x):
-        return (L.rmsnorm(x, self.ln, self.cfg.norm_eps) @ self.W).float() + self.b
+        return (L.rmsnorm(x, self.ln, self.cfg.norm_eps) @ self.W.to(x.dtype)).float() + self.b
 
     def _step(self, state, wx_t):
         h = state[0]
@@ -202,13 +207,13 @@ class SLSTMBlock(nn.Module):
         for t in range(S):
             state, h = self._step(state, wx[:, t])
             hs.append(h)
-        return x + torch.stack(hs, 1).to(x.dtype) @ self.w_out
+        return x + torch.stack(hs, 1).to(x.dtype) @ self.w_out.to(x.dtype)
 
     def decode(self, x, states, rows=None):
         """x (B,1,d); ``states`` (h, c, n, m), each (B,d) f32, updated in
         place (at ``rows`` only when given)."""
         new, h = self._step(tuple(states), self._gates_in(x)[:, 0])
-        y = x + (h.to(x.dtype) @ self.w_out)[:, None]
+        y = x + (h.to(x.dtype) @ self.w_out.to(x.dtype))[:, None]
         for dst, src in zip(states, new):
             L.put_rows(dst, src, rows)
         return y
@@ -231,27 +236,35 @@ def init_cache(cfg: ArchConfig, B: int, T: int, device=None) -> Dict[str, object
             "mlstm_m": z(sb, m_per, B, H), "slstm": tuple(z(sb, B, d) for _ in range(4))}
 
 
+def _superblock(x, mls, sl: SLSTMBlock) -> torch.Tensor:
+    """One super-block over a sequence: JAX's scanned ``sb_body``."""
+    for blk in mls:
+        x = blk.full(x)
+    return sl.full(x)
+
+
 class XLSTM(nn.Module):
     """Parameters as in JAX's ``init_params``: ``mlstm`` (sb × m_per blocks,
-    super-block major) and ``slstm`` (one a super-block)."""
+    super-block major) and ``slstm`` (one a super-block); served, or with
+    ``masters`` float32 and trainable."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
         if cfg.family != "ssm":
             raise ValueError(f"{cfg.name}: XLSTM serves the ssm family, not {cfg.family}")
         self.cfg = cfg
         sb, m_per = n_superblocks(cfg), cfg.slstm_every - 1
-        self.embed = _param((cfg.vocab, cfg.d_model), compute_dtype(cfg), device)
-        self.final_norm = _param((cfg.d_model,), torch.float32, device)
-        self.mlstm = nn.ModuleList(MLSTMBlock(cfg, device) for _ in range(sb * m_per))
-        self.slstm = nn.ModuleList(SLSTMBlock(cfg, device) for _ in range(sb))
+        self.embed = _param((cfg.vocab, cfg.d_model), compute_dtype(cfg), device, masters)
+        self.final_norm = _param((cfg.d_model,), torch.float32, device, masters)
+        self.mlstm = nn.ModuleList(MLSTMBlock(cfg, device, masters) for _ in range(sb * m_per))
+        self.slstm = nn.ModuleList(SLSTMBlock(cfg, device, masters) for _ in range(sb))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "XLSTM":
         """Draw every weight from ``gen`` as JAX's ``init_params`` does: f32
         normals scaled by 1/sqrt(fan_in) (``w_down`` by 1/sqrt(inner dim),
         ``R`` by 0.5/sqrt(d)), the embedding by 0.02; norms at 1, ``b_f``
-        at 3 (open forget gates), ``b`` at 0."""
+        at 3 (open forget gates), ``b`` at 0 (masters keep the f32 draws)."""
         dev, d = self.embed.device, self.cfg.d_model
         self.embed.copy_(L.embed_init(gen, *self.embed.shape, device=dev))
         self.final_norm.fill_(1.0)
@@ -277,14 +290,12 @@ class XLSTM(nn.Module):
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.embed.T.to(x.dtype)
 
-    @torch.no_grad()
     def forward(self, tokens, vision_embeds=None):
-        """Full-sequence logits and ``{}``.  tokens (B, S) int."""
+        """Full-sequence logits and ``{}``.  tokens (B, S) int.  Runs under
+        the caller's grad mode, each super-block under ``layers.remat``."""
         x = self._embed(tokens)
         for _s, mls, sl in self._superblocks():
-            for blk in mls:
-                x = blk.full(x)
-            x = sl.full(x)
+            x = L.remat(_superblock, self.cfg)(x, mls, sl)
         return self._unembed(x), {}
 
     def init_cache(self, B: int, T: int):

@@ -4,9 +4,12 @@ the port of ``repro.training.train_step``.
 ``make_train_step(model, opt_cfg)`` returns ``step(state, batch) ->
 (state, metrics)``.  The model is ``get_model(cfg, train=True)``: float32
 master leaves, each matrix cast to ``compute_dtype`` at its use, every
-layer recomputed in the backward under ``cfg.remat == "full"``.  Gradient
+layer (or super-block) under ``layers.remat`` (``cfg.remat``).  Gradient
 accumulation over microbatches sums the float32 ``.grad`` of each
-microbatch's backward (JAX scans and sums) and divides.  The whole step,
+microbatch's backward (JAX scans and sums) and divides.  The loss reads
+``model.forward(params, batch)`` on the whole (micro)batch, as JAX's
+``loss_fn`` does: ``frames`` reach the encdec forward, ``vision_embeds``
+the vlm one.  The whole step,
 the backward's products included, runs under ``layers.f32_accumulation``:
 bf16 products accumulate in float32, as JAX's dots do.  Per-domain loss
 sums are emitted as **SVC delta feeds**: the training loop ingests them
@@ -79,12 +82,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, microbatches: int = 1,
     """``step(state, batch) -> (state, metrics)`` for ``model`` (from
     ``get_model(cfg, train=True)``); the step carries ``opt_cfg``."""
     cfg = model.cfg
-    check_family(cfg, train=True)
+    check_family(cfg)
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches}")
 
     def loss_fn(params, mb) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits, aux = params(mb["tokens"], mb.get("vision_embeds"))
+        logits, aux = model.forward(params, mb)
         loss, nll = cross_entropy(logits, mb["labels"])
         extras: Dict[str, torch.Tensor] = {}
         if cfg.moe_experts and aux.get("moe_load") is not None:

@@ -8,7 +8,8 @@ leaves stacked to JAX's (L, …) shapes.  So a train state saved by the
 port restores into a JAX ``TrainState`` through JAX's
 ``CheckpointManager.restore``, and the reverse, bit for bit.
 ``models.convert.to_jax_params`` inverts ``from_jax_params`` exactly for
-every family.
+every family, the hybrid, ssm and encdec ones trained and checkpointed as
+the transformer's are.
 """
 
 import json
@@ -100,7 +101,10 @@ def test_async_checkpoint_copies_before_returning(tmp_path):
 def _batch(cfg, seed=0):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
-    return {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    out = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(4, 16, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _flat(tree):
@@ -108,7 +112,10 @@ def _flat(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "grok-1-314b"])
+TRAIN_FAMILY_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "grok-1-314b"] + TRAIN_FAMILY_ARCHS)
 def test_port_checkpoint_restores_in_jax(arch, tmp_path):
     """A port train state after one step, saved by the port, restored by
     JAX's manager into JAX's TrainState: every leaf bit-equal (params, m,
@@ -125,10 +132,17 @@ def test_port_checkpoint_restores_in_jax(arch, tmp_path):
     assert extra == {"step": 1}
     got = _flat(restored)
     assert int(got["2"]) == 1 and int(got["1/step"]) == 1
-    np.testing.assert_array_equal(got["0/layers/wq"][1], state.params.layers[1].wq.detach())
-    np.testing.assert_array_equal(got["1/m/layers/w_up"][0],
-                                  state.opt_state["m"]["layers.0.w_up"])
+    if cfg.family in ("dense", "moe"):
+        np.testing.assert_array_equal(got["0/layers/wq"][1], state.params.layers[1].wq.detach())
+        np.testing.assert_array_equal(got["1/m/layers/w_up"][0],
+                                      state.opt_state["m"]["layers.0.w_up"])
     np.testing.assert_array_equal(got["1/v/embed"], state.opt_state["v"]["embed"])
+    from repro_torch.checkpoint.manager import host_leaves
+
+    saved = dict(host_leaves(state))
+    assert sorted(saved) == sorted(got)
+    for k in got:
+        np.testing.assert_array_equal(got[k], saved[k], err_msg=k)
     with open(tmp_path / "step_00000001" / "manifest.json") as f:
         keys = [leaf["key"] for leaf in json.load(f)["leaves"]]
     assert keys == list(_flat(template))  # JAX's flatten order
@@ -137,7 +151,7 @@ def test_port_checkpoint_restores_in_jax(arch, tmp_path):
     assert np.isfinite(float(metrics["loss"])) and int(new.step) == 2
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "grok-1-314b"] + TRAIN_FAMILY_ARCHS)
 def test_jax_checkpoint_restores_in_the_port(arch, tmp_path):
     """JAX's train state after one step, saved by JAX's manager, restored
     by the port's into its TrainState: every leaf bit-equal, and the port's
@@ -166,13 +180,15 @@ def test_jax_checkpoint_restores_in_the_port(arch, tmp_path):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_to_jax_params_inverts_from_jax_params(arch):
     """Every family: JAX's parameters carried into the port and back are
-    JAX's exactly (keys, shapes, values; float32 masters where the port
-    trains, the served form for the others in their smoke configs' f32)."""
+    JAX's exactly (keys, shapes, values), in the float32-master form the
+    port trains and in the served form (the smoke configs' f32)."""
     jp = jax.tree.map(np.asarray, jax_get_model(jax_smoke(arch)).init(jax.random.PRNGKey(3)))
     cfg = get_smoke_config(arch)
-    masters = cfg.family in ("dense", "moe", "vlm")
-    back = to_jax_params(from_jax_params(jp, cfg, device="cpu", masters=masters))
-    assert jax.tree.structure(back) == jax.tree.structure(jp)
-    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
-        assert a.dtype == np.float32 and a.shape == b.shape
-        np.testing.assert_array_equal(a, b)
+    for masters in (True, False):
+        model = from_jax_params(jp, cfg, device="cpu", masters=masters)
+        assert all(p.requires_grad == masters for p in model.parameters())
+        back = to_jax_params(model)
+        assert jax.tree.structure(back) == jax.tree.structure(jp)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+            assert a.dtype == np.float32 and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)

@@ -32,7 +32,11 @@ from the CPU's autograd of the plain version, one train step of the
 gemma-2b smoke config within 1e-5 (loss, grad norm) and 1e-4 (each
 gradient, of its leaf's largest) of the CPU's, the backward's bf16
 products accumulated in f32, 2 × n_layers flash launches a step under
-remat, and a served decode step that casts no parameter.
+remat, and a served decode step that casts no parameter.  The hybrid, ssm
+and encdec smoke configs' train steps on the card within the same limits of
+the CPU's, and the flash forward and gradient at the banded (window
+128), encoder (non-causal) and cross (S != T) training shapes within
+1e-4 (f32) and 2^-7 (bf16) of the plain version's largest magnitude.
 """
 
 import numpy as np
@@ -1992,3 +1996,80 @@ def test_served_decode_casts_no_parameter(dev):
     with Casts():
         model.decode_step(params, cache, toks, 0)
     assert read and not leaves & set(read)
+
+
+# ---------------------------------------------------------------------------
+# training the hybrid, ssm and encdec families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b", "seamless-m4t-large-v2"])
+def test_train_family_step_on_the_card_matches_the_cpu(dev, arch):
+    """The arch's smoke config (f32, TF32 off; the encdec batch with a
+    seeded frames stub), one step from the same masters on the same batch:
+    loss and grad norm within 1e-5 relative, every gradient within 1e-4 of
+    its leaf's largest, and as many flash launches as the step's
+    attentions (none for xlstm)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, 32), generator=g, dtype=torch.int32)
+    frames = torch.randn((4, 32, cfg.d_model), generator=g)
+    models = [get_model(cfg, device=device, train=True) for device in ("cpu", dev)]
+    states = [init_train_state(m, 0) for m in models]
+    states[1].params.load_state_dict(states[0].params.state_dict())
+    runs = []
+    for model, state in zip(models, states):
+        d = model.device
+        batch = {"tokens": toks.to(d), "labels": toks.roll(-1, 1).to(d),
+                 "domain": torch.arange(4, dtype=torch.int32, device=d)}
+        if cfg.family == "encdec":
+            batch["frames"] = frames.to(d)
+        before = flash_attention.launches
+        runs.append(make_train_step(model, AdamWConfig(lr=1e-3))(state, batch))
+    attentions = {"hybrid": cfg.n_layers // 3, "ssm": 0,
+                  "encdec": cfg.enc_layers + 2 * cfg.dec_layers}[cfg.family]
+    assert flash_attention.launches - before == attentions  # remat "none": once each
+    (cs, cm), (ds, dm) = runs
+    for key in ("loss", "grad_norm"):
+        assert abs(float(dm[key]) - float(cm[key])) <= 1e-5 * abs(float(cm[key])), key
+    cpu = dict(cs.params.named_parameters())
+    for name, p in ds.params.named_parameters():
+        want = cpu[name].grad
+        assert float((p.grad.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    (1, 300, 300, 4, 1, 256, True, 128),  # the hybrid's banded self attention
+    (2, 77, 77, 4, 4, 64, False, 0),  # the encoder's non-causal self attention
+    (2, 77, 130, 4, 4, 64, False, 0),  # the cross attention, S_tgt != S_src
+])
+def test_train_flash_family_shapes_on_the_card(dev, dtype, B, S, T, H, K, hd, causal, window):
+    """The training shapes of the hybrid and encdec families: the forward
+    (one launch) and dq, dk, dv through ``autograd.FlashAttention`` against
+    the CPU's plain version and its autograd, within 1e-4 (f32) and 2^-7
+    (bf16) of each output's largest magnitude."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator().manual_seed(S + T + hd)
+    cpu = [torch.randn(shape, generator=g).to(dtype) for shape in
+           ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd), (B, S, H, hd))]
+    ins = [t.to(dev).requires_grad_(True) for t in cpu[:3]]
+    before = flash_attention.launches
+    out = flash_attention(*ins, causal=causal, window=window)
+    out.backward(cpu[3].to(dev))
+    assert flash_attention.launches == before + 1
+    ref = [t.clone().requires_grad_(True) for t in cpu[:3]]
+    want = flash_attention_ref(*ref, causal, window)
+    want.backward(cpu[3])
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for name, a, b in [("out", out.detach(), want.detach())] + [
+            ("d" + n, x.grad, y.grad) for n, x, y in zip("qkv", ins, ref)]:
+        assert a.dtype == dtype
+        err = float((a.cpu().float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)

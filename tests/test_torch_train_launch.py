@@ -8,7 +8,10 @@ on the same smoke config and flags (no failure), started from JAX's
 initial masters (carried over by ``models.convert``; the two packages'
 generators draw other numbers from one seed), the first and last losses
 agree within 1e-5 relative (the same batches and steps).  The entry
-point refuses to run without a card unless asked for the CPU.
+point refuses to run without a card unless asked for the CPU.  The ssm
+arch trains through it; the encdec arch, whose batches need ``frames``
+that the token pipeline does not make, fails before its first step (JAX's
+launcher at its first step).
 """
 
 import numpy as np
@@ -93,3 +96,20 @@ def test_build_matches_jax_schedule_and_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cpu"):
         train.build(train.parser().parse_args(["--arch", "gemma-2b", "--smoke"]))
+
+
+def test_launcher_trains_the_ssm_arch(capsys):
+    out = train.main(["--arch", "xlstm-1.3b", "--smoke", "--device", "cpu", "--steps", "4",
+                      "--batch", "4", "--seq", "16", "--log-every", "1", "--svc-every", "2",
+                      "--mixture-every", "3"])
+    assert out["steps"] == 4 and np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
+    assert capsys.readouterr().out.count("step ") >= 4
+
+
+def test_launcher_refuses_the_encdec_arch_before_the_first_step(monkeypatch):
+    stepped = []
+    monkeypatch.setattr(train, "make_train_step", lambda *a, **k: stepped.append(1))
+    with pytest.raises(ValueError, match="frames"):
+        train.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu",
+                    "--steps", "2"])
+    assert not stepped

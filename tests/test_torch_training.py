@@ -23,6 +23,8 @@ packages starts from the same state on the same numpy batch.  Held:
 * Two microbatches against one batch (JAX's own 2e-3/2e-4 of
   ``tests/test_training_infra.py``) and against JAX's two, ``remat="full"``
   equal to ``"none"`` bit for bit, and the loss falling on a tiny model.
+  (The hybrid, ssm and encdec families and remat "dots":
+  ``tests/test_torch_train_families.py``.)
 * One bf16 step (gemma-2b's smoke config in bf16) against JAX compiled
   with the casts its source states and its attention computed as the
   port's (``tests/torch_bf16.py``), at limits that a cast moved on a copy
@@ -299,21 +301,17 @@ def test_remat_full_equals_none(arch):
         assert torch.equal(a, b)
 
 
-def test_remat_dots_and_untrained_families_raise():
-    cfg = dataclasses.replace(get_smoke_config("gemma-2b"), remat="dots")
-    model = get_model(cfg, device="cpu", train=True)
-    state = init_train_state(model, 0)
-    tb = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(model, AdamWConfig())(state, tb)
-    for arch in ("recurrentgemma-9b", "xlstm-1.3b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="trains"):
-            get_model(get_smoke_config(arch), device="cpu", train=True)
-        served = get_model(get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="trains"):
-            make_train_step(served, AdamWConfig())
+def test_init_train_state_needs_masters_and_remat_is_known():
+    """A served model has no masters to train; an unknown remat raises at
+    the step.  (remat "dots" and the hybrid, ssm and encdec families train:
+    ``tests/test_torch_train_families.py``.)"""
     with pytest.raises(ValueError, match="train=True"):
         init_train_state(get_model(get_smoke_config("gemma-2b"), device="cpu"), 0)
+    cfg = dataclasses.replace(get_smoke_config("gemma-2b"), remat="everything")
+    model = get_model(cfg, device="cpu", train=True)
+    tb = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    with pytest.raises(ValueError, match="remat"):
+        make_train_step(model, AdamWConfig())(init_train_state(model, 0), tb)
 
 
 def test_loss_decreases_tiny_model():
