@@ -74,7 +74,16 @@ size, through the entry points a user calls:
      layers on one 4,096-token sequence (the 2,048 window binds); each a
      warm-up and 3 timed steps with the loss view ingesting, one step under
      each profiler, and flash ``kernel`` lines at the banded, encoder and
-     cross shapes with the backward beside SDPA's.
+     cross shapes with the backward beside SDPA's;
+  9. the dry run (``launch/dryrun.py``, ``dryrun``): every arch's
+     ``train_4k`` and ``decode_32k`` cells, and ``long_500k`` for the two
+     sub-quadratic archs, traced on the meta device over the 16×16
+     production mesh (no kernel launches: the launch counters stay at 0);
+     then its witnesses on the card: the 1×1-mesh trace of
+     ``train_path``'s own step (gemma-2b, (8, 512), remat "full") against
+     that phase's state as allocated (within 1%), its peak memory and its
+     warm step's wall, and the decode cell's cache against
+     ``serve_path``'s allocated KV cache (exactly).
 
 The observatory and the chaos layer ride on these paths:
   * ``chaos_stream`` (after the streaming path): two fresh managers over
@@ -393,6 +402,10 @@ TRAIN_RESTART_ARGV = ("--arch", "gemma-2b", "--smoke", "--steps", "12", "--ckpt-
                       "--fail-at", "6", "--svc-every", "2", "--mixture-every", "4",
                       "--log-every", "100")
 TRAIN_RESTORED_STEP = 4
+# the dry run's sweep (single mesh): these shapes for every arch, and
+# long_500k for the sub-quadratic ones
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_STATE_RTOL = 0.01
 # the hybrid, ssm and encdec families trained on the card, bf16 compute,
 # float32 masters and AdamW states, the configs' remat="full", weights
 # drawn on the card from seed 0, the pipeline's batches from seed 0 with
@@ -2471,6 +2484,7 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
     decode call that reached the longest prompt (``.inputs``), and each
     must have been met."""
     import torch
+    from torch.utils._pytree import tree_leaves
 
     from repro_torch import kernels
     from repro_torch.models import get_model
@@ -2513,7 +2527,12 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
         fail(f"serve_path: the observatory panel does not reconcile: {panel['reconciliation']}")
     # one warm decode call of the whole pool at the longest prompt's last
     # position, alone and under the profiler
+    before_cache = torch.cuda.memory_allocated()
     cache = model.init_cache(max_batch, max_seq)
+    kv_cache = {"allocated_bytes": torch.cuda.memory_allocated() - before_cache,
+                "engine_tensor_bytes": sum(t.untyped_storage().nbytes()
+                                           for t in tree_leaves(engine.cache)
+                                           if isinstance(t, torch.Tensor))}
     tokens = torch.zeros((max_batch, 1), dtype=torch.int32, device=device)
     rows, pos = list(range(max_batch)), max(len(p) for p in prompts) - 1
 
@@ -2569,6 +2588,7 @@ def run_serve_path(cfg, max_batch, max_seq, prompts, max_new, tick_capacity, str
                         "stream_queries": panel["metrics"].get("stream_queries")},
         "peak_device_gb": peak_gb, "launches": launches,
         "decode_call_s": decode_call_s, "decode_call_profile": decode_profile,
+        "kv_cache": kv_cache,
     }
     return report, model, params, cap, launches
 
@@ -3372,7 +3392,10 @@ def run_train_path(argv, seed, device="cuda"):
     args = train.parser().parse_args(list(argv) + ["--device", device, "--seed", str(seed)])
     cfg, model, pipe, stats, step_fn = train.build(args)
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before_state = torch.cuda.memory_allocated()
     state, init_s = wall(lambda: init_train_state(model, seed))
+    state_allocated = torch.cuda.memory_allocated() - before_state
     leaves = [p for p in state.params.parameters() if p.requires_grad]
     n_params = sum(p.numel() for p in leaves)
     before = probe_params(state.params)
@@ -3469,6 +3492,7 @@ def run_train_path(argv, seed, device="cuda"):
     flops = train_flops(cfg, B, S)
     report = {
         "arch": cfg.name, "params": n_params, "dtype": cfg.compute_dtype, "remat": cfg.remat,
+        "microbatches": args.microbatches, "state_allocated_bytes": state_allocated,
         "state_bytes": {"params": 4 * n_params, "grads": 4 * n_params, "adamw_m": 4 * n_params,
                         "adamw_v": 4 * n_params},
         "batch": B, "seq": S, "steps": steps, "init_s": init_s,
@@ -3914,7 +3938,8 @@ def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
     its arch flags, as a CPU rehearsal's smoke config does), its flash
     ``kernel`` line at the training shape with the backward beside it, the
     loss view's kernels against their plain versions on the path's inputs,
-    train_device_vs_cpu and train_restart.  Returns the kernel lines."""
+    train_device_vs_cpu and train_restart.  Returns (the kernel lines,
+    train_path's report)."""
     import torch
 
     argv = (("--arch", TRAIN_ARCH) if path_argv is None else tuple(path_argv)) + TRAIN_ARGV
@@ -3939,7 +3964,7 @@ def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
         devices=(device, "cpu")), "card": smi})
     emit({"phase": "train_restart", **train_restart(TRAIN_RESTART_ARGV, SEED, TRAIN_RESTORED_STEP,
                                                     device=device), "card": smi})
-    return lines
+    return lines, report
 
 
 # ---------------------------------------------------------------------------
@@ -4983,6 +5008,96 @@ def run_chaos_stream(vm, view, n_videos, start, n_delta, m, groups, queries, n_b
                                     "rtol": CHAOS_ANSWER_RTOL}}
 
 
+# ---------------------------------------------------------------------------
+# The dry run: the production matrix traced on the meta device, and what it
+# predicts held against the card's own train step and KV cache
+# ---------------------------------------------------------------------------
+
+def dryrun_phase(train: dict, serve: dict) -> dict:
+    """``launch.dryrun.run_cell`` on the single production mesh for every
+    arch at ``DRYRUN_SHAPES``, and at long_500k for the sub-quadratic ones
+    (a cell in error fails the phase), with the launch counters at 0
+    before and read after (the trace launches nothing); then
+    the witnesses: ``trace_cell`` of ``train``'s step (``train_path``'s
+    arch, batch, sequence and microbatches) on a 1×1 mesh against its
+    allocated state (within DRYRUN_STATE_RTOL; the predicted arguments are
+    the state and the batch), its peak, its model FLOPs and its warm wall
+    (ratios, reported), and ``cache_sds`` of ``serve``'s pool against its
+    allocated KV cache (exactly)."""
+    from repro_torch import kernels
+    from repro_torch.configs import ALL_SHAPES, ARCH_IDS, get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.models import get_model
+
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    cells = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        for cell in ALL_SHAPES:
+            if not (cell.name in DRYRUN_SHAPES
+                    or (cell.name == "long_500k" and get_config(arch).sub_quadratic)):
+                continue
+            rec = dryrun.run_cell(arch, cell, False, str(out_dir))
+            if rec["status"] != "ok":
+                fail(f"dryrun: {arch} × {cell.name} × single: {rec['status']} "
+                     f"{rec.get('error', rec.get('skip_reason'))}")
+            a, mem = rec["analysis"], rec["memory_analysis"]
+            cells.append({"arch": arch, "shape": cell.name, "flops_per_device": a["flops"],
+                          "memory_bytes_per_device": a["memory_bytes"],
+                          "argument_bytes_per_device": mem["argument_size_in_bytes"],
+                          "temp_bytes_per_device": mem["temp_size_in_bytes"],
+                          "collective_bytes_per_device": a["collective_bytes"],
+                          "collectives": a["collectives"],
+                          "loop_multipliers": a["loop_multipliers"], "trace_s": rec["trace_s"]})
+    sweep_s = time.perf_counter() - t0
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    if launched:
+        fail(f"dryrun: the trace on the meta device launched kernels: {launched}")
+    one = LocalMesh(["meta"], {"data": 1, "model": 1})
+    w = dryrun.trace_cell(get_config(train["arch"]), ShapeCell(
+        "train_path", train["seq"], train["batch"], "train"), one, False, train["microbatches"])
+    args_b = w["memory_analysis"]["argument_size_in_bytes"]
+    state_b = train["state_allocated_bytes"]
+    rel = abs(args_b - state_b) / state_b
+    if rel > DRYRUN_STATE_RTOL:
+        fail(f"dryrun: predicted arguments {args_b} B against the allocated state {state_b} B "
+             f"({rel:.2%} apart, above {DRYRUN_STATE_RTOL:.0%})")
+    peak_b = train["peak_device_gb"] * 1e9
+    predicted_peak = args_b + w["memory_analysis"]["temp_size_in_bytes"]
+    flops = w["analysis"]["flops"]
+    serve_cell = ShapeCell("serve_path", serve["max_seq"], serve["max_batch"], "decode")
+    cache, cspecs = specs.cache_sds(get_model(get_config(serve["arch"]), "meta"), serve_cell,
+                                    one, False)
+    cache_b = sum(s.local_bytes for s in sharding.leaves(sharding.with_sharding(cache, cspecs,
+                                                                                 one)))
+    kv = serve["kv_cache"]
+    if not cache_b == kv["engine_tensor_bytes"] == kv["allocated_bytes"]:
+        fail(f"dryrun: cache_sds {cache_b} B against the serve path's KV cache {kv}")
+    return {
+        "sweep": {"mesh": "single", "cells": cells, "wall_s": sweep_s, "launches": launched},
+        "train_witness": {
+            "arch": train["arch"], "batch": train["batch"], "seq": train["seq"],
+            "microbatches": train["microbatches"], "remat": train["remat"], "trace_s": w["trace_s"],
+            "predicted_argument_bytes": args_b, "allocated_state_bytes": state_b,
+            "argument_rel_diff": rel,
+            "predicted_temp_bytes": w["memory_analysis"]["temp_size_in_bytes"],
+            "predicted_peak_bytes": predicted_peak, "measured_peak_bytes": peak_b,
+            "predicted_over_measured_peak": predicted_peak / peak_b,
+            "dryrun_flops": flops, "dryrun_flops_aside": w["analysis"]["flops_aside"],
+            "analytic_train_flops": train["model_flops_per_step"],
+            "dryrun_over_analytic_flops": flops / train["model_flops_per_step"],
+            "warm_step_s": train["warm_step_s"],
+            "dryrun_flops_per_s_of_warm_step": flops / train["warm_step_s"],
+            "dryrun_flops_share_of_bf16_peak": flops / train["warm_step_s"] / BF16_OPS_PER_S},
+        "serve_cache_witness": {"arch": serve["arch"], "max_batch": serve["max_batch"],
+                                "max_seq": serve["max_seq"], "cache_sds_bytes": cache_b, **kv},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-logs", type=int, default=N_LOGS,
@@ -5196,10 +5311,12 @@ def main(argv=None) -> int:
     recurrent_phases(smi)
     # training, on a card the serving phases have let go of
     torch.cuda.empty_cache()
-    train_lines = train_phases(smi)
+    train_lines, train_report = train_phases(smi)
     # the hybrid, ssm and encdec families' training
     torch.cuda.empty_cache()
     train_lines += train_family_phases(smi)
+    # the dry run on the meta device, and its witnesses on the card
+    emit({"phase": "dryrun", **dryrun_phase(train_report, serve), "card": smi})
 
     emit({"kernels": table + fleet_table + sharded_table + api_table + flash_table[:1]
           + train_lines})

@@ -13,7 +13,10 @@ backward is plain PyTorch on the card too, so it dispatches through
 ``profiled`` under its own op, ``"flash_attention_bwd"`` (which JAX does
 not have), as a kernel dispatch (``fallback=False``), and adds nothing
 to ``flash_attention.launches``.  Its products run on float32 copies of
-the inputs, so no bf16 product rounds inside it.  A hand-written
+the inputs, so no bf16 product rounds inside it.  The recompute of the
+forward runs under ``obs.opcount.aside()``: the dry run's analysis counts
+the function's gradient (four products, as XLA's autodiff of the
+attention), and this implementation's recompute apart.  A hand-written
 backward kernel is a later redesign.
 """
 
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.obs import opcount
 from repro_torch.obs.kprof import profiled
 
 
@@ -34,7 +38,8 @@ def flash_attention_bwd(q, k, v, grad_out, causal: bool = True, window: int = 0,
     ``grad_out`` (None where ``need`` says no), each in its input's dtype."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
-        out = flash_attention_ref(*ins, causal, window, key_pos, qpos)
+        with opcount.aside():
+            out = flash_attention_ref(*ins, causal, window, key_pos, qpos)
         got = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], grad_out))
     return tuple(next(got) if n else None for n in need)
 

@@ -9,7 +9,10 @@ kernel: a banded causal window over the prompt (``window``), and the
 ring-buffer decode mask over the slots' positions (``key_pos``, ``qpos``,
 ``window``).  CPU tensors
 take the plain version (``ref.py``); CUDA tensors launch
-``csrc/flash_attention.cu`` or raise.  The route follows the dtype:
+``csrc/flash_attention.cu`` or raise.  Meta tensors (the dry run's
+trace, ``launch.dryrun``) take the plain version too: they hold no data,
+so nothing runs and no card is passed over, and ``launches`` does not
+move.  The route follows the dtype:
 bfloat16 runs on the tensor cores, one launch per call; float32 on the
 CUDA cores, with a second launch when the keys are split.
 
@@ -207,10 +210,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _dispatch(q, k, v, causal, window, key_pos, qpos):
-    """The checked call's forward: the plain version on the CPU, the
-    kernel's launch on the card."""
+    """The checked call's forward: the plain version on the CPU and on
+    the meta device, the kernel's launch on the card."""
     rows = q.shape[0] * q.shape[1]
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return profiled("flash_attention", flash_attention_ref, q, k, v, causal, window,
                         key_pos, qpos, fallback=True, rows=rows, padded=rows)
     pl, strides_vec = _check_cuda(q, k, v, causal, window, key_pos, qpos)

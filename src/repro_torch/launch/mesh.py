@@ -1,6 +1,7 @@
-"""Local device meshes for the single-controller fleet paths.
+"""Device meshes: the local one of the single-controller fleet paths and
+the production one of the dry run.
 
-The port's counterpart of ``repro.launch.mesh.make_local_mesh``.  One
+The port's counterpart of ``repro.launch.mesh``.  One
 process drives every device of a ``LocalMesh``; callers read
 ``mesh.shape[axis]`` as they do on a JAX mesh.  ``ShardedFleet`` and
 ``fleet_scores_sharded`` place shard ``s`` on ``mesh.axis_devices(axis)[s]``
@@ -55,3 +56,17 @@ def make_local_mesh(data: int = 1, model: int = 1, device="cuda") -> LocalMesh:
     else:
         raise ValueError(f"unsupported device {device!r}")
     return LocalMesh(devices, {"data": data, "model": model})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:
+    """JAX's production mesh: ``(data 16, model 16)``, or ``(pod 2, data 16,
+    model 16)`` with ``multi_pod``, over ``torch.device("meta")``
+    placeholders.
+
+    These are the counterpart of the forced host devices JAX's dry run
+    compiles against: the dry run (``launch.dryrun``) reads only the axes'
+    names and sizes, traces on the meta device and runs nothing, so this is
+    no fallback.  The shapes are JAX's TPU pods (256 and 512 chips), not an
+    H100 cluster, and no time is derived from them."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    return LocalMesh([torch.device("meta")] * math.prod(shape.values()), shape)

@@ -9,10 +9,15 @@ family) ``init`` builds the float32-master form that ``training``
 updates, and ``forward`` runs under the caller's grad mode:
 
   init(seed or torch.Generator)                 -> params
-  forward(params, batch)                        -> (logits, aux)
+  forward(params, batch, ctx=None)              -> (logits, aux)
   init_cache(B, T)                              -> cache
-  prefill(params, batch, cache_len=None)        -> (logits, cache)
-  decode_step(params, cache, tokens, pos, rows=None) -> (logits, cache)
+  prefill(params, batch, cache_len=None, ctx=None) -> (logits, cache)
+  decode_step(params, cache, tokens, pos, rows=None, ctx=None) -> (logits, cache)
+
+``ctx`` is a ``models.parallel.ParallelCtx`` (the dry run's) or None.  On
+``device="meta"`` (the dry run's trace) ``init`` builds the module and
+draws nothing: a meta tensor holds no values, and a generator cannot live
+there.
 
 Every entry point that computes runs under ``layers.f32_accumulation``:
 bf16 products accumulate in float32, as JAX's do.
@@ -67,35 +72,37 @@ def get_model(cfg: ArchConfig, device="cuda", train: bool = False) -> Model:
     module = module_of(cfg)
 
     def init(seed=0):
+        if device.type == "meta":
+            return module(cfg, device, masters=train)
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=device).manual_seed(int(seed))
         return module(cfg, device, masters=train).init_weights(gen)
 
-    def decode_step(params, cache, tokens, pos, rows=None):
+    def decode_step(params, cache, tokens, pos, rows=None, ctx=None):
         with f32_accumulation():
-            return params.decode_step(cache, tokens, pos, rows)
+            return params.decode_step(cache, tokens, pos, rows, ctx)
 
     if cfg.family == "encdec":
-        def forward(params, batch):
+        def forward(params, batch, ctx=None):
             with f32_accumulation():
-                return params(batch["frames"], batch["tokens"])
+                return params(batch["frames"], batch["tokens"], ctx)
 
-        def prefill(params, batch, cache_len=None):
+        def prefill(params, batch, cache_len=None, ctx=None):
             with f32_accumulation():
-                return params.prefill(batch["frames"], batch["tokens"], cache_len)
+                return params.prefill(batch["frames"], batch["tokens"], cache_len, ctx)
 
         return Model(cfg=cfg, device=device, train=train, init=init, forward=forward,
                      init_cache=lambda B, T: encdec.init_cache(cfg, B, T, device=device),
                      prefill=prefill, decode_step=decode_step)
 
-    def forward(params, batch):
+    def forward(params, batch, ctx=None):
         with f32_accumulation():
-            return params(batch["tokens"], batch.get("vision_embeds"))
+            return params(batch["tokens"], batch.get("vision_embeds"), ctx)
 
-    def prefill(params, batch, cache_len=None):
+    def prefill(params, batch, cache_len=None, ctx=None):
         with f32_accumulation():
-            return params.prefill(batch["tokens"], cache_len, batch.get("vision_embeds"))
+            return params.prefill(batch["tokens"], cache_len, batch.get("vision_embeds"), ctx)
 
     return Model(cfg=cfg, device=device, train=train, init=init, forward=forward,
                  init_cache=lambda B, T: _CACHES.get(cfg.family, init_cache)(cfg, B, T, device),

@@ -198,16 +198,17 @@ class EncDec(nn.Module):
             x = L.remat(blk.train_decoder_layer, self.cfg)(x, positions, mk, mv)
         return self._unembed(x)
 
-    def forward(self, frames, tokens):
+    def forward(self, frames, tokens, ctx=None):
         """(decoder logits, {}) for frames (B, S_src, d) and tokens (B, S_tgt),
-        under the caller's grad mode."""
+        under the caller's grad mode.  ``ctx`` is unused, as in JAX's encdec
+        model (no pin, no shard region)."""
         return self.decode_train(tokens, self.encode(frames)), {}
 
     def init_cache(self, B: int, T: int, mem_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
         return init_cache(self.cfg, B, T, mem_len, self.embed.device)
 
     @torch.no_grad()
-    def prefill(self, frames, tokens, cache_len: Optional[int] = None):
+    def prefill(self, frames, tokens, cache_len: Optional[int] = None, ctx=None):
         """Encode the source and run the target prefix; returns (logits,
         cache): self K/V filled up to S_tgt (zeros beyond, to ``cache_len``)
         and the memory's K/V."""
@@ -226,7 +227,8 @@ class EncDec(nn.Module):
         return self._unembed(x), cache
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None):
+    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None,
+                    ctx=None):
         """One new token per sequence against the cache.  tokens (B, 1).
 
         Writes the self-attention K/V in place at ``pos`` (only at ``rows``

@@ -4,9 +4,12 @@ Each call routes its T tokens alone: a float32 router softmax, top-k and
 renormalise, a stable sort of the (token, slot) pairs by expert, the rank
 within each expert and the capacity cut (an overflowing pair goes to the
 slot E·cap and is dropped), the pack into (E, cap, d), the expert GLU as
-three batched products, and the gather back weighted by the gate.  The
-JAX module's ``tp_axis`` (d_ff partials reduced over a mesh) has no
-counterpart: the port serves without a ``ParallelCtx`` (ROADMAP A.5).
+three batched products, and the gather back weighted by the gate.  Under a
+``ParallelCtx`` (``moe_ffn_sharded``) each data shard routes its own
+tokens at its own capacity and the loads are summed over the shards, as
+JAX's ``shard_map`` over the data axes does; the JAX module's ``tp_axis``
+(d_ff partials summed over the model axis) has no counterpart, since one
+process holds the whole d_ff.
 
 Differences from the JAX module, both deliberate:
   * the k weighted expert outputs of a token are gathered back through the
@@ -91,3 +94,24 @@ def moe_ffn_local(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     load = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     return y, load.float()
+
+
+def moe_ffn_sharded(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, cfg: ArchConfig,
+                    dp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) split into ``dp`` data shards of B/dp rows, each routed on
+    its own at the capacity of its (B/dp)·S tokens (JAX's ``_ffn`` under a
+    ctx); returns (y (B, S, d), load (E,) summed over the shards in shard
+    order).  With a binding capacity this drops other tokens than one
+    routing of all B·S."""
+    B, S, d = x.shape
+    if B % dp:
+        raise ValueError(f"moe_ffn_sharded: batch {B} does not split into {dp} data shards")
+    local = (B // dp) * S
+    cap = moe_capacity(cfg, local)
+    xs = x.reshape(dp, local, d)
+    outs = [moe_ffn_local(xs[i], router_w, w_gate, w_up, w_down, cfg, cap) for i in range(dp)]
+    load = outs[0][1]
+    for _y, ld in outs[1:]:
+        load = load + ld
+    return torch.cat([y for y, _ in outs]).view(B, S, d), load

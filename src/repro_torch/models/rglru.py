@@ -268,9 +268,10 @@ class RecurrentGemma(nn.Module):
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.embed.T.to(x.dtype)
 
-    def forward(self, tokens, vision_embeds=None):
+    def forward(self, tokens, vision_embeds=None, ctx=None):
         """Full-sequence logits and ``{}``.  tokens (B, S) int.  Runs under
-        the caller's grad mode, each super-block under ``layers.remat``."""
+        the caller's grad mode, each super-block under ``layers.remat``.
+        ``ctx`` is unused, as in JAX's hybrid model (no pin, no shard region)."""
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = build_positions(self.cfg, B, S, device=x.device)
@@ -284,14 +285,15 @@ class RecurrentGemma(nn.Module):
         return init_cache(self.cfg, B, T, self.embed.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None):
+    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None, ctx=None):
         """The forward's logits and a fresh ``init_cache`` (not the prompt's
         state), as JAX's ``prefill`` returns."""
         logits, _ = self.forward(tokens)
         return logits, self.init_cache(tokens.shape[0], cache_len or tokens.shape[1])
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None):
+    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None,
+                    ctx=None):
         """One new token per sequence at position ``pos``.  tokens (B, 1).
 
         The cache is updated in place (and returned): the recurrent states

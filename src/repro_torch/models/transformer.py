@@ -25,9 +25,12 @@ Differences from the JAX module, all deliberate:
     the MoE router (which JAX never casts) stay f32;
   * per-layer leaves (``layers[i].wq``) where JAX stacks them over layers
     (``layers/wq`` (L, …)); ``models.convert`` maps the two;
-  * no ``ParallelCtx``, sharding pins or K/V repeat: JAX's serving path
-    builds none, and its model-parallel rules come with the dry run
-    (ROADMAP A.6);
+  * under a ``ParallelCtx`` (the dry run's, ``launch.specs.make_ctx``)
+    the pins (``_pin``, ``_pin_kv``) go through ``parallel.constrain``,
+    which checks their rank and returns the tensor (one process has no
+    partitioner); what the ctx changes in what is computed is the MoE's
+    per-shard routing (``moe.moe_ffn_sharded``) and ``maybe_repeat_kv``.
+    With ``ctx=None`` nothing changes;
   * ``decode_step`` writes the new K/V into the cache in place, and only
     at the batch rows it is given (``rows``): the same cache JAX's
     functional update followed by the serving engine's masked merge gives.
@@ -48,7 +51,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.moe import moe_capacity, moe_ffn_local
+from repro_torch.models.moe import moe_capacity, moe_ffn_local, moe_ffn_sharded
+from repro_torch.models.parallel import P, ParallelCtx, constrain
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VISION_STUB_DIM = 1024  # patch-embedding stub width (the frontend is external)
@@ -111,6 +115,45 @@ def _rope(cfg: ArchConfig, x, positions):
     return L.apply_rope(x, positions, cfg.rope_theta)
 
 
+def _act_spec(ctx: ParallelCtx, ndim: int, head_axis: int = -1, n_heads: int = 0) -> P:
+    """Batch over dp; heads over model when they divide it (Megatron TP)."""
+    parts = [ctx.dp_axes] + [None] * (ndim - 1)
+    if head_axis >= 0 and n_heads and n_heads % ctx.tp_size == 0:
+        parts[head_axis] = ctx.tp_axis
+    return P(*parts)
+
+
+def _pin(x, ctx: Optional[ParallelCtx], head_axis: int = -1, n_heads: int = 0):
+    if ctx is None:
+        return x
+    return constrain(x, ctx, _act_spec(ctx, x.ndim, head_axis, n_heads))
+
+
+def _pin_kv(x, ctx: Optional[ParallelCtx], n_kv: int):
+    """K/V (B, T, K, hd): heads over model when they divide it, else time."""
+    if ctx is None:
+        return x
+    if n_kv % ctx.tp_size == 0:
+        return constrain(x, ctx, P(ctx.dp_axes, None, ctx.tp_axis, None))
+    return constrain(x, ctx, P(ctx.dp_axes, ctx.tp_axis, None, None))
+
+
+def maybe_repeat_kv(k, v, cfg: ArchConfig, ctx: Optional[ParallelCtx]):
+    """JAX's ``_maybe_repeat_kv``: (k, v, repeated).  Under a ctx whose
+    model axis the KV heads do not divide but the query heads do, K/V are
+    repeated to all heads (query head h keeps KV head h // G), so each
+    head's scores stay on its shard."""
+    if ctx is None:
+        return k, v, False
+    tp = ctx.tp_size
+    if cfg.n_kv_heads % tp == 0 or cfg.n_heads % tp != 0:
+        return k, v, False
+    G = cfg.n_heads // cfg.n_kv_heads
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    spec = P(ctx.dp_axes, None, ctx.tp_axis, None)
+    return constrain(k, ctx, spec), constrain(v, ctx, spec), True
+
+
 def init_cache(cfg: ArchConfig, B: int, T: int, device=None) -> Dict[str, torch.Tensor]:
     """Zero K/V caches, (L, B, T, K, hd) each in ``compute_dtype``."""
     shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.head_dim)
@@ -139,49 +182,60 @@ class Block(nn.Module):
         self.w_up = _param((E, d, F) if E else (d, F), dt, device, masters)
         self.w_down = _param((E, F, d) if E else (F, d), dt, device, masters)
 
-    def _qkv(self, x, positions):
+    def _qkv(self, x, positions, ctx=None):
         c = self.cfg
         h = L.rmsnorm(x, self.ln1, c.norm_eps)
         q, k, v = L.qkv_project(h, self.wq.to(h.dtype), self.wk.to(h.dtype), self.wv.to(h.dtype),
                                 c.n_heads, c.n_kv_heads, c.head_dim)
+        q = _pin(q, ctx, head_axis=2, n_heads=c.n_heads)
         return _rope(c, q, positions), _rope(c, k, positions), v
 
-    def ffn(self, h):
+    def ffn(self, h, ctx=None):
         """The dense GLU or the MoE FFN on (B, S, d); returns (y, load or None).
-        The MoE capacity comes from all B·S tokens of the call."""
+        The MoE capacity comes from all B·S tokens of the call, or under a
+        ctx from each data shard's own (``moe_ffn_sharded``)."""
         c = self.cfg
         if not c.moe_experts:
             return L.glu_mlp(h, self.w_gate.to(h.dtype), self.w_up.to(h.dtype),
                              self.w_down.to(h.dtype), c.act), None
+        if ctx is not None:
+            return moe_ffn_sharded(h, self.router, self.w_gate, self.w_up, self.w_down, c,
+                                   ctx.dp_size)
         B, S, d = h.shape
         y, load = moe_ffn_local(h.reshape(B * S, d), self.router, self.w_gate, self.w_up,
                                 self.w_down, c, moe_capacity(c, B * S))
         return y.view(B, S, d), load
 
-    def _out(self, x, attn):
+    def _out(self, x, attn, ctx=None):
         c = self.cfg
         B, S = x.shape[:2]
-        x = x + attn.reshape(B, S, c.q_dim) @ self.wo.to(x.dtype)
-        f, load = self.ffn(L.rmsnorm(x, self.ln2, c.norm_eps))
-        return x + f, load
+        attn = _pin(attn, ctx, head_axis=2, n_heads=c.n_heads)
+        x = _pin(x + attn.reshape(B, S, c.q_dim) @ self.wo.to(x.dtype), ctx)
+        f, load = self.ffn(L.rmsnorm(x, self.ln2, c.norm_eps), ctx)
+        return _pin(x + f, ctx), load
 
-    def full(self, x, positions):
+    def full(self, x, positions, ctx=None):
         """(x', k, v, load) over a whole sequence, causal; ``load`` is the
-        MoE per-expert count (None for a dense block)."""
-        q, k, v = self._qkv(x, positions)
-        x, load = self._out(x, flash_attention(q, k, v, causal=True))
+        MoE per-expert count (None for a dense block).  K/V come back as
+        projected (``maybe_repeat_kv`` repeats them for the attention only)."""
+        x = _pin(x, ctx)
+        q, k, v = self._qkv(x, positions, ctx)
+        ka, va, repeated = maybe_repeat_kv(k, v, self.cfg, ctx)
+        if not repeated:
+            ka, va = _pin_kv(k, ctx, self.cfg.n_kv_heads), _pin_kv(v, ctx, self.cfg.n_kv_heads)
+        x, load = self._out(x, flash_attention(q, ka, va, causal=True), ctx)
         return x, k, v, load
 
-    def train_full(self, x, positions):
+    def train_full(self, x, positions, ctx=None):
         """``full`` without its K/V: (x', load), what a remat layer keeps."""
-        x, _k, _v, load = self.full(x, positions)
+        x, _k, _v, load = self.full(x, positions, ctx)
         return x, load
 
-    def decode(self, x, k_cache, v_cache, pos: int, positions, rows=None):
+    def decode(self, x, k_cache, v_cache, pos: int, positions, rows=None, ctx=None):
         """One token per sequence at cache position ``pos``; writes its K/V
         into ``k_cache``/``v_cache`` (B, T, K, hd) in place, at ``rows`` only
         when given (a (B,) bool mask or row indices)."""
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, positions, ctx)
         if rows is None:
             k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
             v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
@@ -199,7 +253,7 @@ class Block(nn.Module):
             keep = rows[:, None, None]
             k_cache[:, pos] = torch.where(keep, k_cache[:, pos], old_k)
             v_cache[:, pos] = torch.where(keep, v_cache[:, pos], old_v)
-        return self._out(x, attn)[0]
+        return self._out(x, attn, ctx)[0]
 
 
 class Transformer(nn.Module):
@@ -268,18 +322,18 @@ class Transformer(nn.Module):
         head = self.embed.T if self.lm_head is None else self.lm_head
         return x @ head.to(x.dtype)
 
-    def forward(self, tokens, vision_embeds=None):
+    def forward(self, tokens, vision_embeds=None, ctx=None):
         """Full-sequence logits and ``{"moe_load": (L, E)}`` ((L, 1) zeros
         for a dense model).  tokens (B, S) int; ``vision_embeds`` (B, n_vis,
         1024) overwrite the first n_vis positions (vlm).  Runs under the
         caller's grad mode; with grad on, each layer under ``layers.remat``
         (``cfg.remat``)."""
         B, S = tokens.shape
-        x = self._embed(tokens, vision_embeds)
+        x = _pin(self._embed(tokens, vision_embeds), ctx)
         positions = build_positions(self.cfg, B, S, device=x.device)
         loads = []
         for blk in self.layers:
-            x, load = L.remat(blk.train_full, self.cfg)(x, positions)
+            x, load = L.remat(blk.train_full, self.cfg)(x, positions, ctx)
             loads.append(load if load is not None
                          else torch.zeros((1,), dtype=torch.float32, device=x.device))
         return self._unembed(x), {"moe_load": torch.stack(loads)}
@@ -288,21 +342,22 @@ class Transformer(nn.Module):
         return init_cache(self.cfg, B, T, self.embed.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None):
+    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None, ctx=None):
         """Process the prompt; returns (logits, cache filled up to S, zeros
         beyond)."""
         B, S = tokens.shape
         cache = self.init_cache(B, cache_len or S)
-        x = self._embed(tokens, vision_embeds)
+        x = _pin(self._embed(tokens, vision_embeds), ctx)
         positions = build_positions(self.cfg, B, S, device=x.device)
         for i, blk in enumerate(self.layers):
-            x, k, v, _load = blk.full(x, positions)
+            x, k, v, _load = blk.full(x, positions, ctx)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         return self._unembed(x), cache
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None):
+    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None,
+                    ctx=None):
         """One new token per sequence against the cache.  tokens (B, 1).
 
         The cache is updated in place (and returned): every batch row at
@@ -311,12 +366,12 @@ class Transformer(nn.Module):
         a MoE row with it (as JAX's, before the engine's merge).
         """
         B, S = tokens.shape
-        x = self._embed(tokens)
+        x = _pin(self._embed(tokens), ctx)
         positions = build_positions(self.cfg, B, S, offset=int(pos), device=x.device)
         if rows is not None:
             rows = torch.as_tensor(rows, dtype=torch.long, device=x.device)
             if self.cfg.moe_experts:
                 rows = torch.zeros(B, dtype=torch.bool, device=x.device).index_fill_(0, rows, True)
         for i, blk in enumerate(self.layers):
-            x = blk.decode(x, cache["k"][i], cache["v"][i], int(pos), positions, rows)
+            x = blk.decode(x, cache["k"][i], cache["v"][i], int(pos), positions, rows, ctx)
         return self._unembed(x), cache

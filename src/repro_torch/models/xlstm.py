@@ -20,7 +20,12 @@ super-block (its mLSTM layers and its sLSTM) under ``layers.remat``, as
 JAX scans ``_remat(sb_body)``; the gradient flows through the parallel
 form's chunks (the row max's through ``amax``, which splits it evenly
 between tied maxima, as ``jnp.max``'s does) and the sLSTM's loop over
-time.  ``prefill`` and ``decode_step`` build no graph.
+time.  ``prefill`` and ``decode_step`` build no graph.  Under a
+``ParallelCtx`` the pins go through ``parallel.constrain`` (JAX's ``_pin``
+after each block and the sLSTM's batch-only pins), which computes nothing.
+On the meta device (the dry run's trace) the sLSTM's loop is one step
+counted S times, forward and backward (``obs.opcount.repeated``), as
+JAX's analyzer counts its scan's body.
 
 Differences from the JAX module, all deliberate: one block module per
 layer; ``decode_step(rows=...)`` writes the state at ``rows`` only (JAX
@@ -41,7 +46,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _add_params, _param, compute_dtype
+from repro_torch.models.parallel import P, constrain
+from repro_torch.models.transformer import _add_params, _param, _pin, compute_dtype
+from repro_torch.obs import opcount
 
 MLSTM_PF = 2  # up-projection factor
 CHUNK = 256
@@ -192,20 +199,29 @@ class SLSTMBlock(nn.Module):
     def _gates_in(self, x):
         return (L.rmsnorm(x, self.ln, self.cfg.norm_eps) @ self.W.to(x.dtype)).float() + self.b
 
-    def _step(self, state, wx_t):
+    def _step(self, state, wx_t, R=None):
         h = state[0]
         B = h.shape[0]
-        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, 4, -1), self.R).reshape(B, -1)
+        R = self.R if R is None else R
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, 4, -1), R).reshape(B, -1)
         return slstm_cell(state, wx_t + rec)
 
-    def full(self, x):
+    def full(self, x, ctx=None):
         B, S, d = x.shape
         wx = self._gates_in(x)  # (B,S,4d) f32
+        if ctx is not None:
+            wx = constrain(wx, ctx, P(ctx.dp_axes, None, None))
         state = tuple(torch.zeros((B, d), dtype=torch.float32, device=x.device)
                       for _ in range(4))
+        if x.device.type == "meta":  # one step, counted S times
+            h = opcount.repeated(lambda R, w, *st: self._step(st, w, R)[0], S, self.R,
+                                 wx[:, 0], *state, name="slstm_time")[0]
+            return x + h[:, None].expand(B, S, d).to(x.dtype) @ self.w_out.to(x.dtype)
         hs = []
         for t in range(S):
             state, h = self._step(state, wx[:, t])
+            if ctx is not None:
+                state = tuple(constrain(c, ctx, P(ctx.dp_axes, None)) for c in state)
             hs.append(h)
         return x + torch.stack(hs, 1).to(x.dtype) @ self.w_out.to(x.dtype)
 
@@ -236,11 +252,11 @@ def init_cache(cfg: ArchConfig, B: int, T: int, device=None) -> Dict[str, object
             "mlstm_m": z(sb, m_per, B, H), "slstm": tuple(z(sb, B, d) for _ in range(4))}
 
 
-def _superblock(x, mls, sl: SLSTMBlock) -> torch.Tensor:
+def _superblock(x, mls, sl: SLSTMBlock, ctx=None) -> torch.Tensor:
     """One super-block over a sequence: JAX's scanned ``sb_body``."""
     for blk in mls:
-        x = blk.full(x)
-    return sl.full(x)
+        x = _pin(blk.full(x), ctx)
+    return _pin(sl.full(x, ctx), ctx)
 
 
 class XLSTM(nn.Module):
@@ -290,27 +306,29 @@ class XLSTM(nn.Module):
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.embed.T.to(x.dtype)
 
-    def forward(self, tokens, vision_embeds=None):
+    def forward(self, tokens, vision_embeds=None, ctx=None):
         """Full-sequence logits and ``{}``.  tokens (B, S) int.  Runs under
         the caller's grad mode, each super-block under ``layers.remat``."""
         x = self._embed(tokens)
         for _s, mls, sl in self._superblocks():
-            x = L.remat(_superblock, self.cfg)(x, mls, sl)
+            x = L.remat(_superblock, self.cfg)(x, mls, sl, ctx)
         return self._unembed(x), {}
 
     def init_cache(self, B: int, T: int):
         return init_cache(self.cfg, B, T, self.embed.device)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None):
+    def prefill(self, tokens, cache_len: Optional[int] = None, vision_embeds=None, ctx=None):
         """The forward's logits and a fresh ``init_cache`` (not the prompt's
         state), as JAX's ``prefill`` returns."""
-        logits, _ = self.forward(tokens)
+        logits, _ = self.forward(tokens, ctx=ctx)
         return logits, self.init_cache(tokens.shape[0], cache_len or tokens.shape[1])
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None):
-        """One new token per sequence (``pos`` is unused: the state is O(1)).
+    def decode_step(self, cache, tokens, pos: int, rows: Optional[Sequence[int]] = None,
+                    ctx=None):
+        """One new token per sequence (``pos`` and ``ctx`` are unused: the
+        state is O(1), and JAX's decode places no pin).
 
         The cache is updated in place (and returned), at every row or only
         ``rows``."""

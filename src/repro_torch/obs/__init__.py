@@ -10,6 +10,8 @@ path (query → admit → cache → refresh → estimate) as nested spans.
 ``kprof`` profiles every kernel wrapper's dispatch (compile vs execute
 wall, dispatch and fallback counts, occupancy), toggled through
 ``repro_torch.kernels.set_profiler``.
+``opcount`` marks the loops the dry run's analysis counts once and
+multiplies (``launch.op_analysis``).
 
 ``reconcile`` closes the loop: an exported trace is checked against the
 pipeline's own end-state counters (every offered batch, query verdict,

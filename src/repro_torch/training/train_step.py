@@ -15,11 +15,17 @@ bf16 products accumulate in float32, as JAX's dots do.  Per-domain loss
 sums are emitted as **SVC delta feeds**: the training loop ingests them
 into ``data.pipeline.PipelineStats``' loss view.
 
+``ctx`` (a ``models.parallel.ParallelCtx``, the dry run's) reaches the
+model's forward and pins the logits through ``parallel.constrain``, as
+JAX's step does.  On the meta device (the dry run's trace) the step runs
+one microbatch's forward and backward counted ``microbatches`` times
+(``obs.opcount.loop``), as JAX's analyzer counts its scan over
+microbatches: nothing runs there, and every microbatch has one shape.
+
 Differences from JAX, deliberate: the state is updated in place (the
 parameters' module, ``m`` and ``v``; JAX's step is pure) and the returned
 ``TrainState`` holds the same tensors; the gradients stay in the leaves'
-``.grad`` after the step; there is no ``ParallelCtx`` (the model-parallel
-rules come with the dry run).
+``.grad`` after the step.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 from repro_torch.models.api import Model
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.layers import f32_accumulation
+from repro_torch.models.parallel import P, constrain
+from repro_torch.obs import opcount
 from repro_torch.models.transformer import check_family
 from repro_torch.training.optim import AdamWConfig, adamw_init, adamw_update
 
@@ -77,17 +85,20 @@ def _split_micro(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v.chunk(n)[i] for k, v in batch.items()} for i in range(n)]
 
 
-def make_train_step(model: Model, opt_cfg: AdamWConfig, microbatches: int = 1,
+def make_train_step(model: Model, opt_cfg: AdamWConfig, ctx=None, microbatches: int = 1,
                     moe_balance_coeff: float = 1e-2) -> Callable:
     """``step(state, batch) -> (state, metrics)`` for ``model`` (from
-    ``get_model(cfg, train=True)``); the step carries ``opt_cfg``."""
+    ``get_model(cfg, train=True)``) under ``ctx`` (None: one device); the
+    step carries ``opt_cfg``."""
     cfg = model.cfg
     check_family(cfg)
     if microbatches < 1:
         raise ValueError(f"microbatches={microbatches}")
 
     def loss_fn(params, mb) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits, aux = model.forward(params, mb)
+        logits, aux = model.forward(params, mb, ctx)
+        if ctx is not None:
+            logits = constrain(logits, ctx, P(ctx.dp_axes, None, ctx.tp_axis))
         loss, nll = cross_entropy(logits, mb["labels"])
         extras: Dict[str, torch.Tensor] = {}
         if cfg.moe_experts and aux.get("moe_load") is not None:
@@ -119,13 +130,17 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, microbatches: int = 1,
             p.grad = None
         with f32_accumulation(), torch.enable_grad():
             micro = _split_micro(batch, microbatches) if microbatches > 1 else [batch]
+            trips = 1
+            if next(iter(leaves.values())).device.type == "meta":
+                micro, trips = micro[:1], len(micro)
             lsum, extras = None, {}
-            for mb in micro:
-                loss, ex = loss_fn(params, mb)
-                loss.backward()  # .grad sums the microbatches' float32 gradients
-                loss = loss.detach()
-                lsum = loss if lsum is None else lsum + loss
-                extras = {k: extras[k] + v if k in extras else v for k, v in ex.items()}
+            with opcount.loop(trips, "microbatches"):
+                for mb in micro:
+                    loss, ex = loss_fn(params, mb)
+                    loss.backward()  # .grad sums the microbatches' float32 gradients
+                    loss = loss.detach()
+                    lsum = loss if lsum is None else lsum + loss
+                    extras = {k: extras[k] + v if k in extras else v for k, v in ex.items()}
             for p in leaves.values():
                 if p.grad is None:  # a leaf the batch does not reach (JAX: zeros)
                     p.grad = torch.zeros_like(p)
