@@ -60,35 +60,17 @@
 // (flash_combine_cuda_cores) for the key splits.  TF32 tensor cores would
 // miss the f32 callers' 1e-4 tolerances.
 //
+// Log-sum-exp: when the caller passes lse (a (B, H, S) float32 array; the
+// training forward does), the launch also writes m + log l of every query
+// row, the softmax's log normaliser that the backward
+// (flash_attention_bwd.cu) recomputes P from; with split keys the block
+// (or the combine kernel) that merges the partials writes it.  The serve
+// and decode calls pass null and write nothing more.
+//
 // Bound: at decode, the K/V bytes of the cache slice (each read once per
 // block, since one block holds every query head of its KV head); for a long
 // causal prefill, the bf16 tensor-core rate (P·V runs twice, hi and lo).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-// Whether key ``key`` is kept for the query at index ``qi`` (from 0) under
-// the causal mask and its refinements (the header's rule).
-template <typename P>
-__device__ __forceinline__ bool keep_key(const P& p, int key, int qi) {
-  const int kp = p.key_pos ? __ldg(p.key_pos + key) : key;
-  const int qp = p.qpos + qi;
-  return kp >= 0 && kp <= qp && (p.window <= 0 || kp > qp - p.window);
-}
-
-// A block's causal key range [lo, hi) for its flat rows [row0, row_end):
-// everything when key_pos is given (slots are masked one by one), else cut
-// at the last query's position and, under a window, below the first's.
-template <typename P>
-__device__ __forceinline__ void causal_range(const P& p, int row0, int row_end, int& lo,
-                                             int& hi) {
-  lo = 0;
-  hi = p.T;
-  if (!p.causal || p.key_pos) return;
-  hi = min(hi, p.qpos + (row_end - 1) / p.G + 1);
-  if (p.window > 0) lo = max(0, p.qpos + row0 / p.G - p.window + 1);
-}
+#include "flash_common.cuh"
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMAs on the CUDA cores
@@ -118,6 +100,7 @@ struct Params {
   const int* key_pos;  // (T,) slot positions, or null: key j at position j
   float* part_ml;
   float* part_acc;
+  float* lse;  // (B, H, S) m + log l of every row, or null
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -316,6 +299,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_cuda_cores(Params p) {
         const int d = lane + 32 * c;
         if (d < HD) Elt<T>::put(orow + d, acc[i][c] * inv);
       }
+      if (p.lse && lane == 0)
+        p.lse[lse_index(p, b, kvh, flat)] = m[i] + logf(fmaxf(l[i], 1e-30f));
     }
   }
 }
@@ -333,6 +318,14 @@ __global__ void flash_combine_cuda_cores(Params p, int hd) {
   for (int z = 0; z < p.nsplit; ++z) mx = fmaxf(mx, p.part_ml[2 * (z * nrow + r)]);
   const int s = flat / p.G, h = kvh * p.G + flat % p.G;
   T* orow = static_cast<T*>(p.o) + (((int64_t)b * p.S + s) * p.H + h) * hd;
+  if (p.lse && threadIdx.x == 0) {
+    float l = 0.f;
+    for (int z = 0; z < p.nsplit; ++z) {
+      const int64_t part = z * nrow + r;
+      l = fmaf(p.part_ml[2 * part + 1], expf(p.part_ml[2 * part] - mx), l);
+    }
+    p.lse[lse_index(p, b, kvh, flat)] = mx + logf(fmaxf(l, 1e-30f));
+  }
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
     float l = 0.f, a = 0.f;
     for (int z = 0; z < p.nsplit; ++z) {
@@ -386,13 +379,6 @@ cudaError_t launch_all(const Params& p, int hd, int rows_per_tile, cudaStream_t 
 // ---------------------------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-constexpr int NT = 128;  // threads per block: four warps
-constexpr int NW = NT / 32;
-constexpr float NEG = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
-
 struct Params {
   const bf16* q;
   const bf16* k;
@@ -411,6 +397,7 @@ struct Params {
   float* part_ml;
   float* part_acc;
   int* arrivals;  // (B·K, row tiles), zero between launches
+  float* lse;     // (B, H, S) m + log l of every row, or null
 };
 
 // WM warps over rows (16 rows each) × WN warps over the keys of a tile (KW
@@ -436,61 +423,6 @@ struct Cfg {
   static_assert(SMEM <= SMEM_MAX, "shared memory");
   static_assert(WN == 1 || WN * 16 * (HD + 2) * 4 <= STAGES * STAGE, "merge scratch");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, zero-filled when !ok (src is then not read)
-__device__ __forceinline__ void load16(bf16* dst, const bf16* src, bool ok, int vec) {
-  if (vec) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  } else {
-#pragma unroll
-    for (int u = 0; u < 8; ++u) dst[u] = ok ? src[u] : __float2bfloat16_rn(0.f);
-  }
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c (16×8 f32) += a (16×16 bf16, row) · b (16×8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) → bf16 pairs hi and lo with hi + lo = x to about 2^-16 relative:
-// P·V as hi·V + lo·V keeps the probabilities' f32 precision (V is exact)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // out row of flat row ``flat`` of (b, kv head)
 __device__ __forceinline__ bf16* out_row(const Params& p, int b, int kvh, int flat, int hd) {
@@ -689,6 +621,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc(Params p) {
         for (int d = 0; d < NDT; ++d)
           *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t4) =
               __floats2bfloat162_rn(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+        if (p.lse && t4 == 0)
+          p.lse[lse_index(p, b, kvh, flat)] = m[r] + logf(fmaxf(l[r], 1e-30f));
       }
     }
   } else {
@@ -733,6 +667,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc(Params p) {
         p.part_acc[part * HD + d] = aa;
       } else {
         out_row(p, b, kvh, flat, HD)[d] = __float2bfloat16_rn(aa / fmaxf(ll, 1e-30f));
+        if (p.lse && d == 0) p.lse[lse_index(p, b, kvh, flat)] = mm + logf(fmaxf(ll, 1e-30f));
       }
     }
   }
@@ -764,6 +699,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_tc(Params p) {
       aa = fmaf(__ldcg(p.part_acc + part * HD + d), w, aa);
     }
     out_row(p, b, kvh, flat, HD)[d] = __float2bfloat16_rn(aa / fmaxf(ll, 1e-30f));
+    if (p.lse && d == 0) p.lse[lse_index(p, b, kvh, flat)] = mm + logf(fmaxf(ll, 1e-30f));
   }
   if (tid == 0) *arrival = 0;
 }
@@ -811,6 +747,8 @@ cudaError_t launch_all(const Params& p, int hd, int rows_per_tile, cudaStream_t 
 // zero on entry and on exit, merged in the same launch).  q, k, v and out
 // share the dtype.  causal 1 takes window, qpos and key_pos (null, or an
 // int32 (T,) device array) as the header says; causal 0 ignores them.
+// lse: null, or a (B, H, S) float32 array that receives every row's
+// m + log l.
 extern "C" int svc_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                                    int64_t skt, int64_t skh, int64_t svb, int64_t svt,
@@ -818,12 +756,12 @@ extern "C" int svc_flash_attention(const void* q, const void* k, const void* v, 
                                    int causal, int window, int qpos, float scale, int dtype,
                                    int rows_per_tile, int chunk, int nsplit, int vec,
                                    const int* key_pos, float* part_ml, float* part_acc,
-                                   int* arrivals, void* stream) {
+                                   int* arrivals, float* lse, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     cuda_cores::Params p{q, k, v, o, sqb, sqs, sqh, skb, skt, skh, svb, svt, svh, B, S, T, H, K,
                          H / K, causal, window, qpos, scale, chunk, nsplit, vec, key_pos,
-                         part_ml, part_acc};
+                         part_ml, part_acc, lse};
     if ((rows_per_tile != 8 && rows_per_tile != 32) || chunk % cuda_cores::BK != 0 || nsplit < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cuda_cores::launch_all<float>(p, hd, rows_per_tile, st));
@@ -832,7 +770,7 @@ extern "C" int svc_flash_attention(const void* q, const void* k, const void* v, 
     tc::Params p{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                  static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
                  sqb, sqs, sqh, skb, skt, skh, svb, svt, svh, B, S, T, H, K, H / K, causal, window,
-                 qpos, scale, chunk, nsplit, vec, key_pos, part_ml, part_acc, arrivals};
+                 qpos, scale, chunk, nsplit, vec, key_pos, part_ml, part_acc, arrivals, lse};
     return static_cast<int>(tc::launch_all(p, hd, rows_per_tile, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);

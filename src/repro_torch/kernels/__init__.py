@@ -32,6 +32,8 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
                     (corr_diff)
   flash_attention — online-softmax GQA attention, causal or masked at T
                     (the LM transformer's attention)
+  flash_attention_bwd — its gradient (dq, dk, dv from the forward's output
+                    and log-sum-exp), on every train step on the card
 
 Every wrapper dispatches through ``obs.kprof.profiled`` under the JAX
 package's op name where it has one (``op_names``); ``set_profiler`` /
@@ -64,13 +66,14 @@ _OPS = {
     "segment_aggsum_unsorted": "segment_aggsum",
     "corr_diff": "corr_diff",
     "flash_attention": "flash_attention",
+    "flash_attention_bwd": "flash_attention_bwd",
 }
 
 
 def wrappers() -> Dict[str, object]:
     """Kernel name → the wrapper that launches it."""
     from repro_torch.kernels.corr_diff.ops import corr_moments
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
     from repro_torch.kernels.fleet_moments.ops import fleet_moments
     from repro_torch.kernels.fleet_score.ops import fleet_scores, fleet_scores_sharded
@@ -96,6 +99,7 @@ def wrappers() -> Dict[str, object]:
         "segment_aggsum_unsorted": segment_sum,
         "corr_diff": corr_moments,
         "flash_attention": flash_attention,
+        "flash_attention_bwd": flash_attention_bwd,
     }
 
 

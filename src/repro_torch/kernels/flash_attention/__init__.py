@@ -1,6 +1,8 @@
-"""Online-softmax attention, GQA/MQA-aware, causal or masked at T."""
+"""Online-softmax attention, GQA/MQA-aware, causal or masked at T, and its
+gradient."""
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
+           "flash_attention_ref"]

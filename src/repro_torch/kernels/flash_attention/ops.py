@@ -25,20 +25,27 @@ in flight on different streams would share them.  Every call dispatches
 through ``obs.kprof.profiled`` as ``"flash_attention"`` (the JAX package
 has no profiled attention: its flash kernel is on no path).  With grad on
 and an input that requires it, the call goes through
-``autograd.FlashAttention``: the same dispatch forward, and the plain
-version's gradient backward (``"flash_attention_bwd"``).
+``autograd.FlashAttention``: on the card its forward is the same launch
+writing each row's log-sum-exp beside the output (the ``lse`` pointer,
+null on every other call), and its backward is ``flash_attention_bwd``,
+the hand-written backward (``csrc/flash_attention_bwd.cu``: three
+launches, D then the dK/dV and dQ passes, and a fourth that sums the
+dK/dV partials where that pass splits its rows; ``bwd_plan`` is its host
+plan as a pure function), counted in its own ``launches`` and profiled as
+``"flash_attention_bwd"``.  CPU and meta tensors keep autograd through
+the plain version.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build as B
 from repro_torch.kernels.flash_attention.autograd import FlashAttention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 from repro_torch.obs.kprof import profiled
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's instantiations
@@ -46,7 +53,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132  # the H100's streaming multiprocessors
 SMEM_PER_SM = 232448  # bytes of shared memory one SM gives its blocks
 _ARGS = ((B.P, B.P, B.P, B.P) + (B.I64,) * 9 + (B.I32,) * 9 + (B.F32,) + (B.I32,) * 5
-         + (B.P,) * 5)
+         + (B.P,) * 6)
+_BWD_ARGS = ((B.P,) * 10 + (B.I64,) * 9 + (B.I32,) * 9 + (B.F32, B.I32, B.P) + (B.I32,) * 6
+             + (B.P, B.P))
 
 
 class Plan(NamedTuple):
@@ -205,29 +214,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window, qpos = int(window), int(qpos)
     _check_mask(q, k, causal, window, key_pos, qpos)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(_dispatch, q, k, v, bool(causal), window, key_pos, qpos)
+        return FlashAttention.apply(_dispatch, flash_attention_bwd, q, k, v, bool(causal),
+                                    window, key_pos, qpos)
     return _dispatch(q, k, v, causal, window, key_pos, qpos)
 
 
-def _dispatch(q, k, v, causal, window, key_pos, qpos):
+def _dispatch(q, k, v, causal, window, key_pos, qpos, lse=None):
     """The checked call's forward: the plain version on the CPU and on
-    the meta device, the kernel's launch on the card."""
+    the meta device, the kernel's launch on the card.  ``lse``: a (B, H,
+    S) float32 tensor that the call fills with each row's log-sum-exp (the
+    training forward's on the card), or None."""
     rows = q.shape[0] * q.shape[1]
     if q.device.type in ("cpu", "meta"):
+        if lse is not None:
+            return profiled("flash_attention", _ref_into, q, k, v, causal, window, key_pos,
+                            qpos, lse, fallback=True, rows=rows, padded=rows)
         return profiled("flash_attention", flash_attention_ref, q, k, v, causal, window,
                         key_pos, qpos, fallback=True, rows=rows, padded=rows)
     pl, strides_vec = _check_cuda(q, k, v, causal, window, key_pos, qpos)
     return profiled("flash_attention", _launch, q, k, v, causal, pl, strides_vec, window,
-                    key_pos, qpos, rows=rows, padded=rows)
+                    key_pos, qpos, lse, rows=rows, padded=rows)
 
 
-def _launch(q, k, v, causal, pl, strides_vec, window=0, key_pos=None, qpos=0):
+def _ref_into(q, k, v, causal, window, key_pos, qpos, lse):
+    """The plain version's output, its log-sum-exp copied into ``lse``."""
+    out, got = flash_attention_ref(q, k, v, causal, window, key_pos, qpos, return_lse=True)
+    lse.copy_(got)
+    return out
+
+
+def _launch(q, k, v, causal, pl, strides_vec, window=0, key_pos=None, qpos=0, lse=None):
     Bn, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     out = torch.empty((Bn, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if T == 0:
+        if lse is not None:
+            lse.fill_(float("-inf"))  # no key: the log of an empty sum
         return out.zero_()
     arrivals = part_ml = part_acc = None
     if pl.nsplit > 1:
@@ -241,9 +265,167 @@ def _launch(q, k, v, causal, pl, strides_vec, window=0, key_pos=None, qpos=0):
              Bn, S, T, H, K, hd, int(causal), window, qpos, 1.0 / math.sqrt(hd),
              _DTYPES[q.dtype], pl.rows_per_tile, pl.chunk, pl.nsplit, int(vec),
              None if key_pos is None else key_pos.data_ptr(), part_ml, part_acc, arrivals,
-             B.stream())
+             B.ptr(lse), B.stream())
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The backward: csrc/flash_attention_bwd.cu
+# ---------------------------------------------------------------------------
+
+class BwdPlan(NamedTuple):
+    route: str          # "tensor_cores" (bfloat16) or "cuda_cores" (float32)
+    dq_rows: int        # flat (query, group head) rows of a dQ block
+    dq_keys: int        # keys a dQ block takes a step
+    kv_keys: int        # keys of a dK/dV block
+    kv_rows: int        # flat rows a dK/dV block takes a step
+    kv_cols: int        # head_dim columns of dK and dV a dK/dV block writes
+    dq_blocks: int      # row tiles × B·K
+    kv_blocks: int      # key tiles × B·K × column slices × kv_splits
+    smem: Tuple[int, int]  # shared memory of a (dQ, dK/dV) block: tc::DqCfg and
+    #                        tc::DkvCfg (bf16) or cc::Dims (f32) in the source
+    kv_splits: int      # runs each key tile's rows are cut into (bf16), 1 for none
+    workspace_bytes: int  # the (kv_splits, 2, B, T, K, hd) f32 partials, 0 for none
+
+
+def bwd_plan(dtype: torch.dtype, B_: int, S: int, T: int, H: int, K: int, hd: int) -> BwdPlan:
+    """How ``flash_attention_bwd`` launches (B_, S, T, H, K, hd) inputs of
+    ``dtype``: the tiles of ``tc::Tiles`` (bf16) or ``cc`` (f32) in the
+    source, which refuses any other; the blocks of its two passes.  On the
+    tensor-core route, where the dK/dV pass's (key tile, b·kv head, column
+    slice) blocks cannot fill two waves of the card's SMs (one KV head:
+    gemma-2b, the hybrid), each key tile's rows are cut into as many runs
+    as fill them, at most 8 and at least 4 steps a run."""
+    rows = S * (H // K)
+    if dtype == torch.bfloat16:
+        dq_rows, kv_keys = 64, 64
+        dq_keys = 64 if hd <= 64 else (32 if hd <= 128 else 16)
+        kv_cols = min(hd, 128)
+        kv_rows = 64 if kv_cols <= 64 else (32 if kv_cols <= 96 else 16)
+        ld = (hd + 8) * 2
+        smem = (2 * dq_rows * ld + 4 * dq_keys * ld,
+                2 * kv_keys * ld + 2 * (2 * kv_rows * ld + 8 * kv_rows))
+        route = "tensor_cores"
+    elif dtype == torch.float32:
+        dq_rows = kv_rows = 16
+        dq_keys = kv_keys = 32
+        kv_cols = hd
+        ls, ps = -(-hd // 32) * 32 + 1, 33
+        kv = 4 * (2 * 16 * ls + 2 * 32 * ls + 2 * 16 * ps + 2 * 16)
+        smem = (kv - 4 * 16 * ps, kv)
+        route = "cuda_cores"
+    else:
+        raise TypeError(f"flash_attention_bwd: dtype {dtype}, the kernel takes float32 or "
+                        "bfloat16")
+    kv_blocks = -(-T // kv_keys) * B_ * K * (hd // kv_cols)
+    splits = 1
+    if route == "tensor_cores":
+        fill = SMS * max(1, min(2, SMEM_PER_SM // (smem[1] + 1024)))
+        if kv_blocks < 2 * fill:
+            splits = max(1, min(8, -(-2 * fill // kv_blocks), rows // (4 * kv_rows)))
+    return BwdPlan(route, dq_rows, dq_keys, kv_keys, kv_rows, kv_cols,
+                   -(-rows // dq_rows) * B_ * K, kv_blocks * splits, smem, splits,
+                   0 if splits == 1 else 4 * splits * 2 * B_ * T * K * hd)
+
+
+def key_range(row0: int, row_end: int, T: int, G: int, causal: bool, window: int = 0,
+              key_pos: bool = False, qpos: int = 0) -> Tuple[int, int]:
+    """The keys [lo, hi) a block of flat rows [row0, row_end) visits:
+    ``causal_range`` of ``csrc/flash_common.cuh`` (the forward's blocks and
+    the backward's dQ pass)."""
+    if not causal or key_pos:
+        return 0, T
+    hi = min(T, qpos + (row_end - 1) // G + 1)
+    lo = max(0, qpos + row0 // G - window + 1) if window > 0 else 0
+    return lo, hi
+
+
+def row_range(k0: int, k1: int, S: int, G: int, causal: bool, window: int = 0,
+              key_pos: bool = False, qpos: int = 0) -> Tuple[int, int]:
+    """The flat rows [r0, r1) a block of keys [k0, k1) visits in the
+    backward's dK/dV pass: ``causal_rows`` of ``csrc/flash_common.cuh``."""
+    if not causal or key_pos:
+        return 0, S * G
+    r0 = min(S, max(0, k0 - qpos)) * G
+    r1 = max(r0, min(S, max(0, k1 - 1 + window - qpos)) * G) if window > 0 else S * G
+    return r0, r1
+
+
+def row_runs(r0: int, r1: int, splits: int, step: int):
+    """The runs [a, b) the dK/dV pass cuts a key tile's rows [r0, r1) into
+    for ``splits`` blocks: whole ``step``-row steps, in order, the last ones
+    possibly empty."""
+    run = -(-max(0, -(-(r1 - r0) // splits)) // step) * step
+    return [(min(r1, r0 + z * run), min(r1, r0 + (z + 1) * run)) for z in range(splits)]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when its data pointer and every stride allow 16-byte loads of a
+    row (the backward's loads all are), else a contiguous copy."""
+    width = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st % width == 0 for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+                        window: int = 0, key_pos: Optional[torch.Tensor] = None,
+                        qpos: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window, key_pos,
+    qpos)`` against the output gradient ``dout``, from its output ``o`` and
+    the (B, H, S) float32 log-sum-exp ``lse`` the forward wrote; each in
+    its input's dtype and contiguous.  CPU and meta tensors take the plain
+    version (``ref.flash_attention_bwd_ref``); CUDA tensors launch
+    ``csrc/flash_attention_bwd.cu`` or raise.  Dispatched through
+    ``profiled`` as ``"flash_attention_bwd"``."""
+    _check(q, k, v)
+    window, qpos = int(window), int(qpos)
+    _check_mask(q, k, causal, window, key_pos, qpos)
+    Bn, S, H, hd = q.shape
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype), ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (Bn, H, S), torch.float32)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape) \
+                or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be a {dtype} tensor of shape "
+                             f"{tuple(shape)} on {q.device}")
+    rows = Bn * S
+    if q.device.type in ("cpu", "meta"):
+        return profiled("flash_attention_bwd", flash_attention_bwd_ref, q, k, v, o, lse, dout,
+                        causal, window, key_pos, qpos, fallback=True, rows=rows, padded=rows)
+    _check_cuda(q, k, v, causal, window, key_pos, qpos)
+    pl = bwd_plan(q.dtype, Bn, S, k.shape[1], H, k.shape[2], hd)
+    return profiled("flash_attention_bwd", _launch_bwd, q, k, v, o, lse, dout, causal, window,
+                    key_pos, qpos, pl, rows=rows, padded=rows)
+
+
+def _launch_bwd(q, k, v, o, lse, dout, causal, window, key_pos, qpos, pl):
+    Bn, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    dq = torch.empty((Bn, S, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((Bn, T, K, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((Bn, T, K, hd), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or T == 0:  # no query or no key: every gradient is 0
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o, dout = _aligned(o.contiguous()), _aligned(dout.contiguous())
+    lse = lse.contiguous()
+    delta = torch.empty((Bn, H, S), dtype=torch.float32, device=q.device)
+    part = (torch.empty(pl.workspace_bytes // 4, dtype=torch.float32, device=q.device)
+            if pl.kv_splits > 1 else None)
+    B.launch("svc_flash_attention_bwd", _BWD_ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], Bn, S, T, H, K, hd, int(causal), window, qpos,
+             1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+             None if key_pos is None else key_pos.data_ptr(), pl.dq_rows, pl.dq_keys,
+             pl.kv_keys, pl.kv_rows, pl.kv_cols, pl.kv_splits, B.ptr(part), B.stream())
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

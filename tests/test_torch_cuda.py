@@ -37,6 +37,12 @@ and encdec smoke configs' train steps on the card within the same limits of
 the CPU's, and the flash forward and gradient at the banded (window
 128), encoder (non-causal) and cross (S != T) training shapes within
 1e-4 (f32) and 2^-7 (bf16) of the plain version's largest magnitude.
+The backward kernel (``-k flash_bwd``): dq, dk, dv against autograd of
+the plain version within 1e-5 relative L2 in float32 and 1e-2 in bf16
+(the outputs rounded to bf16), and in bf16 no farther from it than SDPA's
+backward, for every mask mode, K = 1 and K = H and head dims
+16 to 256; two calls bit-equal; the forward's log-sum-exp within 1e-5 of
+the plain one, and written only by the training forward.
 """
 
 import numpy as np
@@ -1855,19 +1861,21 @@ def test_recurrent_smoke_models_on_the_card_match_the_cpu(dev, arch):
                                                (1, 96, 4, 4, 32, 0), (1, 130, 4, 1, 64, 40)])
 def test_train_flash_gradient_on_the_card_matches_the_cpu(dev, dtype, B, S, H, K, hd, window):
     """dq, dk, dv through ``autograd.FlashAttention`` on the card against the
-    CPU's autograd of the plain version on the same values: one kernel
-    launch forward, none backward."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    CPU's autograd of the plain version on the same values: one forward
+    launch, and one launch of the backward kernel (its own counter)."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_ref)
 
     g = torch.Generator().manual_seed(B * S + hd)
     cpu = [torch.randn(shape, generator=g).to(dtype) for shape in
            ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd))]
     ins = [t.to(dev).requires_grad_(True) for t in cpu[:3]]
-    before = flash_attention.launches
+    before, before_bwd = flash_attention.launches, flash_attention_bwd.launches
     out = flash_attention(*ins, causal=True, window=window)
     assert flash_attention.launches == before + 1
     out.backward(cpu[3].to(dev))
     assert flash_attention.launches == before + 1
+    assert flash_attention_bwd.launches == before_bwd + 1
     ref = [t.clone().requires_grad_(True) for t in cpu[:3]]
     flash_attention_ref(*ref, True, window).backward(cpu[3])
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
@@ -2073,3 +2081,224 @@ def test_train_flash_family_shapes_on_the_card(dev, dtype, B, S, T, H, K, hd, ca
         assert a.dtype == dtype
         err = float((a.cpu().float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), (name, err)
+
+
+# ---------------------------------------------------------------------------
+# the attention's backward (csrc/flash_attention_bwd.cu): the kernel against
+# autograd of the plain version, SDPA's backward beside it in bf16; the
+# forward's log-sum-exp; determinism and dispatch
+# ---------------------------------------------------------------------------
+
+# mode → (S, T, window, qpos, ring): every mask the forward takes
+BWD_MODES = {
+    "causal": (77, 77, 0, 0, False),
+    "causal_qpos": (40, 100, 0, 60, False),   # a chunk of queries after 60 cached keys
+    "cross": (77, 130, 0, 0, False),          # non-causal, S_tgt != S_src
+    "window": (150, 150, 40, 0, False),       # the hybrid's banded self attention
+    "ring": (4, 64, 64, 97, True),            # key_pos ring slots, four queries at 97..100
+}
+
+
+def _bwd_case(mode, B, H, K, hd, dtype, dev, seed):
+    S, T, window, qpos, ring = BWD_MODES[mode]
+    causal = mode != "cross"
+    q, k, v = _qkv(B, S, T, H, K, hd, dtype, dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    key_pos = _ring_positions(T, qpos + S - 1, 5, seed, dev) if ring else None
+    return q, k, v, dout, dict(causal=causal, window=window, key_pos=key_pos, qpos=qpos)
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def _sdpa_grads(q, k, v, dout, mask):
+    """dq, dk, dv of scaled_dot_product_attention (the yardstick; the port
+    never calls it) with the kernel's mask as an explicit boolean one."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import keep_mask
+
+    S, T = q.shape[1], k.shape[1]
+    ins = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    kw = {}
+    if mask["causal"]:
+        kw["attn_mask"] = keep_mask(S, T, mask["window"], mask["key_pos"], mask["qpos"],
+                                    device=q.device)
+    out = F.scaled_dot_product_attention(*ins, enable_gqa=q.shape[2] != k.shape[2], **kw)
+    return [t.transpose(1, 2) for t in torch.autograd.grad(out, ins, dout.transpose(1, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 96, 128, 256])
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+@pytest.mark.parametrize("H,K", [(4, 1), (4, 4)], ids=["K1", "KH"])
+def test_flash_bwd_kernel_matches_the_plain_backward(dev, dtype, hd, mode, H, K):
+    """dq, dk, dv of the kernel, through the training forward (which writes
+    the log-sum-exp), against autograd of the plain version on the same
+    inputs: float32 within 1e-5 relative L2 (the same f32 sums in other
+    orders); bf16 within 1e-2 relative L2 (the gradients rounded to bf16,
+    D taken from the bf16 output) and no farther from it than SDPA's
+    backward."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.autograd import plain_grad
+
+    q, k, v, dout, mask = _bwd_case(mode, 2, H, K, hd, dtype, dev, seed=hd + H * K)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention_bwd.launches
+    flash_attention(*ins, **mask).backward(dout)
+    assert flash_attention_bwd.launches == before + 1
+    want = plain_grad(q, k, v, dout, mask["causal"], mask["window"], mask["key_pos"],
+                      mask["qpos"])
+    errs = [_rel_l2(t.grad, w) for t, w in zip(ins, want)]
+    for t in ins:
+        assert t.grad.dtype == dtype and t.grad.is_contiguous()
+    if dtype == torch.float32:
+        assert max(errs) <= 1e-5, errs
+        return
+    lib = [_rel_l2(a, w) for a, w in zip(_sdpa_grads(q, k, v, dout, mask), want)]
+    assert max(errs) <= 1e-2, (errs, lib)
+    assert all(e <= s for e, s in zip(errs, lib)), (errs, lib)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    (8, 512, 512, 8, 1, 256, True, 0),      # gemma-2b's training shape
+    (1, 600, 600, 16, 1, 256, True, 128),   # the hybrid's heads, banded
+    (2, 200, 300, 16, 16, 64, False, 0)])   # seamless's cross attention
+def test_flash_bwd_kernel_repeats_bit_equal(dev, dtype, B, S, T, H, K, hd, causal, window):
+    """Two calls on the same inputs give the same bits (no float atomics)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+
+    q, k, v = _qkv(B, S, T, H, K, hd, dtype, dev, seed=S + hd)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev).to(dtype)
+    o, lse = flash_attention_ref(q, k, v, causal, window, return_lse=True)
+    a = flash_attention_bwd(q, k, v, o, lse, dout, causal, window)
+    b = flash_attention_bwd(q, k, v, o, lse, dout, causal, window)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    # and the kernel's form of the plain backward on the same o and lse
+    want = flash_attention_bwd_ref(q, k, v, o, lse, dout, causal, window)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert max(_rel_l2(x, w) for x, w in zip(a, want)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window,qpos,ring", [
+    (2, 77, 77, 4, 1, 64, True, 0, 0, False),
+    (8, 1, 249, 8, 1, 256, False, 0, 0, False),       # the serve decode: split keys
+    (2, 3, 4096, 8, 2, 128, False, 0, 0, False),       # split keys, GQA
+    (1, 600, 600, 16, 1, 256, True, 128, 0, False),
+    (2, 4, 64, 4, 1, 16, True, 64, 97, True),
+    (1, 2, 2048, 16, 1, 256, True, 2048, 3000, True)])  # the ring at full width, split
+def test_flash_forward_lse_matches_the_plain_one(dev, dtype, B, S, T, H, K, hd, causal, window,
+                                                 qpos, ring):
+    """The forward's log-sum-exp, written in the same launch (by the merging
+    block under a key split), against the plain version's, within 1e-5
+    relative plus 1e-5; the output is the one the call without lse gives."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import _dispatch
+
+    q, k, v = _qkv(B, S, T, H, K, hd, dtype, dev, seed=T + hd)
+    key_pos = _ring_positions(T, qpos + S - 1, 3, T, dev) if ring else None
+    mask = (causal, window, key_pos, qpos)
+    lse = torch.full((B, H, S), float("nan"), device=dev)
+    before = flash_attention.launches
+    out = _dispatch(q, k, v, *mask, lse)
+    assert flash_attention.launches == before + 1
+    want_o, want = flash_attention_ref(q, k, v, *mask, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, flash_attention(q, k, v, *mask))
+
+
+def test_flash_serve_calls_write_no_lse_and_launch_once(dev, monkeypatch):
+    """Without grad, and with grad on but no input that requires it, the
+    forward launches once with a null lse, as before the backward."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    seen = []
+    real = _build.launch
+
+    def spy(name, argtypes, *args):
+        if name == "svc_flash_attention":
+            seen.append(args[-2])  # lse, just before the stream
+        return real(name, argtypes, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    q, k, v = _qkv(8, 1, 249, 8, 1, 256, torch.bfloat16, dev)
+    before = flash_attention.launches
+    with torch.no_grad():
+        flash_attention(q, k, v, causal=False)
+    flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 2 and seen == [None, None]
+
+
+def test_flash_backward_on_the_card_takes_the_kernel_only(dev, monkeypatch):
+    """A backward on CUDA tensors launches the backward kernel once (its
+    counter moves, the forward's moves once), dispatches as
+    ``flash_attention_bwd`` with no fallback under the kernel profiler, and
+    no CUDA tensor reaches the plain version."""
+    import repro_torch.kernels.flash_attention.autograd as A
+    import repro_torch.kernels.flash_attention.ops as O
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.obs.kprof import KernelProfiler
+
+    def no_cuda(fn):
+        def guarded(*args, **kw):
+            assert not any(isinstance(t, torch.Tensor) and t.is_cuda for t in args), fn.__name__
+            return fn(*args, **kw)
+        return guarded
+
+    for mod, name in ((A, "flash_attention_ref"), (O, "flash_attention_ref"),
+                      (O, "flash_attention_bwd_ref"), (A, "plain_grad")):
+        monkeypatch.setattr(mod, name, no_cuda(getattr(mod, name)))
+    q, k, v = _qkv(2, 100, 100, 8, 1, 256, torch.bfloat16, dev)
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    prof = kernels.set_profiler(KernelProfiler())
+    try:
+        flash_attention(*ins, causal=True).sum().backward()
+    finally:
+        kernels.set_profiler(None)
+    ops = prof.summary()
+    assert (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd) == (1, 1)
+    assert ops["flash_attention_bwd"]["dispatches"] == 1
+    assert ops["flash_attention_bwd"]["fallbacks"] == 0
+    assert all(t.grad is not None and bool(t.grad.isfinite().all()) for t in ins)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    (8, 512, 512, 8, 1, 256, True, 0),      # gemma-2b's training shape: 5 runs
+    (1, 600, 600, 16, 1, 256, True, 128),   # banded: runs of unequal rows
+    (2, 300, 300, 4, 1, 64, True, 0)])
+def test_flash_bwd_row_split_matches_one_block_per_key_tile(dev, monkeypatch, B, S, T, H, K, hd,
+                                                            causal, window):
+    """The dK/dV pass with each key tile's rows cut over blocks (f32
+    partials summed in run order) against the same pass with one block per
+    key tile: dq bit-equal, dk and dv within one bf16 rounding (2^-8 of
+    each element, plus 2^-8 of the largest for the sums' other order)."""
+    import repro_torch.kernels.flash_attention.ops as O
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_ref
+
+    q, k, v = _qkv(B, S, T, H, K, hd, torch.bfloat16, dev, seed=S + 3)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev).bfloat16()
+    o, lse = flash_attention_ref(q, k, v, causal, window, return_lse=True)
+    o = o.bfloat16()
+    split = flash_attention_bwd(q, k, v, o, lse, dout, causal, window)
+    plan = O.bwd_plan(torch.bfloat16, B, S, T, H, K, hd)
+    assert plan.kv_splits > 1
+    real = O.bwd_plan
+    monkeypatch.setattr(O, "bwd_plan", lambda *a: real(*a)._replace(
+        kv_splits=1, kv_blocks=plan.kv_blocks // plan.kv_splits, workspace_bytes=0))
+    whole = flash_attention_bwd(q, k, v, o, lse, dout, causal, window)
+    assert torch.equal(split[0], whole[0])
+    for a, b in zip(split[1:], whole[1:]):
+        a, b = a.float(), b.float()
+        assert bool(((a - b).abs() <= 2.0 ** -8 * (b.abs() + b.abs().max())).all())

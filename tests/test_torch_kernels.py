@@ -400,9 +400,12 @@ def test_cpu_runs_never_count_as_launches():
     wrappers["corr_diff"](torch.ones(4), torch.zeros(4), torch.ones(4, dtype=torch.bool))
     wrappers["flash_attention"](torch.ones(1, 2, 2, 16), torch.ones(1, 2, 1, 16),
                                 torch.ones(1, 2, 1, 16))
+    wrappers["flash_attention_bwd"](torch.ones(1, 2, 2, 16), torch.ones(1, 2, 1, 16),
+                                    torch.ones(1, 2, 1, 16), torch.ones(1, 2, 2, 16),
+                                    torch.zeros(1, 2, 2), torch.ones(1, 2, 2, 16))
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
                            "fleet_merge", "fleet_moments", "fleet_score", "fleet_score_sharded",
                            "segment_aggsum", "segment_aggsum_unsorted", "corr_diff",
-                           "flash_attention"}
+                           "flash_attention", "flash_attention_bwd"}

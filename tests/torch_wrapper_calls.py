@@ -16,7 +16,8 @@ import torch
 def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     """Kernel name → a call of its wrapper on seeded tensors on ``dev``."""
     from repro_torch.kernels.corr_diff import corr_moments
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.fleet_merge import fleet_merge
     from repro_torch.kernels.fleet_moments import fleet_moments
     from repro_torch.kernels.fleet_score import N_FEATURES, fleet_scores, fleet_scores_sharded
@@ -61,6 +62,11 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     g = torch.Generator(device="cpu").manual_seed(0)
     q, k, v = [torch.randn(shape, generator=g).to(dev)
                for shape in ((2, 1, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64))]
+    # the backward's inputs: a causal prefill, its plain output and log-sum-exp
+    bq, bk, bv, dout = [torch.randn(shape, generator=g).to(dev)
+                        for shape in ((2, 40, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64),
+                                      (2, 40, 4, 64))]
+    bo, lse = flash_attention_ref(bq, bk, bv, return_lse=True)
     return {
         "hash_threshold": lambda: hash_threshold((keys,), 0.3, 1, valid),
         "fused_clean": lambda: fused_clean_groupby(gid, vals, valid, 0.3, 1, G),
@@ -78,4 +84,5 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
         "segment_aggsum_unsorted": lambda: segment_sum(gid, vals, G),
         "corr_diff": lambda: corr_moments(t_new, t_old, valid),
         "flash_attention": lambda: flash_attention(q, k, v, causal=False),
+        "flash_attention_bwd": lambda: flash_attention_bwd(bq, bk, bv, bo, lse, dout),
     }
