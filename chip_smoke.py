@@ -3724,17 +3724,22 @@ def flash_bwd_entry(label, q, k, v, launches, iters, causal=True, window=0) -> d
     log-sum-exp) and beside scaled_dot_product_attention's backward (the
     yardstick, which the port never calls: its forward graph built once,
     outside the timing; a band as an explicit boolean mask), whose distance
-    from the plain backward is reported, not held.  ``kernels_ms``: each of
-    the call's kernels' device ms under ``torch.profiler`` (D, the dK/dV
-    pass, the sum of its row split's partials where it splits, the dQ
-    pass; empty if three profiles lost them).  Launches here are not
+    from the plain backward is reported, not held.  ``launch_ms``: the
+    device ms of each of the call's launches (D, the dK/dV pass, the sum of
+    its row split's partials where it splits, the dQ pass) from the
+    profiler's raw kernel events, null for a launch whose row the profiler
+    lost in all of three profiles; ``tensor_map_us``: the host µs the call
+    spent encoding its four TMA tensor maps (the wgmma route, whose one
+    launch runs both passes), the median of five calls.  ``products_per_pair``: the products over the head_dim
+    a kept pair takes (``ops.bwd_products``).  Launches here are not
     counted; ``launches`` is the path's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
     from repro_torch.kernels.flash_attention.autograd import plain_grad
-    from repro_torch.kernels.flash_attention.ops import _dispatch, bwd_plan
+    from repro_torch.kernels.flash_attention.ops import (_dispatch, bwd_plan, bwd_products,
+                                                         bwd_tensor_map_us)
     from repro_torch.kernels.flash_attention.ref import keep_mask
 
     B, S, H, hd = q.shape
@@ -3742,6 +3747,12 @@ def flash_bwd_entry(label, q, k, v, launches, iters, causal=True, window=0) -> d
     g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED),
                     device=q.device).to(q.dtype)
     tol = FLASH_BWD_TOL[str(q.dtype)]
+    pl = bwd_plan(q.dtype, B, S, T, H, K, hd)
+    passes = ({"D": "flash_bwd_prep", "dK/dV and dQ passes": "flash_bwd_wg"}
+              if pl.route == "wgmma" else
+              {"D": "flash_bwd_prep", "dK/dV pass": "flash_bwd_dkv", "dQ pass": "flash_bwd_dq"})
+    if pl.kv_splits > 1:
+        passes["partials' sum"] = "flash_bwd_sum"
 
     def rel_l2(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
@@ -3764,9 +3775,21 @@ def flash_bwd_entry(label, q, k, v, launches, iters, causal=True, window=0) -> d
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
         form_rel = {n: rel_l2(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, form)}
         ms = cuda_ms(kernel, iters)
+        tmap_us = None
+        if pl.route == "wgmma" and q.is_cuda:
+            samples = []
+            for _ in range(5):
+                kernel()
+                samples.append(bwd_tensor_map_us())
+            tmap_us = float(np.median(samples))
+        launch_ms = {n: None for n in passes}
         for _ in range(3):  # the profiler at times drops every kernel row of a call
-            passes = profile_ops(kernel, top=4, match=("flash_bwd",))["matching"]
-            if passes:
+            rows = profile_raw(kernel, top=8)["top_device"]
+            for n, key in passes.items():
+                hit = [r["device_ms"] for r in rows if key in r["op"]]
+                if hit and launch_ms[n] is None:
+                    launch_ms[n] = hit[0]
+            if all(t is not None for t in launch_ms.values()):
                 break
     plain_ms = cuda_ms(lambda: plain_grad(q, k, v, g, causal, window), iters)
     form_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, g, causal, window), iters)
@@ -3780,10 +3803,12 @@ def flash_bwd_entry(label, q, k, v, launches, iters, causal=True, window=0) -> d
     lib_rel = {n: rel_l2(a.transpose(1, 2), b) for n, a, b in zip(("dq", "dk", "dv"), lib, want)}
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, ins, go, retain_graph=True), iters)
     del lib, out, ins
+    if str(q.dtype) == "torch.bfloat16" and any(rel[n] > lib_rel[n] for n in rel):
+        fail(f"flash_attention_bwd {label}: relative L2 error {rel} from the plain backward "
+             f"beyond SDPA's {lib_rel}")
     pairs = kept_pairs(S, T, causal, window)
     # q, o, dO read and dq written; k, v read and dk, dv written; lse read
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
-    pl = bwd_plan(q.dtype, B, S, T, H, K, hd)
     return kernel_entry(
         "flash_attention_bwd", "cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
         "none: the gradient JAX's autodiff takes of its XLA attention "
@@ -3793,10 +3818,11 @@ def flash_bwd_entry(label, q, k, v, launches, iters, causal=True, window=0) -> d
         ops_per_s=BF16_OPS_PER_S if str(q.dtype) == "torch.bfloat16" else FP32_OPS_PER_S,
         shape=label, B=B, S=S, T=T, H=H, K=K, hd=hd, causal=causal, window=window,
         dtype=str(q.dtype), kept_pairs=pairs, kernel_route=pl.route,
+        products_per_pair=bwd_products(pl.route),
         plan={"dq_rows": pl.dq_rows, "dq_keys": pl.dq_keys, "kv_keys": pl.kv_keys,
               "kv_rows": pl.kv_rows, "kv_cols": pl.kv_cols, "kv_splits": pl.kv_splits,
               "dq_blocks": pl.dq_blocks, "kv_blocks": pl.kv_blocks},
-        kernels_ms={r["op"]: r["self_device_ms"] for r in passes},
+        launch_ms=launch_ms, tensor_map_us=tmap_us,
         rel_l2_vs_plain=rel, plain_call="autograd through flash_attention_ref (plain_grad)",
         plain_kernel_form_ms=form_ms, rel_l2_vs_plain_kernel_form=form_rel,
         library_call="torch.autograd.grad of scaled_dot_product_attention(enable_gqa"
@@ -3805,8 +3831,8 @@ def flash_bwd_entry(label, q, k, v, launches, iters, causal=True, window=0) -> d
         bound_counts="bytes: q, k, v, o, dO, lse read once and dq, dk, dv written once; "
                      "operations: the five products over the kept pairs (S, dO·Vᵀ, dV, dQ, dK)",
         tolerance=f"relative L2 of each of dq, dk, dv from the plain backward <= {tol} (bf16: "
-                  "the gradients rounded to bf16 and D taken from the bf16 output; float32: "
-                  "the same f32 sums in other orders)")
+                  "the gradients rounded to bf16 and D taken from the bf16 output, and no "
+                  "farther than SDPA's backward; float32: the same f32 sums in other orders)")
 
 
 def train_device_vs_cpu(archs, B, S, n_steps, seed, devices=("cuda", "cpu")) -> dict:

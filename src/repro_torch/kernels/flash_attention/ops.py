@@ -28,10 +28,12 @@ and an input that requires it, the call goes through
 ``autograd.FlashAttention``: on the card its forward is the same launch
 writing each row's log-sum-exp beside the output (the ``lse`` pointer,
 null on every other call), and its backward is ``flash_attention_bwd``,
-the hand-written backward (``csrc/flash_attention_bwd.cu``: three
-launches, D then the dK/dV and dQ passes, and a fourth that sums the
-dK/dV partials where that pass splits its rows; ``bwd_plan`` is its host
-plan as a pure function), counted in its own ``launches`` and profiled as
+the hand-written backward (``csrc/flash_attention_bwd.cu``: D, then the
+dK/dV and dQ passes, and the sum of the dK/dV partials where that pass
+splits its rows; bfloat16 at head_dim 64, 128 and 256 runs both passes in
+one launch on Hopper's warpgroups (wgmma, TMA), other bf16 head dims in
+two on mma.sync; ``bwd_plan`` is its host plan as a pure function),
+counted in its own ``launches`` and profiled as
 ``"flash_attention_bwd"``.  CPU and meta tensors keep autograd through
 the plain version.
 """
@@ -49,6 +51,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, fla
 from repro_torch.obs.kprof import profiled
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)  # the kernel's instantiations
+WG_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the backward's warpgroup route
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132  # the H100's streaming multiprocessors
 SMEM_PER_SM = 232448  # bytes of shared memory one SM gives its blocks
@@ -278,38 +281,68 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 class BwdPlan(NamedTuple):
-    route: str          # "tensor_cores" (bfloat16) or "cuda_cores" (float32)
-    dq_rows: int        # flat (query, group head) rows of a dQ block
+    route: str          # "wgmma" (bf16 at WG_HEAD_DIMS), "tensor_cores" (other bf16,
+    #                     mma.sync) or "cuda_cores" (float32)
+    dq_rows: int        # rows of a dQ block: flat (query, group head) rows, or on the
+    #                     wgmma route queries of one head
     dq_keys: int        # keys a dQ block takes a step
     kv_keys: int        # keys of a dK/dV block
-    kv_rows: int        # flat rows a dK/dV block takes a step
-    kv_cols: int        # head_dim columns of dK and dV a dK/dV block writes
-    dq_blocks: int      # row tiles × B·K
-    kv_blocks: int      # key tiles × B·K × column slices × kv_splits
-    smem: Tuple[int, int]  # shared memory of a (dQ, dK/dV) block: tc::DqCfg and
-    #                        tc::DkvCfg (bf16) or cc::Dims (f32) in the source
+    kv_rows: int        # rows a dK/dV block takes a step (wgmma: queries of one head)
+    kv_cols: int        # head_dim columns of dK and dV a dK/dV block writes: all
+    dq_blocks: int      # row tiles × B·K (wgmma: query tiles × B·H)
+    kv_blocks: int      # key tiles × B·K × kv_splits
+    smem: Tuple[int, int]  # shared memory of a (dQ, dK/dV) block: wg::DqSmem and
+    #                        wg::KvSmem, tc::DqCfg and tc::DkvCfg (bf16) or cc::Dims (f32)
     kv_splits: int      # runs each key tile's rows are cut into (bf16), 1 for none
     workspace_bytes: int  # the (kv_splits, 2, B, T, K, hd) f32 partials, 0 for none
+    scratch: int        # f32 scratch of D (and on the wgmma route lse · log2 e)
+
+
+def _bwd_pitch(S: int) -> int:
+    """The row pitch of the wgmma route's (B, H, pitch) D and lse · log2 e
+    (``wg::pitch`` in the source): whole 64-query tiles and two more."""
+    return -(-S // 64) * 64 + 128
 
 
 def bwd_plan(dtype: torch.dtype, B_: int, S: int, T: int, H: int, K: int, hd: int) -> BwdPlan:
     """How ``flash_attention_bwd`` launches (B_, S, T, H, K, hd) inputs of
-    ``dtype``: the tiles of ``tc::Tiles`` (bf16) or ``cc`` (f32) in the
-    source, which refuses any other; the blocks of its two passes.  On the
-    tensor-core route, where the dK/dV pass's (key tile, b·kv head, column
-    slice) blocks cannot fill two waves of the card's SMs (one KV head:
-    gemma-2b, the hybrid), each key tile's rows are cut into as many runs
-    as fill them, at most 8 and at least 4 steps a run."""
+    ``dtype``: the tiles of ``wg`` (bf16 at WG_HEAD_DIMS), ``tc::Tiles``
+    (other bf16) or ``cc`` (f32) in the source, which refuses any other;
+    the blocks of its two passes.  On the bf16 routes, where the dK/dV
+    pass's blocks cannot fill two waves of the card's SMs (one KV head:
+    gemma-2b, the hybrid), each key tile's steps are cut into as many runs
+    as fill them, at most 8 and at least 4 steps a run.  The route follows
+    the dtype and the head_dim alone."""
     rows = S * (H // K)
-    if dtype == torch.bfloat16:
+    G = H // K
+    if dtype == torch.bfloat16 and hd in WG_HEAD_DIMS:
+        route = "wgmma"
+        # wg::Cfg: at head_dim 64 each warpgroup owns 64 of a block's 128 keys
+        # (or queries); else the two share 64.  64 queries (keys) a step.
+        solo = hd == 64
+        bm, br = (128 if solo else 64), 64
+        stages = {64: 4, 128: 3, 256: 2}[hd]  # the ring's slots
+        dq_rows = kv_keys = bm
+        dq_keys = kv_rows = br
+        kv_cols = hd
+        tm, tn = bm * hd * 2, br * hd * 2  # resident Q or K, and a ring tile
+        smem = (2 * tm + 2 * stages * tn + (0 if solo else 2 * 64 * br * 4) + 64 + 1024,
+                2 * tm + 2 * stages * tn + 2 * stages * br * 4 + (0 if solo else 64 * br * 4)
+                + 64 + 1024)
+        per_block = 1  # 384 threads at 168 registers (240 a consumer): one block an SM
+        steps = G * -(-S // br)  # a key tile's steps when every query keeps it
+        dq_blocks = -(-S // bm) * B_ * H
+    elif dtype == torch.bfloat16:
         dq_rows, kv_keys = 64, 64
-        dq_keys = 64 if hd <= 64 else (32 if hd <= 128 else 16)
-        kv_cols = min(hd, 128)
-        kv_rows = 64 if kv_cols <= 64 else (32 if kv_cols <= 96 else 16)
+        dq_keys = kv_rows = 64 if hd <= 64 else 32
+        kv_cols = hd
         ld = (hd + 8) * 2
         smem = (2 * dq_rows * ld + 4 * dq_keys * ld,
                 2 * kv_keys * ld + 2 * (2 * kv_rows * ld + 8 * kv_rows))
         route = "tensor_cores"
+        per_block = max(1, min(2, SMEM_PER_SM // (smem[1] + 1024)))
+        steps = rows // kv_rows
+        dq_blocks = -(-rows // dq_rows) * B_ * K
     elif dtype == torch.float32:
         dq_rows = kv_rows = 16
         dq_keys = kv_keys = 32
@@ -318,18 +351,32 @@ def bwd_plan(dtype: torch.dtype, B_: int, S: int, T: int, H: int, K: int, hd: in
         kv = 4 * (2 * 16 * ls + 2 * 32 * ls + 2 * 16 * ps + 2 * 16)
         smem = (kv - 4 * 16 * ps, kv)
         route = "cuda_cores"
+        dq_blocks = -(-rows // dq_rows) * B_ * K
     else:
         raise TypeError(f"flash_attention_bwd: dtype {dtype}, the kernel takes float32 or "
                         "bfloat16")
-    kv_blocks = -(-T // kv_keys) * B_ * K * (hd // kv_cols)
+    kv_blocks = -(-T // kv_keys) * B_ * K
     splits = 1
-    if route == "tensor_cores":
-        fill = SMS * max(1, min(2, SMEM_PER_SM // (smem[1] + 1024)))
+    if route != "cuda_cores":
+        fill = SMS * per_block
         if kv_blocks < 2 * fill:
-            splits = max(1, min(8, -(-2 * fill // kv_blocks), rows // (4 * kv_rows)))
-    return BwdPlan(route, dq_rows, dq_keys, kv_keys, kv_rows, kv_cols,
-                   -(-rows // dq_rows) * B_ * K, kv_blocks * splits, smem, splits,
-                   0 if splits == 1 else 4 * splits * 2 * B_ * T * K * hd)
+            splits = max(1, min(8, -(-2 * fill // kv_blocks), steps // 4))
+    scratch = 2 * B_ * H * _bwd_pitch(S) if route == "wgmma" else B_ * H * S
+    return BwdPlan(route, dq_rows, dq_keys, kv_keys, kv_rows, kv_cols, dq_blocks,
+                   kv_blocks * splits, smem, splits,
+                   0 if splits == 1 else 4 * splits * 2 * B_ * T * K * hd, scratch)
+
+
+def bwd_products(route: str) -> int:
+    """Products over the head_dim that a kept (query, key) pair takes in the
+    backward's two passes, each counted at the full head_dim (the bound
+    counts 5: S, dO·Vᵀ, dV, dK, dQ).  The bf16 routes: the dK/dV pass
+    computes S and dO·Vᵀ once and dV and dK from bf16 hi + lo operands
+    (6), the dQ pass S, dO·Vᵀ and dQ as hi + lo (4).  (Before the wgmma
+    route, head_dim 256 ran on mma.sync with two column blocks a key tile,
+    each computing S and dO·Vᵀ: 12.)  CUDA cores: S and dO·Vᵀ in both
+    passes, dV, dK and dQ once in f32 (7)."""
+    return 7 if route == "cuda_cores" else 10
 
 
 def key_range(row0: int, row_end: int, T: int, G: int, causal: bool, window: int = 0,
@@ -361,6 +408,35 @@ def row_runs(r0: int, r1: int, splits: int, step: int):
     possibly empty."""
     run = -(-max(0, -(-(r1 - r0) // splits)) // step) * step
     return [(min(r1, r0 + z * run), min(r1, r0 + (z + 1) * run)) for z in range(splits)]
+
+
+def wg_schedule(S: int, T: int, G: int, causal: bool, window: int = 0, key_pos: bool = False,
+                qpos: int = 0, splits: int = 1, tile: int = 64):
+    """The wgmma route's two passes for one (b, kv head), as the source
+    walks them: (the dK/dV pass: for each key tile k0 and run z, the
+    (group head, first query) of each step in order; the dQ pass: for each
+    query tile m0, the first key of each step in order).  A block covers
+    ``tile`` keys or queries (``wg::Cfg::BM``: the plan's ``kv_keys`` and
+    ``dq_rows``); a dK/dV step is 64 queries of one group head from
+    ``row_range``'s first query rounded down to a multiple of 4
+    (``s0 &= ~3``); a dQ step is 64 keys over ``key_range``."""
+    step = 64
+    kv = {}
+    for k0 in range(0, T, tile):
+        s0, s1 = row_range(k0, min(k0 + tile, T), S, 1, causal, window, key_pos, qpos)
+        s0 &= ~3
+        per_head = -(-(s1 - s0) // step) if s1 > s0 else 0
+        total = G * per_head
+        run = -(-total // splits)
+        for z in range(splits):
+            it0 = min(total, z * run)
+            kv[k0, z] = [(it // per_head, s0 + it % per_head * step)
+                         for it in range(it0, min(total, it0 + run))]
+    dq = {}
+    for m0 in range(0, S, tile):
+        lo, hi = key_range(m0, min(m0 + tile, S), T, 1, causal, window, key_pos, qpos)
+        dq[m0] = list(range(lo, hi, step)) if hi > lo else []
+    return kv, dq
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -414,7 +490,7 @@ def _launch_bwd(q, k, v, o, lse, dout, causal, window, key_pos, qpos, pl):
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o, dout = _aligned(o.contiguous()), _aligned(dout.contiguous())
     lse = lse.contiguous()
-    delta = torch.empty((Bn, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty(pl.scratch, dtype=torch.float32, device=q.device)
     part = (torch.empty(pl.workspace_bytes // 4, dtype=torch.float32, device=q.device)
             if pl.kv_splits > 1 else None)
     B.launch("svc_flash_attention_bwd", _BWD_ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -426,6 +502,12 @@ def _launch_bwd(q, k, v, o, lse, dout, causal, window, key_pos, qpos, pl):
              pl.kv_keys, pl.kv_rows, pl.kv_cols, pl.kv_splits, B.ptr(part), B.stream())
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def bwd_tensor_map_us() -> float:
+    """Host µs the last call on the wgmma route spent encoding its four
+    TMA tensor maps (part of its enqueue; 0 before any such call)."""
+    return B.function("svc_flash_bwd_tmap_ns", ())() / 1e3
 
 
 flash_attention_bwd.launches = 0

@@ -41,8 +41,11 @@ The backward kernel (``-k flash_bwd``): dq, dk, dv against autograd of
 the plain version within 1e-5 relative L2 in float32 and 1e-2 in bf16
 (the outputs rounded to bf16), and in bf16 no farther from it than SDPA's
 backward, for every mask mode, K = 1 and K = H and head dims
-16 to 256; two calls bit-equal; the forward's log-sum-exp within 1e-5 of
-the plain one, and written only by the training forward.
+16 to 256, and on the warpgroup route (bf16 at head_dim 64, 128, 256) at
+ragged key and query counts, grouped heads and a wrapped ring; the four
+training shapes on that route; two calls bit-equal; the forward's
+log-sum-exp within 1e-5 of the plain one, and written only by the
+training forward.
 """
 
 import numpy as np
@@ -2160,6 +2163,77 @@ def test_flash_bwd_kernel_matches_the_plain_backward(dev, dtype, hd, mode, H, K)
     lib = [_rel_l2(a, w) for a, w in zip(_sdpa_grads(q, k, v, dout, mask), want)]
     assert max(errs) <= 1e-2, (errs, lib)
     assert all(e <= s for e, s in zip(errs, lib)), (errs, lib)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window,qpos,ring", [
+    (2, 100, 93, 6, 2, 256, True, 0, 0, False),      # T and S·G (300) off the 64-row tiles
+    (1, 70, 130, 3, 1, 64, False, 0, 0, False),      # non-causal, 3 heads a group
+    (2, 33, 200, 16, 1, 128, True, 0, 167, False),   # a chunk after 167 cached keys
+    (1, 190, 190, 16, 1, 256, True, 37, 0, False),   # a narrow band across tiles
+    (2, 3, 128, 8, 1, 256, True, 128, 300, True),    # a wrapped 128-slot ring at hd 256
+    (1, 2, 2048, 16, 1, 256, True, 2048, 3000, True)])  # the hybrid's ring, wrapped
+def test_flash_bwd_warpgroup_route_at_ragged_shapes(dev, B, S, T, H, K, hd, causal, window, qpos,
+                                                    ring):
+    """The warpgroup route where the tiles do not divide the shape: keys
+    past T and queries past S (TMA's zero fill, masked), grouped heads
+    that do not divide 64, a ring that wrapped: dq, dk, dv within 1e-2
+    relative L2 of autograd through the plain version and no farther
+    from it than SDPA's backward."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.autograd import plain_grad
+    from repro_torch.kernels.flash_attention.ops import _dispatch, bwd_plan
+
+    assert bwd_plan(torch.bfloat16, B, S, T, H, K, hd).route == "wgmma"
+    q, k, v = _qkv(B, S, T, H, K, hd, torch.bfloat16, dev, seed=S + T)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev).bfloat16()
+    key_pos = _ring_positions(T, qpos + S - 1, 7, T, dev) if ring else None
+    mask = dict(causal=causal, window=window, key_pos=key_pos, qpos=qpos)
+    lse = torch.empty((B, H, S), device=dev)
+    o = _dispatch(q, k, v, causal, window, key_pos, qpos, lse)
+    got = flash_attention_bwd(q, k, v, o, lse, dout, **mask)
+    want = plain_grad(q, k, v, dout, causal, window, key_pos, qpos)
+    errs = [_rel_l2(a, w) for a, w in zip(got, want)]
+    lib = [_rel_l2(a, w) for a, w in zip(_sdpa_grads(q, k, v, dout, mask), want)]
+    assert max(errs) <= 1e-2, (errs, lib)
+    assert all(e <= s for e, s in zip(errs, lib)), (errs, lib)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    (8, 512, 512, 8, 1, 256, True, 0),          # gemma-2b
+    (1, 4096, 4096, 16, 1, 256, True, 2048),    # recurrentgemma-9b's banded self attention
+    (8, 512, 512, 16, 16, 64, False, 0),        # seamless's encoder and its cross attention
+    (8, 512, 1024, 16, 16, 64, False, 0)])      # cross attention against a longer source
+def test_flash_bwd_takes_the_warpgroup_route_at_the_training_shapes(dev, B, S, T, H, K, hd,
+                                                                     causal, window):
+    """``bwd_plan`` puts the training shapes on the wgmma route, and a call
+    there launches the backward once, encodes its TMA tensor maps and runs
+    the warpgroup kernel (its name in a profile of the call: the profiler
+    at times drops a call's rows, so the first of three that has any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import bwd_plan, bwd_tensor_map_us
+
+    assert bwd_plan(torch.bfloat16, B, S, T, H, K, hd).route == "wgmma"
+    q, k, v = _qkv(B, S, T, H, K, hd, torch.bfloat16, dev, seed=7)
+    o, lse = flash_attention_ref(q, k, v, causal, window, return_lse=True)
+    o = o.bfloat16()
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q), causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert bwd_tensor_map_us() > 0
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q), causal, window)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if "flash_bwd" in e.key}
+        if names:
+            break
+    assert any("flash_bwd_wg" in n for n in names), names  # both passes, one launch
+    assert all(bool(t.isfinite().all()) for t in got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

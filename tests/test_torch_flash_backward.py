@@ -10,9 +10,11 @@ another order); that plain function against ``jax.grad`` of
 ``repro.models.layers.gqa_attention`` under each mask (float32, within
 1e-5 of each gradient's largest magnitude: the same f32 sums in other
 orders); and the host plan (``ops.bwd_plan``, ``key_range``,
-``row_range``, mirrors of the source's tiles and of its ``causal_range``
-and ``causal_rows``), which must visit every kept (query, key) pair
-exactly once in each of the kernel's two passes.  The kernel itself is
+``row_range``, ``wg_schedule``, mirrors of the source's tiles and of its
+``causal_range`` and ``causal_rows``), which must visit every kept
+(query, key) pair exactly once in each of the kernel's two passes, and
+on the warpgroup route give each dQ query tile its key tiles in one
+fixed order.  The kernel itself is
 held to the plain backward on the card (``tests/test_torch_cuda.py -k
 flash_bwd``).
 """
@@ -28,8 +30,9 @@ from repro.models.layers import gqa_attention as jax_gqa_attention
 from repro.models.layers import local_mask as jax_local_mask
 from repro_torch.kernels.flash_attention import (flash_attention_bwd, flash_attention_bwd_ref,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, SMEM_PER_SM, _dispatch,
-                                                     bwd_plan, key_range, row_range, row_runs)
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, SMEM_PER_SM, WG_HEAD_DIMS,
+                                                     _bwd_pitch, _dispatch, bwd_plan, key_range,
+                                                     row_range, row_runs, wg_schedule)
 from repro_torch.kernels.flash_attention.ref import keep_mask
 
 
@@ -188,19 +191,28 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu_and_meta():
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_bwd_plan_mirrors_the_source_tiles(hd):
-    """bf16 (``tc::Tiles``): dQ blocks of 64 flat rows against 64 keys a
-    step (32 at hd 96 and 128, 16 at 256); dK/dV blocks of 64 keys over at
-    most 128 of the columns (two blocks per key tile at hd 256), 64 rows a
-    step (32 at 96 columns, 16 at 128).  float32 (``cc``): 16 rows × 32
-    keys, every column."""
+    """bf16 at head_dim 64, 128 and 256 (``wg``): dQ blocks of 64 queries
+    of one head (128 at hd 64) against 64 keys a step, dK/dV blocks of 64
+    keys (128 at hd 64) over every column, 64 queries a step.  Other bf16 head dims (``tc::Tiles``): dQ
+    blocks of 64 flat rows against 64 keys a step (32 at hd 96); dK/dV
+    blocks of 64 keys over at most 128 of the columns, 64 rows a step (32
+    at 96 columns).  float32 (``cc``): 16 rows × 32 keys, every column."""
     bf = bwd_plan(torch.bfloat16, 8, 512, 512, 8, 1, hd)
-    assert bf.route == "tensor_cores"
-    assert (bf.dq_rows, bf.kv_keys) == (64, 64)
-    assert bf.dq_keys == {16: 64, 32: 64, 64: 64, 96: 32, 128: 32, 256: 16}[hd]
-    assert bf.kv_cols == min(hd, 128) and hd % bf.kv_cols == 0
-    assert bf.kv_rows == {16: 64, 32: 64, 64: 64, 96: 32, 128: 16, 256: 16}[hd]
-    assert bf.dq_blocks == 512 * 8 // 64 * 8
-    assert bf.kv_blocks == 8 * 8 * (hd // bf.kv_cols) * bf.kv_splits
+    if hd in WG_HEAD_DIMS:
+        assert bf.route == "wgmma"
+        bm = 128 if hd == 64 else 64
+        assert (bf.dq_rows, bf.dq_keys, bf.kv_keys, bf.kv_rows, bf.kv_cols) == (bm, 64, bm, 64, hd)
+        assert bf.dq_blocks == 512 // bm * 8 * 8  # query tiles × B·H
+        assert bf.scratch == 2 * 8 * 8 * _bwd_pitch(512)
+    else:
+        assert bf.route == "tensor_cores"
+        assert (bf.dq_rows, bf.kv_keys) == (64, 64)
+        assert bf.dq_keys == {16: 64, 32: 64, 96: 32}[hd]
+        assert bf.kv_rows == {16: 64, 32: 64, 96: 32}[hd]
+        assert bf.dq_blocks == 512 * 8 // 64 * 8
+        assert bf.scratch == 8 * 8 * 512
+    assert bf.kv_cols == hd  # a block writes every column
+    assert bf.kv_blocks == 512 // bf.kv_keys * 8 * bf.kv_splits
     f32 = bwd_plan(torch.float32, 8, 512, 512, 8, 1, hd)
     assert (f32.route, f32.dq_rows, f32.dq_keys, f32.kv_keys, f32.kv_rows, f32.kv_cols) == \
         ("cuda_cores", 16, 32, 32, 16, hd)
@@ -208,36 +220,46 @@ def test_bwd_plan_mirrors_the_source_tiles(hd):
 
 
 def test_bwd_plan_splits_the_rows_only_where_the_blocks_cannot_fill_the_card():
-    """gemma-2b's and the hybrid's training shapes (one KV head, 128 dK/dV
-    blocks of 101 KB, two to an SM) cut each key tile's rows into 5 runs of
-    f32 partials; seamless's (1,024 blocks) and every float32 call do not;
-    a run is at least 4 steps, so short sequences split less."""
+    """gemma-2b's and the hybrid's training shapes (one KV head, 64 dK/dV
+    blocks of 210 KB, one an SM) cut each key tile's steps into 5 runs
+    of f32 partials; seamless's (1,024 blocks) and every float32 call do
+    not; a run is at least 4 steps, so short sequences split less."""
     for shape in ((8, 512, 512, 8, 1, 256), (1, 4096, 4096, 16, 1, 256)):
         pl = bwd_plan(torch.bfloat16, *shape)
         B_, S, T, H, K, hd = shape
-        assert (pl.kv_splits, pl.kv_blocks) == (5, 640)
+        assert (pl.route, pl.kv_splits, pl.kv_blocks) == ("wgmma", 5, 320)
         assert pl.workspace_bytes == 4 * 5 * 2 * B_ * T * K * hd
     assert bwd_plan(torch.bfloat16, 8, 512, 512, 16, 16, 64).kv_splits == 1
     assert bwd_plan(torch.float32, 8, 512, 512, 8, 1, 256).kv_splits == 1
-    assert bwd_plan(torch.bfloat16, 2, 77, 77, 4, 1, 64).kv_splits == 1  # 308 rows: 4.8 steps
-    assert bwd_plan(torch.bfloat16, 2, 77, 77, 4, 1, 256).kv_splits == 4  # 19 steps of 16
+    # 4 heads × 2 query tiles: 8 steps a key tile, two runs of 4
+    assert bwd_plan(torch.bfloat16, 2, 77, 77, 4, 1, 64).kv_splits == 2
+    assert bwd_plan(torch.bfloat16, 2, 77, 77, 4, 1, 256).kv_splits == 2
+    assert bwd_plan(torch.bfloat16, 2, 77, 77, 4, 1, 96).kv_splits == 2  # 308 rows: 9 steps of 32
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        bwd_plan(torch.float16, 1, 1, 1, 1, 1, hd)
+        bwd_plan(torch.float16, 1, 1, 1, 1, 1, 256)
 
 
 def test_bwd_shared_memory_matches_the_source():
-    """``DqCfg::SMEM`` (Q and dO, two stages of K and V), ``DkvCfg::SMEM``
-    (K and V, two stages of Q, dO, lse and D) and ``cc::Dims::SMEM``, each
-    within the 227 KB a block may use."""
+    """``wg::DqSmem::SMEM`` (Q and dO of 128 rows at head_dim 64 and of 64
+    above, the ring's slots of K and V: four at 64, three at 128, two at
+    256; the P and dP exchange where the warpgroups share rows, the
+    barriers, the base's alignment) and ``wg::KvSmem::SMEM`` (K and V, the
+    ring's slots of Q, dO, lse and D, the Pᵀ exchange), ``tc::DqCfg::SMEM``, ``tc::DkvCfg::SMEM`` and
+    ``cc::Dims::SMEM``, each within the 227 KB a block may use."""
     def smem(dtype, hd):
         return bwd_plan(dtype, 1, 1, 1, 1, 1, hd).smem
 
-    assert smem(torch.bfloat16, 256) == (2 * 64 * 264 * 2 + 4 * 16 * 264 * 2,
-                                         2 * 64 * 264 * 2 + 2 * (2 * 16 * 264 * 2 + 8 * 16))
+    for hd, bm, stages, x in ((64, 128, 4, 0), (128, 64, 3, 1), (256, 64, 2, 1)):
+        tm, tn = bm * hd * 2, 64 * hd * 2
+        assert smem(torch.bfloat16, hd) == (2 * tm + 2 * stages * tn + x * 2 * 64 * 64 * 4
+                                            + 64 + 1024,
+                                            2 * tm + 2 * stages * tn + 2 * stages * 64 * 4
+                                            + x * 64 * 64 * 4 + 64 + 1024)
+    assert smem(torch.bfloat16, 256) == (230464, 215104)
     assert smem(torch.bfloat16, 96) == (2 * 64 * 104 * 2 + 4 * 32 * 104 * 2,
                                         2 * 64 * 104 * 2 + 2 * (2 * 32 * 104 * 2 + 8 * 32))
-    assert smem(torch.bfloat16, 64) == (2 * 64 * 72 * 2 + 4 * 64 * 72 * 2,
-                                        2 * 64 * 72 * 2 + 2 * (2 * 64 * 72 * 2 + 8 * 64))
+    assert smem(torch.bfloat16, 32) == (2 * 64 * 40 * 2 + 4 * 64 * 40 * 2,
+                                        2 * 64 * 40 * 2 + 2 * (2 * 64 * 40 * 2 + 8 * 64))
     ls = 256 + 1
     kv = 4 * (2 * 16 * ls + 2 * 32 * ls + 2 * 16 * 33 + 2 * 16)
     assert smem(torch.float32, 256) == (kv - 4 * 16 * 33, kv)
@@ -283,21 +305,87 @@ def test_bwd_plan_visits_every_kept_pair_once_per_pass(dtype, shape, mode):
     assert keep.any(1).all()
     pl = bwd_plan(dtype, B_, S, T, H, K, hd)
     dq = np.zeros((rows, T), int)
-    for row0 in range(0, rows, pl.dq_rows):
-        row_end = min(row0 + pl.dq_rows, rows)
-        lo, hi = key_range(row0, row_end, T, G, causal, window, ring, qpos)
-        for t0 in range(lo, hi, pl.dq_keys):  # the kernel's steps, masked at hi
-            dq[row0:row_end, t0:min(t0 + pl.dq_keys, hi)] += 1
+    kv = np.zeros((rows, T), int)
+    if pl.route == "wgmma":  # 64 queries of one head a tile; flat row s·G + g
+        br, bm = pl.kv_rows, pl.kv_keys
+        kv_steps, dq_steps = wg_schedule(S, T, G, causal, window, ring, qpos, pl.kv_splits, bm)
+        for m0, starts in dq_steps.items():
+            lo, hi = key_range(m0, min(m0 + bm, S), T, 1, causal, window, ring, qpos)
+            for t0 in starts:  # masked at hi
+                for g in range(G):
+                    dq[np.arange(m0, min(m0 + bm, S)) * G + g, t0:min(t0 + br, hi)] += 1
+        for (k0, _z), steps in kv_steps.items():
+            for g, s0 in steps:
+                kv[np.arange(s0, min(s0 + br, S)) * G + g, k0:min(k0 + bm, T)] += 1
+    else:
+        for row0 in range(0, rows, pl.dq_rows):
+            row_end = min(row0 + pl.dq_rows, rows)
+            lo, hi = key_range(row0, row_end, T, G, causal, window, ring, qpos)
+            for t0 in range(lo, hi, pl.dq_keys):  # the kernel's steps, masked at hi
+                dq[row0:row_end, t0:min(t0 + pl.dq_keys, hi)] += 1
+        for k0 in range(0, T, pl.kv_keys):
+            k1 = min(k0 + pl.kv_keys, T)
+            for a, b in row_runs(*row_range(k0, k1, S, G, causal, window, ring, qpos),
+                                 pl.kv_splits, pl.kv_rows):  # one block each
+                for b0 in range(a, b, pl.kv_rows):
+                    kv[b0:min(b0 + pl.kv_rows, b), k0:k1] += 1
     assert (dq[keep] == 1).all()
     assert dq.max() <= 1
-    kv = np.zeros((rows, T), int)
-    for k0 in range(0, T, pl.kv_keys):
-        k1 = min(k0 + pl.kv_keys, T)
-        for a, b in row_runs(*row_range(k0, k1, S, G, causal, window, ring, qpos),
-                             pl.kv_splits, pl.kv_rows):  # one block each
-            for b0 in range(a, b, pl.kv_rows):
-                kv[b0:min(b0 + pl.kv_rows, b), k0:k1] += 1
     assert (kv[keep] == 1).all()
     assert kv.max() <= 1
     if window and not ring:  # a band's bounds skip the tiles it does not reach
         assert dq.sum() < rows * T and kv.sum() < rows * T
+
+
+WG_MODES = {  # (S, T, G, mask): causal, causal after cached keys, banded, ring, non-causal
+    "causal": (300, 300, 8, dict(causal=True)),
+    "causal_qpos": (70, 200, 3, dict(causal=True, qpos=130)),
+    "banded": (500, 500, 16, dict(causal=True, window=200)),
+    "banded_narrow": (150, 150, 2, dict(causal=True, window=7)),
+    "ring": (4, 128, 8, dict(causal=True, window=128, ring=True)),
+    "noncausal": (100, 230, 1, dict(causal=False)),
+}
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("splits", [1, 3, 5])
+@pytest.mark.parametrize("mode", list(WG_MODES))
+def test_wg_schedule_visits_every_kept_pair_once_in_a_fixed_order(mode, splits, tile):
+    """The warpgroup route's schedule (``wg_schedule``, the source's
+    loops): each pass visits every kept (query, head, key) pair exactly
+    once, whatever the dK/dV pass's split; a dK/dV key tile's runs are
+    consecutive slices of one step sequence (heads in order, each over its
+    queries in order, a first query aligned to 4 for the lse and D copies);
+    each dQ query tile takes its key tiles in one fixed order, ascending
+    and a step (64) apart from the first its queries can keep.  Blocks of
+    64 (head_dim 128 and 256) and 128 keys or queries (head_dim 64)."""
+    S, T, G, m = WG_MODES[mode]
+    m = dict(m)
+    ring = m.pop("ring", False)
+    causal, window, qpos = m["causal"], m.get("window", 0), m.get("qpos", 0)
+    key_pos = None
+    if ring:
+        qpos = 1000
+        key_pos = _ring(T, qpos + S - 1, 9, T)
+    keep = (keep_mask(S, T, window, key_pos, qpos).numpy() if causal
+            else np.ones((S, T), bool))
+    step = 64
+    kv_steps, dq_steps = wg_schedule(S, T, G, causal, window, ring, qpos, splits, tile)
+    one = wg_schedule(S, T, G, causal, window, ring, qpos, 1, tile)[0]
+    kv = np.zeros((G, S, T), int)
+    for k0 in range(0, T, tile):
+        runs = [kv_steps[k0, z] for z in range(splits)]
+        assert sum(runs, []) == one[k0, 0]  # the split keeps the order
+        for g, s0 in one[k0, 0]:
+            assert s0 % 4 == 0 and 0 <= g < G
+            kv[g, s0:s0 + step, k0:k0 + tile] += 1
+    dq = np.zeros((G, S, T), int)
+    for m0, starts in dq_steps.items():
+        assert starts == sorted(starts) and all(b - a == step for a, b in zip(starts, starts[1:]))
+        lo, hi = key_range(m0, min(m0 + tile, S), T, 1, causal, window, ring, qpos)
+        for t0 in starts:
+            dq[:, m0:m0 + tile, t0:min(t0 + step, hi)] += 1
+    for got in (kv, dq):
+        assert (got[:, keep] == 1).all(), mode
+        assert got.max() <= 1
+    assert wg_schedule(S, T, G, causal, window, ring, qpos, splits, tile)[1] == dq_steps
