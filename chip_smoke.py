@@ -112,6 +112,15 @@ The observatory and the chaos layer ride on these paths:
     fused clean and to the float64 sums; a ``kernel`` line for
     ``fleet_score_sharded`` (the fleet_score kernel over the (S, Vmax, F)
     stack, bit-equal to the plain score shard by shard).
+  * ``multi_card`` (after ``sharded_fleet``): the same three paths with
+    shard s on the mesh's s-th device, first over ``LocalMesh([cuda:0] *
+    4)`` (the per-device branch, one fleet_score launch per shard on its
+    device), then, where more than one card is visible, over ``cuda:0 …
+    cuda:S−1`` (S = min(4, cards)), each held to the flat twin and the
+    score combine bit-equal to the stacked launch; every wrapper once on
+    the last card against its plain version.  The line names the cards
+    seen, the device of each shard's tensors, each card's peak memory and
+    the epoch walls, and says when only one card was visible.
   * ``kprof``: a KernelProfiler over one warm pass of the main path (fused,
     pinned and unfused refreshes, query_batch, the kernel_api entries) and
     of the fleet (svc_refresh_many, a maintain, a planner epoch): no op
@@ -254,6 +263,10 @@ SHARDED_EPOCHS = 3
 SHARDED_LOST = 1
 SHARDED_AGE_CAP_S = 1e9
 SHARDED_DELTA_SEED = 30_000
+# multi_card: every wrapper on the last card against its plain version, float
+# outputs within this share of their largest magnitude (f32 sums in another
+# order; the attention's 1e-4 as in tests/test_torch_cuda.py)
+MULTI_CARD_TOL = 1e-5
 
 # The LM serving path (src/repro/launch/serve.py's default --arch): gemma-2b
 # at full width in bf16 through ServeEngine, 16 requests of 16–256 prompt
@@ -4683,10 +4696,12 @@ def sharded_plan_parity(rep, flat_rep, fleet, what: str, scores_too: bool) -> di
 
 
 def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shards, epochs,
-                      lost, device="cuda"):
+                      lost, device="cuda", mesh=None):
     """The sharded fleet against its flat twin over the same host ``logs``.
 
-    A ``ShardedFleet(n_shards)`` on ``device`` and a flat ``ViewManager`` +
+    A ``ShardedFleet(n_shards)`` on ``device`` (with ``mesh``, shard s on
+    the mesh's s-th device, each shard's panel scored there) and a flat
+    ``ViewManager`` on ``device`` +
     ``MaintenancePlanner``, the fleet path's prices pinned on every cost
     model, one EpochClock, a budget that fits every view's dearer action:
     the first epoch's deltas go straight into the owning managers, and the
@@ -4723,10 +4738,12 @@ def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shar
     planner = MaintenancePlanner(flat, budget_s=budget_s, age_cap_s=SHARDED_AGE_CAP_S,
                                  clock=clock)
     fleet = ShardedFleet(n_shards, budget_s=budget_s, age_cap_s=SHARDED_AGE_CAP_S,
-                         clock=clock, device=device)
-    # each base goes to the card once; the shards' managers share it
+                         clock=clock, device=device, mesh=mesh)
+    # each base goes to the card once and the shards' managers share it;
+    # over several cards each shard's manager copies it from the host
+    home = fleet.devices[0] if len(set(fleet.devices)) == 1 else torch.device("cpu")
     _, t["sharded_register_s"] = wall(lambda: register_fleet_views(
-        fleet, [log.to(device) for log in logs], groups, m))
+        fleet, [log.to(home) for log in logs], groups, m))
     placement = {n: fleet.shard_of(n) for n in names}
     if sorted(set(placement.values())) != list(range(n_shards)):
         fail(f"sharded fleet: views placed on {sorted(set(placement.values()))}")
@@ -4859,17 +4876,34 @@ def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shar
     out["kprof"] = {op: {k: st[k] for k in ("dispatches", "fallbacks", "compile_s", "execute_s")}
                     for op, st in summary.items()}
     out["shard_ops"] = {op: sorted(per) for op, per in shard_summary["shards"].items()}
+    out["shard_devices"] = shard_devices(fleet)
     out["wall_s"] = t
     del fleet, flat, planner
     torch.cuda.empty_cache()
     return out, scored[-1]
 
 
-def run_sharded_groupbys(n_videos, start, n_delta, groups, m, seed, n_shards, device="cuda"):
+def shard_devices(fleet) -> dict:
+    """The devices that hold each shard's tensors (its bases, its views'
+    materializations and samples); fails unless that is the shard's own."""
+    seen = {}
+    for s, vm in enumerate(fleet.vms):
+        devs = {str(r.valid.device) for r in vm.base.values()}
+        for mv in vm.views.values():
+            devs |= {str(mv.materialized.valid.device), str(mv.clean_sample.valid.device)}
+        seen[s] = sorted(devs)
+        if devs and seen[s] != [str(fleet.devices[s])]:
+            fail(f"sharded fleet: shard {s} on {fleet.devices[s]} holds tensors on {seen[s]}")
+    return seen
+
+
+def run_sharded_groupbys(n_videos, start, n_delta, groups, m, seed, n_shards, device="cuda",
+                         mesh=None):
     """visitView's streaming delta (``n_delta`` sessions from ``start``,
     seed STREAM_SEED) offered in ``n_shards`` partitions of a
     PartitionedDeltaLog, drained, stacked and aggregated by both sharded
-    group-bys over a mesh of ``n_shards`` shards of the card; each held
+    group-bys over ``mesh`` (by default ``n_shards`` shards of the card
+    ``device``); each held
     against one flat fused clean over the whole delta (counts exact) and
     every sum against the float64 sum of its kept rows (within
     γ_{n−1+S}·Σ|x|: n rows in S partial sums), and the two against each
@@ -4906,7 +4940,8 @@ def run_sharded_groupbys(n_videos, start, n_delta, groups, m, seed, n_shards, de
 
     ((keys, valid, values), width), t["partition_drain_stack_s"] = wall(partition)
     del delta
-    mesh = LocalMesh([torch.device(device)] * n_shards, {"data": n_shards})
+    if mesh is None:
+        mesh = LocalMesh([torch.device(device)] * n_shards, {"data": n_shards})
     fused_fn = make_sharded_fused_delta_groupby(mesh, "data", groups, m, seed, ["bytes"])
     unfused_fn = make_sharded_delta_groupby(mesh, "data", groups, m, seed, ["bytes"])
     fused, t["sharded_fused_s"] = wall(lambda: fused_fn(keys, valid, values))
@@ -4943,6 +4978,7 @@ def run_sharded_groupbys(n_videos, start, n_delta, groups, m, seed, n_shards, de
     if bool((pair > 2 * rtol * abs_sum).any()):
         fail("sharded group-by: the fused and unfused sums differ beyond 2*gamma*sum|x|")
     report = {"rows": n_delta, "shards": n_shards, "rows_per_shard": width, "groups": groups,
+              "devices": [str(d) for d in mesh.axis_devices("data")],
               "kept_rows": int(n.sum()), "hot_group_rows": int(n.max()), "wall_s": t,
               "vs_exact": held, "fused_vs_unfused_max_abs": float(pair.max()),
               "bit_equal_fused_unfused": bool(torch.equal(fused["bytes"], unfused["bytes"]))}
@@ -4973,6 +5009,149 @@ def check_sharded_score(stacked, launches, iters):
         bytes_=S * vmax * (F + 6) * 4, ops=45 * S * vmax, shards=S, vmax=vmax,
         jax_entry="src/repro/kernels/fleet_score/ops.py:77", tolerance="bit-equal",
     )
+
+
+def stacked_score_parity(stacked, mesh, what: str) -> dict:
+    """``fleet_scores_sharded`` over ``mesh`` (each shard scored on its
+    device) bit-equal to the one launch over the stack on the mesh's first
+    device and to the plain score of each shard's panel."""
+    import torch
+
+    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores_sharded
+
+    devices = mesh.axis_devices("data")
+    got = fleet_scores_sharded(stacked, mesh=mesh)
+    with uncounted():
+        one = fleet_scores_sharded(stacked.to(devices[0]))
+    if got.device != devices[0]:
+        fail(f"{what}: the gathered scores lie on {got.device}, not {devices[0]}")
+    if not torch.equal(got.view(torch.int32), one.view(torch.int32)):
+        fail(f"{what}: the per-device scores differ from the stacked launch")
+    for s in range(stacked.shape[0]):
+        want = fleet_score_ref(stacked[s].contiguous().cpu())
+        if not torch.equal(got[s].cpu().view(torch.int32), want.view(torch.int32)):
+            fail(f"{what}: shard {s} differs from the plain score")
+    return {"shape": list(stacked.shape), "devices": [str(d) for d in devices],
+            "vs_stacked_launch": "bit-equal", "vs_plain": "bit-equal"}
+
+
+def hold_on_last_card(device, tol=MULTI_CARD_TOL) -> dict:
+    """Every wrapper of ``tests/torch_wrapper_calls.py`` once on ``device``
+    against its plain version on the CPU over the same seeded inputs:
+    integer and boolean outputs exact, float outputs within ``tol`` of the
+    largest magnitude (1e-4 for the attention, whose f32 sums run in
+    another order).  The launches are not counted."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_wrapper_calls", ROOT / "tests" / "torch_wrapper_calls.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for y in x for t in leaves(y)]
+
+    card, cpu = mod.wrapper_calls(device), mod.wrapper_calls("cpu")
+    out = {}
+    with uncounted():
+        for name, call in card.items():
+            got, want = leaves(call()), leaves(cpu[name]())
+            worst = 0.0
+            for a, b in zip(got, want, strict=True):
+                if a.device != torch.device(device):
+                    fail(f"{name} on {device}: an output lies on {a.device}")
+                a = a.cpu()
+                if not b.is_floating_point():
+                    if not torch.equal(a, b):
+                        fail(f"{name} on {device}: differs from the plain version")
+                    continue
+                limit = (1e-4 if name.startswith("flash") else tol) * max(
+                    1.0, float(b.abs().max()) if b.numel() else 0.0)
+                err = float((a.double() - b.double()).abs().max()) if b.numel() else 0.0
+                if not err <= limit:
+                    fail(f"{name} on {device}: {err:.3e} from the plain version (limit "
+                         f"{limit:.3e})")
+                worst = max(worst, err)
+            out[name] = worst
+    return out
+
+
+def multi_card_phase(logs, n_videos, n_logs, n_delta, groups, m, prices, epochs, lost,
+                     gb_videos, gb_start, gb_delta, device="cuda") -> dict:
+    """§7.5 with shard s on the mesh's s-th device, through the sharded
+    fleet, ``fleet_scores_sharded`` and both sharded group-bys.
+
+    First over ``[device] * SHARDS`` (one card: the per-device branch that
+    the ``sharded_fleet`` phase, which passes no mesh, never takes); then,
+    where more than one card is visible, over ``cuda:0 … cuda:S−1`` (S =
+    min(SHARDS, cards)), and every wrapper once on the last card against
+    its plain version.  Each run is held to the flat twin and to the
+    stacked launch as ``sharded_fleet`` holds its own; its launches are
+    counted from 0."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import LocalMesh
+
+    on_cuda = torch.device(device).type == "cuda"
+    n_cards = torch.cuda.device_count() if on_cuda else 1
+    meshes = [("one_card", LocalMesh([torch.device(device)] * SHARDS, {"data": SHARDS}))]
+    if n_cards > 1:
+        S = min(SHARDS, n_cards)
+        meshes.append(("cross_card", LocalMesh([torch.device("cuda", i) for i in range(S)],
+                                               {"data": S})))
+    out = {"cards_visible": n_cards,
+           "cards": [torch.cuda.get_device_name(i) for i in range(n_cards)] if on_cuda
+           else ["cpu"],
+           "cross_card_ran": n_cards > 1}
+    if n_cards == 1:
+        out["note"] = ("one card visible: the per-device branch ran with every shard on "
+                       f"{meshes[0][1].devices[0]}; nothing ran across cards")
+    for label, mesh in meshes:
+        devices = mesh.axis_devices("data")
+        if on_cuda:
+            for i in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(i)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fleet, scored = run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices,
+                                          len(devices), epochs, lost, device=device, mesh=mesh)
+        scores = stacked_score_parity(scored, mesh, f"{label} score combine")
+        groupbys = run_sharded_groupbys(gb_videos, gb_start, gb_delta, groups, m, SEED,
+                                        len(devices), device=device, mesh=mesh)
+        launches = kernels.launch_counts()
+        missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+        if missing:
+            fail(f"multi_card {label}: kernels never launched: {missing}")
+        want = (epochs + 2) * len(devices)  # the preview, each epoch, the parity call
+        if launches["fleet_score_sharded"] != want:
+            fail(f"multi_card {label}: {launches['fleet_score_sharded']} fleet_score_sharded "
+                 f"launches, want {want}: one per shard and call")
+        run = {"shards": len(devices), "devices": [str(d) for d in devices],
+               "shard_devices": fleet["shard_devices"],
+               "epoch_s": [e["sharded_epoch_s"] for e in fleet["epochs"]],
+               "flat_epoch_s": [e["flat_epoch_s"] for e in fleet["epochs"]],
+               "actions": [e["actions"] for e in fleet["epochs"]],
+               "preview_vs_flat": "equal", "kprof": fleet["kprof"],
+               "score_combine": scores, "groupbys": groupbys, "launches": launches,
+               "wall_s": time.perf_counter() - t0}
+        if on_cuda:
+            run["peak_device_gb"] = {f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 1e9
+                                     for i in range(n_cards)}
+        out[label] = run
+        del fleet, scored
+        if on_cuda:
+            torch.cuda.empty_cache()
+    if n_cards > 1:
+        last = torch.device("cuda", n_cards - 1)
+        out["last_card"] = {"device": str(last), "max_abs_err": hold_on_last_card(last)}
+    out["runtime_device_checked"] = sorted(_build._runtime_checked)
+    return out
 
 
 def visit_twin(vm, view, m, groups):
@@ -5368,7 +5547,6 @@ def main(argv=None) -> int:
     sharded, sharded_scores = run_sharded_fleet(
         fleet_host_logs, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA, FLEET_GROUPS, M, fleet["prices"],
         SHARDS, SHARDED_EPOCHS, SHARDED_LOST)
-    del fleet_host_logs
     sharded["groupbys"] = run_sharded_groupbys(N_VIDEOS, args.n_logs + N_DELTA, N_DELTA,
                                                FLEET_GROUPS, M, SEED, SHARDS)
     sharded_launches = kernels.launch_counts()
@@ -5381,6 +5559,14 @@ def main(argv=None) -> int:
     del sharded_scores
     for entry in sharded_table:
         emit({"phase": "kernel", **entry, "card": smi})
+    # the same paths with shard s on the mesh's s-th device: four shards of
+    # this card, then, where more are visible, one shard a card
+    torch.cuda.empty_cache()
+    emit({"phase": "multi_card", **multi_card_phase(
+        fleet_host_logs, FLEET_VIDEOS, FLEET_LOGS, FLEET_DELTA, FLEET_GROUPS, M,
+        fleet["prices"], SHARDED_EPOCHS, SHARDED_LOST, N_VIDEOS, args.n_logs + N_DELTA,
+        N_DELTA), "card": smi})
+    del fleet_host_logs
 
     # the LM serving path, on a card the SVC paths have let go of
     del fleet, walls, small_fleet, small_stream

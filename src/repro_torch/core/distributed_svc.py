@@ -44,11 +44,15 @@ def _make_sharded_groupby(mesh, axis: str, agg_cols: Tuple[str, ...], local):
         if n % n_shards:
             raise ValueError(f"{n} rows do not shard evenly over {n_shards} shards")
         r = n // n_shards
-        total: List[torch.Tensor] = []
+        # every shard's work enqueued on its card before the first gather
+        shard_outs: List[List[torch.Tensor]] = []
         for s, dev in enumerate(devices):
             rows = slice(s * r, (s + 1) * r)
-            outs = local(keys[rows].to(dev), valid[rows].to(dev),
-                         *[values[c][rows].to(dev) for c in agg_cols])
+            shard_outs.append(local(keys[rows].to(dev), valid[rows].to(dev),
+                                    *[values[c][rows].to(dev) for c in agg_cols]))
+        # the psum: on the first device, in shard order
+        total: List[torch.Tensor] = []
+        for outs in shard_outs:
             outs = [o.to(devices[0]) for o in outs]
             total = outs if not total else [a + b for a, b in zip(total, outs)]
         res = {"count": total[0]}

@@ -167,14 +167,13 @@ __global__ void __launch_bounds__(kThreads) corr_diff_kernel(Params p) {
 
 template <bool VEC>
 int launch(const Params& p, int max_blocks, cudaStream_t s) {
-  static int resident = 0;  // blocks the card holds at once
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  static svc::PerDevice<int> cards;  // blocks each card holds at once
+  const int resident = cards.get([](int dev) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, corr_diff_kernel<VEC>, kThreads, 0);
-    resident = sms * (per_sm < 1 ? 1 : per_sm);
-  }
+    return sms * (per_sm < 1 ? 1 : per_sm);
+  });
   const int64_t chunk = static_cast<int64_t>(kThreads) * kWords * (VEC ? 4 : 1);
   int64_t grid = (p.n + chunk - 1) / chunk;
   if (grid > resident) grid = resident;

@@ -341,8 +341,9 @@ __global__ void flash_combine_cuda_cores(Params p, int hd) {
 template <typename T, int HD, int R>
 cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HD, R>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_cuda_cores<T, HD, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  static svc::PerDevice<cudaError_t> attr_cards;
+  const cudaError_t attr = svc::allow_smem(
+      attr_cards, flash_fwd_cuda_cores<T, HD, R>, static_cast<int>(bytes));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.S * p.G + R - 1) / R, p.B * p.K, p.nsplit);
   flash_fwd_cuda_cores<T, HD, R><<<grid, NT, bytes, stream>>>(p);
@@ -708,8 +709,8 @@ template <int HD, int WM, int KW>
 cudaError_t launch_cfg(const Params& p, cudaStream_t stream) {
   using C = Cfg<HD, WM, KW>;
   if (p.chunk % C::BN != 0) return cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc<HD, WM, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  static svc::PerDevice<cudaError_t> attr_cards;
+  const cudaError_t attr = svc::allow_smem(attr_cards, flash_fwd_tc<HD, WM, KW>, C::SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.S * p.G + C::BM - 1) / C::BM, p.B * p.K, p.nsplit);
   flash_fwd_tc<HD, WM, KW><<<grid, NT, C::SMEM, stream>>>(p);

@@ -622,10 +622,12 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   using T = Tiles<HD>;
   using Q = DqCfg<HD, T::DQ_KEYS>;
   using V = DkvCfg<HD, T::KV_ROWS>;
-  static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc<HD, T::KV_ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, V::SMEM);
-  static const cudaError_t attr_q = cudaFuncSetAttribute(
-      flash_bwd_dq_tc<HD, T::DQ_KEYS>, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::SMEM);
+  static svc::PerDevice<cudaError_t> attr_kv_cards;
+  const cudaError_t attr_kv = svc::allow_smem(
+      attr_kv_cards, flash_bwd_dkv_tc<HD, T::KV_ROWS>, V::SMEM);
+  static svc::PerDevice<cudaError_t> attr_q_cards;
+  const cudaError_t attr_q = svc::allow_smem(
+      attr_q_cards, flash_bwd_dq_tc<HD, T::DQ_KEYS>, Q::SMEM);
   if (attr_kv != cudaSuccess) return attr_kv;
   if (attr_q != cudaSuccess) return attr_q;
   if (p.kv_splits < 1 || (p.kv_splits > 1 && p.part == nullptr)) return cudaErrorInvalidValue;
@@ -1260,8 +1262,8 @@ template <int HD>
 cudaError_t launch_bwd(const Params& p, const bf16* q, const bf16* k, const bf16* v,
                        const bf16* dout, const int64_t (&st)[9], cudaStream_t stream) {
   constexpr int smem = KvSmem<HD>::SMEM > DqSmem<HD>::SMEM ? KvSmem<HD>::SMEM : DqSmem<HD>::SMEM;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_wg<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static svc::PerDevice<cudaError_t> attr_cards;
+  const cudaError_t attr = svc::allow_smem(attr_cards, flash_bwd_wg<HD>, smem);
   if (attr != cudaSuccess) return attr;
   if (p.kv_splits < 1 || (p.kv_splits > 1 && p.part == nullptr)) return cudaErrorInvalidValue;
   const auto t0 = std::chrono::steady_clock::now();
@@ -1524,10 +1526,10 @@ template <int HD>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   constexpr int dq_smem = Dims<HD>::SMEM - 4 * R * PS;  // no P tile
   constexpr int kv_smem = Dims<HD>::SMEM;
-  static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      flash_bwd_dkv_cc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
-  static const cudaError_t attr_q = cudaFuncSetAttribute(
-      flash_bwd_dq_cc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  static svc::PerDevice<cudaError_t> attr_kv_cards;
+  const cudaError_t attr_kv = svc::allow_smem(attr_kv_cards, flash_bwd_dkv_cc<HD>, kv_smem);
+  static svc::PerDevice<cudaError_t> attr_q_cards;
+  const cudaError_t attr_q = svc::allow_smem(attr_q_cards, flash_bwd_dq_cc<HD>, dq_smem);
   if (attr_kv != cudaSuccess) return attr_kv;
   if (attr_q != cudaSuccess) return attr_q;
   const dim3 kv_grid((p.T + BK - 1) / BK, p.B * p.K);

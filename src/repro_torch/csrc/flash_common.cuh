@@ -10,6 +10,8 @@
 
 #include <cstdint>
 
+#include "svc_common.cuh"
+
 // Whether key ``key`` is kept for the query at index ``qi`` (from 0) under
 // the causal mask and its refinements: key j is kept for query i iff
 // 0 <= p_j <= qpos + i and, when window > 0, p_j > qpos + i - window, where

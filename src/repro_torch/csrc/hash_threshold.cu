@@ -114,14 +114,13 @@ int launch(const svc::KeyCols& cols, const uint8_t* valid, int64_t n, uint32_t s
         cols, valid, n, seed_mix, thresh, out);
     return static_cast<int>(cudaGetLastError());
   }
-  static int resident = 0;  // blocks the card holds at once
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  static svc::PerDevice<int> cards;  // blocks each card holds at once
+  const int resident = cards.get([](int dev) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hash_threshold_vec<N, V>, kThreads, 0);
-    resident = sms * (per_sm < 1 ? 1 : per_sm);
-  }
+    return sms * (per_sm < 1 ? 1 : per_sm);
+  });
   const int64_t chunk = static_cast<int64_t>(kThreads) * kWords;
   int64_t grid = ((n >> 2) + chunk - 1) / chunk;
   if (grid > resident) grid = resident;

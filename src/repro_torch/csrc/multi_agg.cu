@@ -607,12 +607,15 @@ __global__ void __launch_bounds__(kThreads, 2) multi_agg_kernel(Params p) {
 
 template <bool TWO, int QG, int PM, bool TAIL>
 cudaError_t launch(const Params& p, int nblocks, int smem, cudaStream_t stream) {
-  static int allowed = 48 * 1024;  // the dynamic shared memory granted so far
-  if (smem > allowed) {
+  // the dynamic shared memory granted so far on each card, beyond the 48 KB
+  // every kernel may take (0: nothing granted)
+  static svc::PerDevice<int> granted;
+  int* allowed = granted.slot();
+  if (smem > 48 * 1024 && (allowed == nullptr || smem > *allowed)) {
     const cudaError_t err = cudaFuncSetAttribute(
         multi_agg_kernel<TWO, QG, PM, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    allowed = smem;
+    if (allowed != nullptr) *allowed = smem;
   }
   const dim3 grid(nblocks, (p.nq + p.chunk - 1) / p.chunk);
   multi_agg_kernel<TWO, QG, PM, TAIL><<<grid, kThreads, smem, stream>>>(p);

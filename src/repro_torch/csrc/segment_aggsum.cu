@@ -466,16 +466,14 @@ __global__ void __launch_bounds__(kThreads, 2) segment_sorted_kernel(const Param
 template <int NC>
 int launch(const int32_t* gid, const float* vals, int64_t rows, int64_t groups, int32_t* counts,
            float* out, int32_t* ws_int, double* ws_f64, int max_records, cudaStream_t stream) {
-  static int blocks_per_sm = 0;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  static svc::PerDevice<int> cards;  // blocks each card holds at once
+  const int resident = cards.get([](int dev) {
+    int sms = 0, blocks_per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, segment_sorted_kernel<NC>,
                                                   kThreads, 0);
-    if (blocks_per_sm < 1) blocks_per_sm = 1;
-  }
+    return sms * (blocks_per_sm < 1 ? 1 : blocks_per_sm);
+  });
   const int64_t chunk = static_cast<int64_t>(kThreads) * rows_per_thread<NC>();
   Params p;
   p.gid = gid;
@@ -491,7 +489,7 @@ int launch(const int32_t* gid, const float* vals, int64_t rows, int64_t groups, 
   p.chunks = (rows + chunk - 1) / chunk;
   p.vec = (reinterpret_cast<uintptr_t>(gid) & 15) == 0 &&
           (NC == 0 || (reinterpret_cast<uintptr_t>(vals) & 15) == 0);
-  int64_t grid = static_cast<int64_t>(sms) * blocks_per_sm;
+  int64_t grid = resident;
   if (grid > p.chunks) grid = p.chunks;
   if (grid > max_records / 2) grid = max_records / 2;
   segment_sorted_kernel<NC><<<static_cast<int>(grid), kThreads, 0, stream>>>(p);

@@ -5,7 +5,10 @@ kprof scopes, driven by one process over a list of devices (a
 ``launch.mesh.LocalMesh``).  Shard s lives on the mesh's s-th device along
 ``mesh_axis`` when that axis has ``n_shards`` devices, otherwise every
 shard lives on ``device``; the score combine is
-``kernels.fleet_score.fleet_scores_sharded`` (one launch on one card).
+``kernels.fleet_score.fleet_scores_sharded`` (one launch per shard on its
+card, or one launch over the stack when every shard lives on ``device``).
+A shard's bases, ingest partitions, samples and feature panel stay on its
+card: only the score panel crosses cards, gathered onto the first.
 
 SVC §7.5 observes that hashed sampling is deterministic and row-local, so
 sampled cleaning parallelizes trivially across data partitions — only the
@@ -143,6 +146,10 @@ class ShardedFleet:
             self.devices = list(mesh.axis_devices(mesh_axis))
         else:
             self.devices = [torch.device(device)] * self.n_shards
+        # fleet_scores_sharded's per-device branch: each shard's panel goes
+        # from the host to its own card
+        self._score_per_device = mesh is not None and self.n_shards > 1 and \
+            mesh.shape.get(mesh_axis, 1) == self.n_shards
         # one full view stack per shard: manager + cost model + health, all
         # reading the fleet's single injectable clock
         self.vms: List[ViewManager] = []
@@ -152,6 +159,7 @@ class ShardedFleet:
             vm.obs_attrs = {"shard": s}
             self.vms.append(vm)
             self.cost_models.append(CostModel(vm, clock=self.clock).attach())
+        self.devices = [vm.device for vm in self.vms]  # "cuda" as the card it named
         self.view_shard: Dict[str, int] = {}
         self.base_owner: Dict[str, int] = {}
         self._bases: Dict[str, object] = {}
@@ -238,8 +246,10 @@ class ShardedFleet:
         owner = self.base_owner.get(base)
         if owner is None:
             raise KeyError(f"base {base!r} has no registered view over it")
-        return self.plogs[base].offer(owner, inserts=inserts, deletes=deletes,
-                                      seq=seq, key=key)
+        dev = self.devices[owner]  # the partition queues on its shard's card
+        return self.plogs[base].offer(
+            owner, inserts=None if inserts is None else inserts.to(dev),
+            deletes=None if deletes is None else deletes.to(dev), seq=seq, key=key)
 
     def pending_rows(self, base: Optional[str] = None) -> int:
         logs = [self.plogs[base]] if base is not None else self.plogs.values()
@@ -344,9 +354,12 @@ class ShardedFleet:
                     feats[s, :len(names)] = self.cost_models[s].features(names)
             shard_rows = [len(shard_names.get(s, ())) for s
                           in range(self.n_shards)]
+            stacked = torch.from_numpy(feats)
+            if not self._score_per_device:
+                stacked = stacked.to(self.devices[0])
             scores = fleet_scores_sharded(
-                torch.from_numpy(feats).to(self.devices[0]), mesh=self.mesh,
-                axis=self.mesh_axis, shard_views=shard_rows).cpu().numpy()
+                stacked, mesh=self.mesh, axis=self.mesh_axis,
+                shard_views=shard_rows).cpu().numpy()
             assert scores.shape[2] == N_SCORES
         snapshot_s = clock() - t0
 

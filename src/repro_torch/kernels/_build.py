@@ -118,11 +118,49 @@ def function(name: str, argtypes: tuple):
 
 
 def launch(name: str, argtypes: tuple, *args) -> None:
-    """Call a C entry point; raise if it reports a CUDA error."""
+    """Call a C entry point on the current card; raise if it reports a CUDA error."""
     rc = function(name, argtypes)(*args)
     if rc != 0:
         msg = library().svc_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def launch_on(index: int, name: str, argtypes: tuple, *args) -> None:
+    """``launch`` on card ``index``, the card that holds the wrapper's
+    tensors, with that card's current stream appended as the entry point's
+    last argument.  The current card is switched only when it is another,
+    and switched back after; the first launch on each card checks that the
+    library's runtime sees the card PyTorch made current."""
+    prev = torch._C._cuda_getDevice()
+    if prev == index and index in _runtime_checked:
+        launch(name, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))
+        return
+    if prev != index:
+        torch._C._cuda_setDevice(index)
+    try:
+        if index not in _runtime_checked:
+            _check_runtime_device(index)
+        launch(name, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))
+    finally:
+        if prev != index:
+            torch._C._cuda_maybeExchangeDevice(prev)
+
+
+_runtime_checked: set = set()
+
+
+def _check_runtime_device(index: int) -> None:
+    """The library links its own (static) CUDA runtime; its kernels launch
+    on the CUDA context current in this thread, which PyTorch's runtime
+    sets.  Raise if the library's ``cudaGetDevice`` disagrees with
+    PyTorch's card."""
+    lib = library()
+    lib.svc_current_device.restype = ctypes.c_int
+    seen = lib.svc_current_device()
+    if seen != index:
+        raise RuntimeError(f"the kernel library's runtime is on device {seen}, "
+                           f"PyTorch's current device is {index}")
+    _runtime_checked.add(index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,24 +169,70 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def stream() -> int:
-    """The current device's current stream as a raw handle: the value of
-    ``torch.cuda.current_stream().cuda_stream`` without building a Stream
-    object, which costs more host time than a launch's ctypes call
-    (``tools/kernel_profile.py --only hash_threshold`` times both)."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+_visible = 0  # CUDA devices this process sees, read on the first check
+
+
+def cards() -> int:
+    """CUDA devices visible to this process (read once)."""
+    global _visible
+    if not _visible:
+        _visible = torch.cuda.device_count()
+    return _visible
+
+
+def index(device) -> int:
+    """The card index of ``device`` (a ``torch.device``, a string or an
+    int): ``torch.device("cuda")``, without an index, is the current card."""
+    if type(device) is int:
+        return device
+    if type(device) is not torch.device:
+        device = torch.device(device)
+    i = device.index
+    return torch._C._cuda_getDevice() if i is None else i
+
+
+def cuda_device(device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` → ``cuda:<current>``),
+    the form that keys the wrappers' per-card caches."""
+    if type(device) is not torch.device:
+        device = torch.device(device)
+    if device.index is None and device.type == "cuda":
+        return torch.device("cuda", torch._C._cuda_getDevice())
+    return device
+
+
+def stream(device=None) -> int:
+    """The current stream of ``device``'s card (the current card without
+    one) as a raw handle: the value of ``torch.cuda.current_stream(device)
+    .cuda_stream`` without building a Stream object, which costs more host
+    time than a launch's ctypes call (``tools/kernel_profile.py --only
+    hash_threshold`` times both)."""
+    if type(device) is not int:
+        device = torch._C._cuda_getDevice() if device is None else index(device)
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_cuda(device: torch.device) -> None:
-    """The kernels launch on the library's current device: card 0."""
+def check_cuda(device) -> int:
+    """Raise unless ``device`` is a CUDA device that this process sees;
+    return its card index (the current card for ``cuda`` without one)."""
+    if type(device) is not torch.device:
+        device = torch.device(device)
+    i = device.index
+    if i is not None and i < _visible and device.type == "cuda":
+        return i  # a card seen before: what every wrapper call takes
     if device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {device}")
-    if device.index not in (None, 0):
-        raise ValueError(f"kernels launch on cuda:0 only, got {device}")
+    if i is None:
+        i = torch._C._cuda_getDevice()
+    n = cards()
+    if not 0 <= i < n:
+        seen = f"{n} (cuda:0 to cuda:{n - 1})" if n else "none"
+        raise ValueError(f"{device} is not a visible CUDA device: this process sees {seen}")
+    return i
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device,

@@ -33,7 +33,8 @@ _workspace: dict = {}
 def _partials(device: torch.device, stream: int):
     """(ticket int32 (1,), partials float64 (3·blocks,), blocks) of the
     device and stream, zeroed when first made."""
-    key = (device.index or 0, stream)
+    device = B.cuda_device(device)
+    key = (device.index, stream)
     ws = _workspace.get(key)
     if ws is None:
         blocks = BLOCKS_PER_SM * B.sm_count(key[0])
@@ -66,12 +67,13 @@ def _launch(t_new: torch.Tensor, t_old: torch.Tensor, mask: torch.Tensor):
     if n == 0:
         return torch.zeros(3, dtype=torch.float32, device=dev).unbind()
     out = torch.empty(3, dtype=torch.float32, device=dev)  # the last block writes all three
-    stream = B.stream()
+    card = dev.index
+    stream = B.stream(card)
     ticket, partials, blocks = _partials(dev, stream)
     pn, po, pm = t_new.data_ptr(), t_old.data_ptr(), mask.data_ptr()
     vec = pn % 16 == 0 and po % 16 == 0 and pm % 4 == 0
-    B.launch("svc_corr_diff", _ARGS, pn, po, pm, n, partials.data_ptr(), ticket.data_ptr(),
-             blocks, vec, out.data_ptr(), stream)
+    B.launch_on(card, "svc_corr_diff", _ARGS, pn, po, pm, n, partials.data_ptr(),
+                ticket.data_ptr(), blocks, vec, out.data_ptr())
     corr_moments.launches += 1
     corr_moments.routes["vector" if vec else "scalar"] += 1
     return out.unbind()

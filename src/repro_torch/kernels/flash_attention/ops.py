@@ -191,6 +191,7 @@ def workspace(device: torch.device, n: int, kind: str = "partials") -> torch.Ten
     "partials" (bytes) or "counters" (int32).  Grown zeroed, at least
     doubling: the arrival counters must start at 0, and every launch
     leaves them so."""
+    device = B.cuda_device(device)
     key = (device, kind)
     ws = _workspace.get(key)
     if ws is None or ws.numel() < n:
@@ -263,12 +264,13 @@ def _launch(q, k, v, causal, pl, strides_vec, window=0, key_pos=None, qpos=0, ls
         if pl.counters:
             arrivals = workspace(q.device, pl.counters, "counters").data_ptr()
     vec = strides_vec and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
-    B.launch("svc_flash_attention", _ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             Bn, S, T, H, K, hd, int(causal), window, qpos, 1.0 / math.sqrt(hd),
-             _DTYPES[q.dtype], pl.rows_per_tile, pl.chunk, pl.nsplit, int(vec),
-             None if key_pos is None else key_pos.data_ptr(), part_ml, part_acc, arrivals,
-             B.ptr(lse), B.stream())
+    card = q.device.index
+    B.launch_on(card, "svc_flash_attention", _ARGS, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                Bn, S, T, H, K, hd, int(causal), window, qpos, 1.0 / math.sqrt(hd),
+                _DTYPES[q.dtype], pl.rows_per_tile, pl.chunk, pl.nsplit, int(vec),
+                None if key_pos is None else key_pos.data_ptr(), part_ml, part_acc, arrivals,
+                B.ptr(lse))
     flash_attention.launches += 1
     return out
 
@@ -493,13 +495,14 @@ def _launch_bwd(q, k, v, o, lse, dout, causal, window, key_pos, qpos, pl):
     delta = torch.empty(pl.scratch, dtype=torch.float32, device=q.device)
     part = (torch.empty(pl.workspace_bytes // 4, dtype=torch.float32, device=q.device)
             if pl.kv_splits > 1 else None)
-    B.launch("svc_flash_attention_bwd", _BWD_ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], Bn, S, T, H, K, hd, int(causal), window, qpos,
-             1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-             None if key_pos is None else key_pos.data_ptr(), pl.dq_rows, pl.dq_keys,
-             pl.kv_keys, pl.kv_rows, pl.kv_cols, pl.kv_splits, B.ptr(part), B.stream())
+    card = q.device.index
+    B.launch_on(card, "svc_flash_attention_bwd", _BWD_ARGS, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], Bn, S, T, H, K, hd, int(causal), window, qpos,
+                1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+                None if key_pos is None else key_pos.data_ptr(), pl.dq_rows, pl.dq_keys,
+                pl.kv_keys, pl.kv_rows, pl.kv_cols, pl.kv_splits, B.ptr(part))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -66,9 +66,10 @@ def sort_stale(stale_keys: torch.Tensor, stale_valid: torch.Tensor, G: int):
         sk = torch.empty((V, R), dtype=torch.int32, device=dev)
         perm = torch.empty((V, R), dtype=torch.int32, device=dev)
         bounds = torch.empty((V, tiles + 1), dtype=torch.int32, device=dev)
-        B.launch("svc_fleet_merge_sort", _SORT_ARGS, stale_keys.data_ptr(),
-                 stale_valid.data_ptr(), V, R, G, sk.data_ptr(), perm.data_ptr(),
-                 bounds.data_ptr(), B.stream())
+        card = dev.index
+        B.launch_on(card, "svc_fleet_merge_sort", _SORT_ARGS, stale_keys.data_ptr(),
+                    stale_valid.data_ptr(), V, R, G, sk.data_ptr(), perm.data_ptr(),
+                    bounds.data_ptr())
         return sk, perm, bounds
     masked = torch.where(stale_valid, stale_keys, torch.full_like(stale_keys, int(SENTINEL_KEY)))
     sk, perm = torch.sort(masked, dim=1, stable=True)
@@ -126,11 +127,12 @@ def _launch(stale_keys, stale_valid, stale_vals, ins_valid, ins_vals, del_valid,
     keys = torch.empty((V, R + G), dtype=torch.int32, device=dev)
     vals = torch.empty((V, R + G, A), dtype=torch.float32, device=dev)
     valid = torch.empty((V, R + G), dtype=torch.bool, device=dev)
-    B.launch("svc_fleet_merge", _ARGS, sk.data_ptr(), perm.data_ptr(), bounds.data_ptr(),
-             stale_valid.data_ptr(), stale_vals.data_ptr(), ins_valid.data_ptr(),
-             ins_vals.data_ptr(), B.ptr(del_valid), B.ptr(del_vals), V, R, G, A,
-             flags.data_ptr(), counts.data_ptr(), keys.data_ptr(), vals.data_ptr(),
-             valid.data_ptr(), B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_fleet_merge", _ARGS, sk.data_ptr(), perm.data_ptr(),
+                bounds.data_ptr(), stale_valid.data_ptr(), stale_vals.data_ptr(),
+                ins_valid.data_ptr(), ins_vals.data_ptr(), B.ptr(del_valid), B.ptr(del_vals), V, R,
+                G, A, flags.data_ptr(), counts.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+                valid.data_ptr())
     fleet_merge.launches += 1
     return keys, vals, valid
 

@@ -71,8 +71,9 @@ def _launch(panels, stride: int) -> torch.Tensor:
         return out
     chunks = max(1, -(-R // _ROWS_PER_BLOCK))
     partials = torch.empty((V, chunks, N_MOMENTS), dtype=torch.float64, device=dev)
-    B.launch("svc_fleet_moments", _ARGS, *[p.data_ptr() for p in panels], V, R, stride,
-             _ROWS_PER_BLOCK, partials.data_ptr(), out.data_ptr(), B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_fleet_moments", _ARGS, *[p.data_ptr() for p in panels], V, R,
+                stride, _ROWS_PER_BLOCK, partials.data_ptr(), out.data_ptr())
     fleet_moments.launches += 1
     return out
 

@@ -39,7 +39,8 @@ def _enqueue(features: torch.Tensor, V: int, dev: torch.device, counter) -> torc
     out = torch.empty((V, N_SCORES), dtype=torch.float32, device=dev)
     if V == 0:
         return out
-    B.launch("svc_fleet_score", _ARGS, features.data_ptr(), V, out.data_ptr(), B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_fleet_score", _ARGS, features.data_ptr(), V, out.data_ptr())
     counter.launches += 1
     return out
 
@@ -56,9 +57,9 @@ def fleet_scores_sharded(stacked: torch.Tensor, mesh=None, axis: str = "data",
     """(S, Vmax, N_FEATURES) f32 per-shard feature panels → (S, Vmax, N_SCORES).
 
     With a mesh (``launch.mesh.LocalMesh``) whose ``axis`` size equals S,
-    shard s is scored on the mesh's s-th device along ``axis`` (the kernels
-    launch on ``cuda:0`` only, as every wrapper's) and the panels are
-    gathered onto the first (a copy each, then one stack).
+    shard s is scored on the mesh's s-th device along ``axis`` (its slice
+    copied there from wherever the stack lies, on the host or a card) and
+    the panels are gathered onto the first (a copy each, then one stack).
     Otherwise the stack is scored where it lies: on the card, one launch
     over the (S·Vmax, F) rows.  The score is elementwise per view, so every
     branch is bit-equal to scoring shard by shard.
@@ -101,10 +102,15 @@ def _launch_sharded(stacked: torch.Tensor, dev: torch.device) -> torch.Tensor:
 
 
 def _per_device(stacked: torch.Tensor, devices) -> torch.Tensor:
-    """Shard s scored on ``devices[s]``, then gathered onto ``devices[0]``."""
+    """Shard s scored on ``devices[s]``, then gathered onto ``devices[0]``
+    in shard order.  Every shard's launch is enqueued on its card before
+    the first copy back; a host stack is pinned first, so that no slice's
+    copy to its card waits on the host."""
+    if stacked.device.type == "cpu" and any(d.type == "cuda" for d in devices):
+        stacked = stacked.pin_memory()
     parts = []
     for s, d in enumerate(devices):
-        x = stacked[s].to(d).contiguous()
+        x = stacked[s].to(d, non_blocking=True).contiguous()
         parts.append(fleet_score_ref(x) if d.type == "cpu"
                      else _enqueue(x, x.shape[0], d, fleet_scores_sharded))
     return torch.stack([p.to(devices[0]) for p in parts])

@@ -31,9 +31,7 @@ _overflow = {}
 def overflow_counter(device: torch.device) -> torch.Tensor:
     """The (1,) int64 count of kept rows that overflowed a block's table,
     summed over every launch on ``device`` since it was last zeroed."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = B.cuda_device(device)
     if device not in _overflow:
         _overflow[device] = torch.zeros(1, dtype=torch.int64, device=device)
     return _overflow[device]
@@ -75,10 +73,10 @@ def _launch(gid, vals, valid, m, seed, num_groups, pin_mask):
     dev = gid.device
     R, C = vals.shape
     out = torch.zeros((num_groups, 1 + C), dtype=torch.float32, device=dev)
-    B.launch("svc_fused_clean", _ARGS, gid.data_ptr(), valid.data_ptr(),
-             B.ptr(pin_mask), vals.data_ptr(), R, C, num_groups, seed_mix(seed),
-             float(np.float32(m)), out.data_ptr(), overflow_counter(dev).data_ptr(),
-             B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_fused_clean", _ARGS, gid.data_ptr(), valid.data_ptr(),
+                B.ptr(pin_mask), vals.data_ptr(), R, C, num_groups, seed_mix(seed),
+                float(np.float32(m)), out.data_ptr(), overflow_counter(dev).data_ptr())
     fused_clean_groupby.launches += 1
     return out[:, 0], out[:, 1:]
 
@@ -128,9 +126,10 @@ def _launch_fleet(gid, vals, valid, ms, seeds, num_groups):
                          device=dev)
     thresh = torch.tensor(np.array(ms, dtype=np.float32), device=dev)
     out = torch.zeros((V, num_groups, 1 + C), dtype=torch.float32, device=dev)
-    B.launch("svc_fused_clean_fleet", _FLEET_ARGS, gid.data_ptr(), valid.data_ptr(),
-             vals.data_ptr(), V, R, C, num_groups, mixes.data_ptr(), thresh.data_ptr(),
-             out.data_ptr(), overflow_counter(dev).data_ptr(), B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_fused_clean_fleet", _FLEET_ARGS, gid.data_ptr(), valid.data_ptr(),
+                vals.data_ptr(), V, R, C, num_groups, mixes.data_ptr(), thresh.data_ptr(),
+                out.data_ptr(), overflow_counter(dev).data_ptr())
     fused_clean_groupby_fleet.launches += 1
     return out[:, :, 0], out[:, :, 1:]
 

@@ -58,8 +58,9 @@ def _launch(cols, m, seed, valid, n, dev):
     vptr = B.ptr(valid)
     vec = all(p % 16 == 0 for p in ptrs) and (vptr or 0) % 4 == 0
     # ctypes rounds m to the nearest float32, as np.float32(m) does
-    B.launch("svc_hash_threshold", _ARGS, *ptrs, *(None,) * (MAX_COLS - len(cols)), len(cols),
-             n, seed_mix(seed), float(m), vptr, out.data_ptr(), vec, B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_hash_threshold", _ARGS, *ptrs, *(None,) * (MAX_COLS - len(cols)),
+                len(cols), n, seed_mix(seed), float(m), vptr, out.data_ptr(), vec)
     hash_threshold.launches += 1
     hash_threshold.routes["vector" if vec else "scalar"] += 1
     return out

@@ -21,7 +21,6 @@ dispatch through ``obs.kprof.profiled`` as ``"multi_agg"``.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -54,11 +53,6 @@ def query_chunk(Q: int) -> int:
     return WARPS if Q <= WARPS else 2 * WARPS
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def grid_blocks(R: int, sms: int) -> int:
     """Blocks along the rows: one per tile, at most two an SM (persistent)."""
     return max(1, min(-(-R // TILE), BLOCKS_PER_SM * sms))
@@ -71,6 +65,7 @@ def workspace(device: torch.device, n: int, kind: str) -> torch.Tensor:
     """The device's persistent buffer of ``kind``, at least ``n`` long:
     "partials" (float64) or "tickets" (int32).  Grown zeroed, at least
     doubling: the tickets must start at 0, and every launch leaves them so."""
+    device = B.cuda_device(device)
     key = (device, kind)
     ws = _workspace.get(key)
     if ws is None or ws.numel() < n:
@@ -119,14 +114,15 @@ def _launch(wrapper, new, old, sel, meta, sel_idx, P, Q) -> torch.Tensor:
     out = torch.empty((N_MOMENTS, Q), dtype=torch.float32, device=dev)
     if Q == 0:
         return out
-    nblocks = grid_blocks(R, _sm_count(dev.index or 0))
+    card = dev.index
+    nblocks = grid_blocks(R, B.sm_count(card))
     groups = -(-nblocks // GROUP)
     partials = workspace(dev, (nblocks + groups) * N_MOMENTS * Q, "partials")
     tickets = workspace(dev, -(-Q // query_chunk(Q)) * (groups + 1), "tickets")
     old_ptrs = [B.ptr(t) for t in old] if old is not None else [None] * 4
-    B.launch("svc_multi_agg", _ARGS, *[t.data_ptr() for t in new], *old_ptrs, R, C,
-             idx.data_ptr(), meta.data_ptr(), P, Q, nblocks, partials.data_ptr(),
-             tickets.data_ptr(), out.data_ptr(), B.stream())
+    B.launch_on(card, "svc_multi_agg", _ARGS, *[t.data_ptr() for t in new], *old_ptrs, R, C,
+                idx.data_ptr(), meta.data_ptr(), P, Q, nblocks, partials.data_ptr(),
+                tickets.data_ptr(), out.data_ptr())
     wrapper.launches += 1
     return out
 

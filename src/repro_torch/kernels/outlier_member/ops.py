@@ -75,10 +75,13 @@ def digest_table(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _launch_digest(key_cols) -> torch.Tensor:
     K = key_cols[0].shape[0]
-    out = torch.empty(K, dtype=torch.int64, device=key_cols[0].device)
+    dev = key_cols[0].device
+    out = torch.empty(K, dtype=torch.int64, device=dev)
     if K:
-        B.launch("svc_outlier_digest", _DIGEST_ARGS, *_col_ptrs(key_cols), len(key_cols), K,
-                 seed_mix(DIGEST_SEED_HI), seed_mix(DIGEST_SEED_LO), out.data_ptr(), B.stream())
+        card = dev.index
+        B.launch_on(card, "svc_outlier_digest", _DIGEST_ARGS, *_col_ptrs(key_cols),
+                    len(key_cols), K, seed_mix(DIGEST_SEED_HI), seed_mix(DIGEST_SEED_LO),
+                    out.data_ptr())
         digest_table.launches += 1
     return torch.sort(out).values
 
@@ -112,10 +115,11 @@ def _launch_pinned(cols, valid, m, seed, table):
     R = valid.shape[0]
     out_valid = torch.empty(R, dtype=torch.bool, device=dev)
     out_flag = torch.empty(R, dtype=torch.int8, device=dev)
-    B.launch("svc_outlier_pinned", _PINNED_ARGS, *_col_ptrs(cols), len(cols), valid.data_ptr(),
-             R, table.data_ptr(), table.shape[0], seed_mix(seed), seed_mix(DIGEST_SEED_HI),
-             seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out_valid.data_ptr(),
-             out_flag.data_ptr(), B.stream())
+    card = dev.index
+    B.launch_on(card, "svc_outlier_pinned", _PINNED_ARGS, *_col_ptrs(cols), len(cols),
+                valid.data_ptr(), R, table.data_ptr(), table.shape[0], seed_mix(seed),
+                seed_mix(DIGEST_SEED_HI), seed_mix(DIGEST_SEED_LO), float(np.float32(m)),
+                out_valid.data_ptr(), out_flag.data_ptr())
     pinned_hash.launches += 1
     return out_valid, out_flag
 
@@ -148,10 +152,12 @@ def outlier_codes(
 
 def _launch_codes(cols, table, m, seed):
     R = cols[0].shape[0]
-    out = torch.empty(R, dtype=torch.int32, device=cols[0].device)
-    B.launch("svc_outlier_member", _CODES_ARGS, *_col_ptrs(cols), len(cols), R,
-             table.data_ptr(), table.shape[0], seed_mix(seed), seed_mix(DIGEST_SEED_HI),
-             seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out.data_ptr(), B.stream())
+    dev = cols[0].device
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    card = dev.index
+    B.launch_on(card, "svc_outlier_member", _CODES_ARGS, *_col_ptrs(cols), len(cols), R,
+                table.data_ptr(), table.shape[0], seed_mix(seed), seed_mix(DIGEST_SEED_HI),
+                seed_mix(DIGEST_SEED_LO), float(np.float32(m)), out.data_ptr())
     outlier_codes.launches += 1
     return out
 

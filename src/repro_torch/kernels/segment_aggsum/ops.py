@@ -38,9 +38,10 @@ _workspace: dict = {}
 
 def _records(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The device's persistent (ticket + keys + counts int32, sums float64)."""
+    device = B.cuda_device(device)
     ws = _workspace.get(device)
     if ws is None:
-        n = 2 * BLOCKS_PER_SM * B.sm_count(device.index or 0)
+        n = 2 * BLOCKS_PER_SM * B.sm_count(device.index)
         ws = _workspace[device] = (torch.zeros(1 + 2 * n, dtype=torch.int32, device=device),
                                    torch.zeros(n * MAX_COLS, dtype=torch.float64, device=device),
                                    n)
@@ -70,9 +71,10 @@ def _sorted(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
     for c0 in range(0, max(C, 1), MAX_COLS):
         part = vals if C <= MAX_COLS else vals[:, c0:c0 + MAX_COLS].contiguous()
         out = torch.empty((num_groups, part.shape[1]), dtype=torch.float32, device=dev)
-        B.launch("svc_segment_sorted", _SORTED_ARGS, gid.data_ptr(), part.data_ptr(), R,
-                 part.shape[1], num_groups, B.ptr(counts if c0 == 0 else None), out.data_ptr(),
-                 ints.data_ptr(), f64.data_ptr(), n, B.stream())
+        card = dev.index
+        B.launch_on(card, "svc_segment_sorted", _SORTED_ARGS, gid.data_ptr(), part.data_ptr(),
+                    R, part.shape[1], num_groups, B.ptr(counts if c0 == 0 else None),
+                    out.data_ptr(), ints.data_ptr(), f64.data_ptr(), n)
         segment_groupby.launches += 1
         parts.append(out)
     return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
@@ -133,8 +135,10 @@ def _launch_sum(gid, vals, num_groups, indices_are_sorted):
     R, C = vals.shape
     out = torch.zeros((num_groups, C), dtype=torch.float32, device=gid.device)
     if R * C > 0 and num_groups > 0:
-        B.launch("svc_segment_sum", _ARGS, gid.data_ptr(), vals.data_ptr(), R, C,
-                 num_groups, out.data_ptr(), B.stream())
+        dev = gid.device
+        card = dev.index
+        B.launch_on(card, "svc_segment_sum", _ARGS, gid.data_ptr(), vals.data_ptr(), R, C,
+                    num_groups, out.data_ptr())
         segment_sum.launches += 1
     return out
 

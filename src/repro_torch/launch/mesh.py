@@ -12,10 +12,14 @@ results on the first of those devices (an all-gather is a copy there and a
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import math
 from typing import Dict, List, Mapping, Sequence
 
 import torch
+
+from repro_torch.kernels._build import cuda_device
 
 
 class LocalMesh:
@@ -26,7 +30,10 @@ class LocalMesh:
         self.shape: Dict[str, int] = {str(a): int(n) for a, n in axes.items()}
         if any(n < 1 for n in self.shape.values()):
             raise ValueError(f"mesh axes must be ≥ 1, got {self.shape}")
-        self.devices: List[torch.device] = [torch.device(d) for d in devices]
+        # "cuda" without an index is the card current now
+        self.devices: List[torch.device] = [
+            cuda_device(d) if torch.device(d).type == "cuda" and torch.cuda.is_available()
+            else torch.device(d) for d in devices]
         if len(self.devices) != math.prod(self.shape.values()):
             raise ValueError(f"{len(self.devices)} devices for a mesh of shape {self.shape}")
 
@@ -56,6 +63,31 @@ def make_local_mesh(data: int = 1, model: int = 1, device="cuda") -> LocalMesh:
     else:
         raise ValueError(f"unsupported device {device!r}")
     return LocalMesh(devices, {"data": data, "model": model})
+
+
+def device_arg(text: str) -> torch.device:
+    """The launchers' ``--device``: ``cpu``, ``cuda`` (the current card) or
+    ``cuda:N`` (card N)."""
+    try:
+        dev = torch.device(text)
+    except RuntimeError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+    if dev.type not in ("cpu", "cuda") or (dev.type == "cpu" and dev.index is not None):
+        raise argparse.ArgumentTypeError(f"expected cpu, cuda or cuda:N, got {text!r}")
+    return dev
+
+
+def on_device(device) -> contextlib.AbstractContextManager:
+    """The context a launcher runs in: card N current for ``cuda:N``, so that
+    whatever lands on the current card lands there; nothing otherwise.
+    Raises for a card this process does not see."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is None:
+        return contextlib.nullcontext()
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if dev.index >= have:
+        raise RuntimeError(f"{dev} is not a visible CUDA device: this process sees {have}")
+    return torch.cuda.device(dev.index)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:

@@ -7,8 +7,8 @@
 The port of ``repro.launch.serve`` for every family (``--arch
 granite-moe-3b-a800m``, ``qwen2-vl-72b``, ``recurrentgemma-9b``,
 ``xlstm-1.3b``, ``seamless-m4t-large-v2``, …): the same flags, plus
-``--device`` (the card unless the caller asks for the CPU), and the same
-returned dict.
+``--device`` (the card unless the caller asks for the CPU; ``cuda:N`` runs
+everything on card N), and the same returned dict.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch.mesh import device_arg, on_device
 from repro_torch.models import get_model
 from repro_torch.serving import Request, ServeEngine
 
@@ -33,9 +34,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--device", default="cuda", type=device_arg,
+                    help="cpu, cuda (the current card) or cuda:N")
     args = ap.parse_args(argv)
+    with on_device(args.device):
+        return _serve(args)
 
+
+def _serve(args) -> dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = get_model(cfg, device=args.device)
     params = model.init(args.seed)
@@ -49,7 +55,7 @@ def main(argv=None) -> dict:
         engine.submit(Request(rid=rid, prompt=prompt, max_new=args.max_new))
     done = engine.run()
     if model.device.type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(model.device)
     wall = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     lat = [r.t_done - r.t_submit for r in done if r.t_done]

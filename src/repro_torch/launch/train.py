@@ -11,7 +11,8 @@ default; the CPU when asked:
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \\
         --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt /tmp/ckpt
 
-The same flags as JAX's, plus ``--device``, and the same returned dict.
+The same flags as JAX's, plus ``--device`` (``cuda:N`` runs everything on
+card N), and the same returned dict.
 ``--fail-at N`` simulates a host failure at step N: the monitor declares
 it, the elastic planner shrinks the data axis, and training resumes from
 the last committed checkpoint.  SVC runs at its cadences: ingest every
@@ -34,6 +35,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import PipelineConfig, PipelineStats, TokenPipeline
 from repro_torch.distributed.ft import FleetMonitor, plan_elastic_mesh
+from repro_torch.launch.mesh import device_arg, on_device
 from repro_torch.models import get_model
 from repro_torch.training import AdamWConfig, init_train_state, make_train_step
 
@@ -78,13 +80,18 @@ def parser() -> argparse.ArgumentParser:
                     help="simulate a host failure at this step")
     ap.add_argument("--hosts", type=int, default=4, help="simulated fleet size")
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--device", default="cuda", type=device_arg,
+                    help="cpu, cuda (the current card) or cuda:N")
     return ap
 
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
+    with on_device(args.device):
+        return _train(args)
 
+
+def _train(args) -> dict:
     cfg, model, pipe, stats, step_fn = build(args)
     state = init_train_state(model, args.seed)
     start_step = 0

@@ -7,16 +7,18 @@ the JAX package's op name where it has one.  With no profiler installed
 installed (``set_profiler(KernelProfiler())``) each dispatch records:
 
   * **compile vs execute time** — the first call per ``(op, shape key)``
-    (each tensor's shape and dtype, inside tuples and lists too) is
-    charged to ``compile_s``, repeat calls to ``execute_s``, as in the JAX
-    package.  The port compiles no kernel per shape, but the first launch
-    of a process builds ``libsvc_kernels.so`` (``kernels/_build.py``:
-    ``nvcc`` on every ``csrc/*.cu``), and that build lands in the first
-    op's ``compile_s``: it is the port's compile.  Every CUDA device that
-    holds a tensor of the output is synchronized before the clock stops
-    (where JAX calls ``block_until_ready``), so a profiled dispatch is
-    timed to completion at the cost of serializing the stream — the cost
-    of opting in.  A CPU output needs no synchronize.
+    (each tensor's shape and dtype, and a CUDA tensor's card, inside
+    tuples and lists too) is charged to ``compile_s``, repeat calls to
+    ``execute_s``, as in the JAX package.  The port compiles no kernel per
+    shape, but the first launch of a process builds ``libsvc_kernels.so``
+    (``kernels/_build.py``: ``nvcc`` on every ``csrc/*.cu``), and that
+    build lands in the first op's ``compile_s``: it is the port's compile.
+    Every CUDA device that holds a tensor of the output (the card that ran
+    the op; for the sharded score the first card, whose gather waits on
+    every shard's launch) is synchronized before the clock stops (where
+    JAX calls ``block_until_ready``), so a profiled dispatch is timed to
+    completion at the cost of serializing the stream — the cost of opting
+    in.  A CPU output needs no synchronize.
   * **dispatch counts** and **fallback takes** — ``fallback`` means the
     wrapper took its plain PyTorch version (``ref.py``), which it does only
     for CPU tensors; a dispatch on the card never sets it.
@@ -133,7 +135,11 @@ class KernelProfiler:
                 return ("seq", tuple(one(x) for x in a))
             shape = getattr(a, "shape", None)
             if shape is not None:
-                return ("arr", tuple(shape), str(getattr(a, "dtype", "")))
+                key = ("arr", tuple(shape), str(getattr(a, "dtype", "")))
+                # a CUDA tensor's card too: the first launch on each card
+                # loads the kernel there
+                dev = getattr(a, "device", None)
+                return key + (str(dev),) if getattr(dev, "type", None) == "cuda" else key
             return ("val", a if isinstance(a, (int, float, str, bool, type(None)))
                     else type(a).__name__)
 

@@ -149,6 +149,10 @@ class CostModel:
     def observe_traffic(self, name: str, n_queries: int) -> None:
         self._stat(name).traffic += float(n_queries)
 
+    def observe_ingest(self, base: str, n_rows: int) -> None:
+        """Drift rides ViewManager's own counters; nothing to do here (the
+        hook exists so subclasses can rate-model ingest streams)."""
+
     def decay_traffic(self, factor: float) -> None:
         for st in self.stats.values():
             st.traffic *= factor

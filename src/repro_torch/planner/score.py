@@ -13,7 +13,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.fleet_score import CORR_WINS, REC_M, fleet_scores
+from repro_torch.kernels.fleet_score import (
+    A_CLEAN,
+    A_MAINTAIN,
+    A_RETUNE,
+    A_SKIP,
+    CORR_WINS,
+    REC_M,
+    fleet_scores,
+)
 from repro_torch.planner.costs import CostModel
 
 
@@ -24,6 +32,13 @@ class FleetScores:
     names: List[str]
     features: np.ndarray  # (V, N_FEATURES) f32, the scorer's exact input
     scores: np.ndarray    # (V, N_SCORES) f32
+
+    def score(self, name: str, action: str) -> float:
+        """View ``name``'s score for ``action``: skip, clean, maintain or retune."""
+        i = self.names.index(name)
+        col = {"skip": A_SKIP, "clean": A_CLEAN, "maintain": A_MAINTAIN,
+               "retune": A_RETUNE}[action]
+        return float(self.scores[i, col])
 
     def corr_wins(self) -> Dict[str, bool]:
         """Per-view §5.2.2 estimator flip (CORR while ht_corr ≤ ht_aqp)."""

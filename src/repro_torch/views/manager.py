@@ -74,6 +74,7 @@ from repro_torch.core.outliers import (
     propagate_outlier_keys,
     update_outlier_index,
 )
+from repro_torch.kernels._build import cuda_device
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.registry import MetricsRegistry, counter_attr
 from repro_torch.query import (
@@ -158,6 +159,8 @@ class ViewManager:
                 f"ViewManager(device={str(device)!r}): no CUDA device is available; "
                 "pass device='cpu' to run on the CPU"
             )
+        # "cuda" is the card current now: the manager's tensors stay there
+        self.device = cuda_device(self.device)
         # every wall time of the manager and the planner reads THIS clock
         # (tests inject a fake); each closing read follows a device sync
         self.clock: Callable[[], float] = clock or time.perf_counter
@@ -352,6 +355,8 @@ class ViewManager:
             if (mv.outlier_index is not None and mv.outlier_index.base == base
                     and inserts is not None):
                 mv.outlier_offers.append(inserts)
+        if self.cost_model is not None and n_rows:
+            self.cost_model.observe_ingest(base, n_rows)
 
     def _pending_from(self, lo: int) -> DeltaSet:
         """Segments [lo:] merged per base (memoized per refresh window)."""

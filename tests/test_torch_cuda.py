@@ -45,8 +45,18 @@ backward, for every mask mode, K = 1 and K = H and head dims
 ragged key and query counts, grouped heads and a wrapped ring; the four
 training shapes on that route; two calls bit-equal; the forward's
 log-sum-exp within 1e-5 of the plain one, and written only by the
-training forward.
+training forward.  Several cards (``-k "card or mesh"``): every wrapper
+on ``torch.device("cuda")`` equal to ``cuda:0`` (integer and boolean
+outputs exact, floats within 1e-5 of the largest magnitude, 1e-4 for the
+attention), the library's runtime on the card PyTorch made current, the
+sharded fleet over ``[cuda:0] * 2`` equal to the stacked fleet; and, with
+two or more cards (else skipped, saying how many were seen), every
+wrapper on the last card against its plain version, the fleet and both
+sharded group-bys one shard a card against the same on ``cuda:0`` (plan
+and counts exact, sums within 1e-5), and both launchers on the last card.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -1712,6 +1722,244 @@ def test_sharded_fleet_epoch_on_the_card_matches_the_cpu(dev):
     for i in range(4):
         a, b = card.query(f"v{i}", q), cpu.query(f"v{i}", q)
         np.testing.assert_allclose(float(a.value), float(b.value), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Several cards: every wrapper on the card that holds its tensors
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def last_card():
+    """The last of two or more visible cards; skips with the count seen."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices, {n} visible")
+    return torch.device("cuda", n - 1)
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _leaves(y)]
+
+
+def _hold_outputs(name, got, want, device):
+    """Every output of ``got`` on ``device``; integer and boolean outputs
+    equal to ``want``'s, float ones within 1e-5 of the largest magnitude
+    (1e-4 for the attention: f32 sums in another order)."""
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want), name
+    for a, b in zip(got, want):
+        assert a.device == device, (name, a.device)
+        a, b = a.cpu(), b.cpu()
+        if not b.is_floating_point():
+            assert torch.equal(a, b), name
+            continue
+        if b.numel() == 0:
+            continue
+        tol = (1e-4 if name.startswith("flash") else 1e-5) * max(1.0, float(b.abs().max()))
+        assert float((a.double() - b.double()).abs().max()) <= tol, name
+
+
+def test_every_wrapper_on_cuda_without_an_index_is_cuda_0(dev):
+    """Tensors made on ``torch.device("cuda")`` launch on the current card
+    (card 0) and equal the same call on ``cuda:0``: the per-card caches key
+    both as cuda:0."""
+    from torch_wrapper_calls import wrapper_calls
+
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_clean.ops import overflow_counter
+
+    assert torch.cuda.current_device() == 0
+    cuda0 = torch.device("cuda", 0)
+    bare, zero = wrapper_calls(torch.device("cuda")), wrapper_calls(cuda0)
+    for name in bare:
+        before = kernels.launch_counts()[name]
+        got = bare[name]()
+        assert kernels.launch_counts()[name] > before, name
+        _hold_outputs(name, got, zero[name](), cuda0)
+    assert overflow_counter(torch.device("cuda")) is overflow_counter(cuda0)
+    assert _build.check_cuda(torch.device("cuda")) == 0
+    assert _build.stream(torch.device("cuda")) == torch.cuda.current_stream(0).cuda_stream
+    assert 0 in _build._runtime_checked
+    with pytest.raises(ValueError, match="not a visible CUDA device"):
+        _build.check_cuda(torch.device("cuda", torch.cuda.device_count()))
+
+
+def test_the_librarys_runtime_follows_the_current_card(dev):
+    """The library's own CUDA runtime reports the card PyTorch made
+    current, on every visible card."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    lib.svc_current_device.restype = ctypes.c_int
+    for i in range(torch.cuda.device_count()):
+        with torch.cuda.device(i):
+            assert lib.svc_current_device() == i
+    assert lib.svc_current_device() == torch.cuda.current_device()
+
+
+def test_sharded_fleet_over_a_mesh_of_the_card_equals_the_stacked_fleet(dev):
+    """ShardedFleet over LocalMesh([cuda:0] * 2): each shard's panel scored
+    in a launch of its own (the per-device branch), the plan and every
+    answer equal to the same fleet without a mesh, whose score combine is
+    one launch over the stack."""
+    from repro_torch import kernels
+    from repro_torch.core import Query
+    from repro_torch.launch.mesh import LocalMesh
+
+    mesh = LocalMesh([torch.device("cuda", 0)] * 2, {"data": 2})
+    plain, meshed = _fleet_on_card("cuda"), _fleet_on_card("cuda", mesh=mesh)
+    assert meshed.devices == [torch.device("cuda", 0)] * 2
+    kernels.reset_launches()
+    got = meshed.epoch_step()
+    assert kernels.launch_counts()["fleet_score_sharded"] == 2
+    want = plain.epoch_step()
+    assert [(a.view, a.action, a.shard, a.score) for a in got.actions] == \
+        [(a.view, a.action, a.shard, a.score) for a in want.actions]
+    q = Query("sum", "totalBytes")
+    for i in range(4):
+        assert float(meshed.query(f"v{i}", q).value) == float(plain.query(f"v{i}", q).value)
+
+
+def _fleet_on_card(device, mesh=None, n_views=4):
+    from repro_torch.core import ViewDef
+    from repro_torch.distributed import ShardedFleet
+    from repro_torch.relational.plan import GroupByNode, Scan
+    from repro_torch.relational.relation import from_columns
+
+    fleet = ShardedFleet(n_shards=2 if mesh is None else len(mesh.devices), budget_s=10.0,
+                         clock=lambda: 0.0, heartbeat_timeout_s=1e9, device=device, mesh=mesh)
+    rng = np.random.default_rng(5)
+    for i in range(n_views):
+        n = 20_000
+        fleet.register_base(f"Log{i}", from_columns(
+            {"sessionId": np.arange(n, dtype=np.int32),
+             "videoId": rng.integers(0, 3000, n).astype(np.int32),
+             "bytes": rng.exponential(10.0, n).astype(np.float32)},
+            pk=["sessionId"], capacity=2 * n, device="cpu"))
+        plan = GroupByNode(child=Scan(f"Log{i}", pk=("sessionId",)), keys=("videoId",),
+                           aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
+                           num_groups=6000)
+        fleet.register_view(ViewDef(f"v{i}", plan), delta_bases=(f"Log{i}",), m=0.25,
+                            seed=i, delta_group_capacity=6000)
+    for cm in fleet.cost_models:
+        cm.pin_costs(0.05, 0.25)
+    for i in range(n_views):
+        fleet.ingest(f"Log{i}", inserts=from_columns(
+            {"sessionId": np.arange(10**6, 10**6 + 5000, dtype=np.int32),
+             "videoId": rng.integers(0, 3000, 5000).astype(np.int32),
+             "bytes": rng.exponential(10.0, 5000).astype(np.float32)},
+            pk=["sessionId"], device="cpu"), seq=0)
+    return fleet
+
+
+def test_every_wrapper_on_the_last_card_matches_its_plain_version(last_card):
+    """Each wrapper of ``torch_wrapper_calls`` on tensors of the last card
+    launches there, counted once a call, and equals its plain version."""
+    from torch_wrapper_calls import wrapper_calls
+
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.obs.kprof import KernelProfiler
+
+    calls, plain = wrapper_calls(last_card), wrapper_calls("cpu")
+    ops = kernels.op_names()
+    try:
+        for name, call in calls.items():
+            call()
+            prof = kernels.set_profiler(KernelProfiler())
+            before = kernels.launch_counts()[name]
+            got = call()
+            assert kernels.launch_counts()[name] > before, name
+            assert prof.summary()[ops[name]]["fallbacks"] == 0
+            kernels.set_profiler(None)
+            _hold_outputs(name, got, plain[name](), last_card)
+            assert torch.cuda.current_device() == 0  # switched back after the launch
+    finally:
+        kernels.set_profiler(None)
+    assert last_card.index in _build._runtime_checked
+
+
+def test_sharded_fleet_across_cards_matches_the_flat_twin(last_card):
+    """One shard a card (up to four): every shard's bases and samples on
+    its card, one fleet_score launch per shard, and the plan and answers
+    of the fleet with every shard on cuda:0."""
+    from repro_torch import kernels
+    from repro_torch.core import Query
+    from repro_torch.launch.mesh import make_local_mesh
+
+    S = min(4, torch.cuda.device_count())
+    mesh = make_local_mesh(data=S)
+    spread, flat = _fleet_on_card("cuda", mesh=mesh), _fleet_on_card(
+        "cuda", mesh=type(mesh)([torch.device("cuda", 0)] * S, {"data": S}))
+    for s, vm in enumerate(spread.vms):
+        for rel in list(vm.base.values()) + [mv.clean_sample for mv in vm.views.values()]:
+            assert rel.valid.device == torch.device("cuda", s)
+    kernels.reset_launches()
+    got = spread.epoch_step()
+    assert kernels.launch_counts()["fleet_score_sharded"] == S
+    want = flat.epoch_step()
+    assert [(a.view, a.action, a.shard, a.score) for a in got.actions] == \
+        [(a.view, a.action, a.shard, a.score) for a in want.actions]
+    assert spread.pending_rows() == flat.pending_rows() == 0
+    q = Query("sum", "totalBytes")
+    for i in range(4):
+        a, b = spread.query(f"v{i}", q), flat.query(f"v{i}", q)
+        np.testing.assert_allclose(float(a.value), float(b.value), rtol=1e-5)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_sharded_delta_groupbys_across_cards_match_one_card(last_card, fused):
+    """Both sharded group-bys with one shard a card against the same calls
+    over shards of cuda:0: counts equal, sums within rtol=1e-5, atol=1e-4."""
+    from repro_torch.core import distributed_svc as svc
+    from repro_torch.launch.mesh import LocalMesh, make_local_mesh
+
+    S = min(4, torch.cuda.device_count())
+    G, R, m, seed = 4096, S * 65_536, 0.3, 7
+    keys, valid, vals = _sharded_delta(G, R)
+    make = svc.make_sharded_fused_delta_groupby if fused else svc.make_sharded_delta_groupby
+    args = (torch.from_numpy(keys).to(dev := torch.device("cuda", 0)),
+            torch.from_numpy(valid).to(dev), {"bytes": torch.from_numpy(vals).to(dev)})
+    got = make(make_local_mesh(data=S), "data", G, m, seed, ["bytes"])(*args)
+    want = make(LocalMesh([dev] * S, {"data": S}), "data", G, m, seed, ["bytes"])(*args)
+    assert got["count"].device == dev
+    assert torch.equal(got["count"], want["count"])
+    np.testing.assert_allclose(got["bytes"].cpu().numpy(), want["bytes"].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_the_serve_launcher_runs_on_the_last_card(last_card):
+    from repro_torch.launch.serve import main
+
+    """``--device cuda:N``: the model, its cache and every launch on card N;
+    card 0 gains nothing, and is current again after."""
+    torch.cuda.reset_peak_memory_stats(last_card)
+    on_0 = torch.cuda.memory_allocated(0)
+    out = main(["--smoke", "--device", str(last_card), "--requests", "4", "--max-new", "4"])
+    assert out["completed"] == 4 and torch.cuda.current_device() == 0
+    assert torch.cuda.max_memory_allocated(last_card) > 0
+    assert torch.cuda.memory_allocated(0) == on_0
+
+
+def test_the_train_launcher_runs_on_the_last_card(last_card):
+    """``--device cuda:N`` trains on card N: the flash forward and backward
+    launch there, card 0 gains nothing, and card 0 is current again after."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+
+    on_0 = torch.cuda.memory_allocated(0)
+    kernels.reset_launches()
+    out = train.main(["--arch", "gemma-2b", "--smoke", "--device", str(last_card), "--steps",
+                      "3", "--batch", "2", "--seq", "64", "--svc-every", "2"])
+    launches = kernels.launch_counts()
+    assert out["steps"] == 3 and np.isfinite(out["last_loss"])
+    assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
+    assert torch.cuda.current_device() == 0 and torch.cuda.memory_allocated(0) == on_0
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Host enqueue of two versions of a kernel wrapper, in turns, in one process.
 
-Loads another checkout's ``kernels/<name>/ops.py`` (``--parent``, e.g. a
-``git archive`` of the parent commit unpacked into the git-ignored
-``.trees/parent``) as a module of its own: its wrapper's code is that
-checkout's, and every name it imports resolves to this checkout's
-``repro_torch`` (the same ``_build`` library, plain versions and hashing).
-So the two wrappers differ only in their own Python, and launch the same
-kernel of the same library.  Both run on the same inputs: ``hash_threshold``
+Loads another checkout's ``kernels/<name>/ops.py`` and ``kernels/_build.py``
+(``--parent``, e.g. a ``git archive`` of the parent commit unpacked into
+the git-ignored ``.trees/parent``) as modules of their own: the wrapper's
+code, its device handling and its kernel library (built from that
+checkout's ``csrc/`` into its own ``build/``) are that checkout's, and
+every other name it imports resolves to this checkout's ``repro_torch``
+(plain versions, hashing, the profiler hook).  So the two versions differ
+in the wrapper's Python, ``_build``'s and the C launcher's host code, and
+run the same kernels.  Both libraries build first, in parallel.  Both run
+on the same inputs: ``hash_threshold``
 over the 1,500,000-row key column of visitView's view (137,800 valid keys,
 as ``tools/kernel_profile.py`` builds it) and ``fleet_scores`` on a (16, 13)
 feature panel, with no kernel profiler installed.  For each wrapper it
@@ -25,6 +28,7 @@ Run on a machine with a card, from the repository root:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import importlib.util
 import json
 import statistics
@@ -39,12 +43,19 @@ ROOT = Path(__file__).resolve().parents[1]
 SENTINEL = np.iinfo(np.int32).max
 
 
-def load_parent(parent_src: Path, name: str):
-    """The other checkout's ``kernels/<name>/ops.py`` as a module of its own."""
-    path = parent_src / "repro_torch" / "kernels" / name / "ops.py"
-    spec = importlib.util.spec_from_file_location(f"parent_{name}_ops", path)
+def load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_parent(parent_src: Path, name: str, build):
+    """The other checkout's ``kernels/<name>/ops.py`` as a module of its
+    own, launching through ``build`` (that checkout's ``_build``)."""
+    mod = load_module(parent_src / "repro_torch" / "kernels" / name / "ops.py",
+                      f"parent_{name}_ops")
+    mod.B = build
     return mod
 
 
@@ -99,13 +110,18 @@ def main(argv=None) -> int:
 
     assert get_profiler() is None
     parent = Path(args.parent).resolve()
+    from repro_torch.kernels import _build
+
+    parent_build = load_module(parent / "repro_torch" / "kernels" / "_build.py", "parent__build")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda b: b.library(), (parent_build, _build)))
     rng = np.random.default_rng(0)
     view = np.full(1_500_000, SENTINEL, np.int32)  # visitView: a slot per group
     view[:137_800] = rng.choice(1_000_000, 137_800, replace=False)
     cols = (torch.from_numpy(view).cuda(),)
     feats = torch.from_numpy(rng.uniform(0.0, 10.0, (16, N_FEATURES)).astype(np.float32)).cuda()
-    old_h = load_parent(parent, "hash_threshold").hash_threshold
-    old_f = load_parent(parent, "fleet_score").fleet_scores
+    old_h = load_parent(parent, "hash_threshold", parent_build).hash_threshold
+    old_f = load_parent(parent, "fleet_score", parent_build).fleet_scores
     for a, b in ((old_h(cols, 0.1, 0), hash_threshold_ops.hash_threshold(cols, 0.1, 0)),
                  (old_f(feats), fleet_score_ops.fleet_scores(feats))):
         if not torch.equal(a, b):
