@@ -438,6 +438,21 @@ TRAIN_FAMILY_RUNS = (("xlstm-1.3b", None, 8, 512), ("seamless-m4t-large-v2", Non
 TRAIN_FAMILY_STEPS = 3  # timed, after one warm-up; then one under each profiler
 TRAIN_FAMILY_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=6)
 FRAMES_SEED = 1
+# AdamW's kernel line (train_path's live gemma-2b state): the scalars of the
+# kernel's norm against the plain version's within ADAMW_RTOL relative; the
+# update of the leaves named ADAMW_HELD_LEAVES (layer 0's nine and the final
+# norm, on copies) from the same scalars, and ADAMW_ODD_TREE's leaves (odd
+# sizes, ranks 1 and 2, the third at an offset of one element) over
+# ADAMW_ODD_STEPS steps, every element within 2 ulp of the plain version's
+# or ADAMW_RTOL of its leaf's largest magnitude; the plain version timed
+# over ADAMW_PLAIN_ITERS calls (~0.12 s each at gemma-2b's size)
+ADAMW_RTOL = 1e-6
+ADAMW_HELD_LEAVES = ("layers.0.", "final_norm")
+ADAMW_ODD_TREE = ((1,), (7,), (4099,), (1025, 3))
+ADAMW_ODD_OFFSET = 2
+ADAMW_ODD_STEPS = 3
+ADAMW_PLAIN_ITERS = 3
+ADAMW_OPS_PER_ELEMENT = 19  # float32 update 17 (a fused multiply-add as 2), the norm's 2
 
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
@@ -453,10 +468,11 @@ SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_
 FAMILY_KERNELS = ("flash_attention",)  # vlm_prefill and encdec_generate: every attention
 SSM_KERNELS = SERVE_KERNELS[1:]  # xlstm has no attention: the telemetry's kernels
 # every attention of the train step; the loss view's unfused clean, group-bys
-# and queries
+# and queries; AdamW's norm and update
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "hash_threshold", "segment_aggsum",
-                 "multi_agg_two", "multi_agg_one")
+                 "multi_agg_two", "multi_agg_one", "adamw_norm", "adamw_update")
 TRAIN_SSM_KERNELS = TRAIN_KERNELS[2:]  # xlstm has no attention: the loss view's kernels
+ADAMW_KERNELS = ("adamw_norm", "adamw_update")
 # multi_agg_moments' arguments by name: the one-sided call's six, then the
 # two-sided call's other four
 MULTI_AGG_ARGS = ("x_new", "valid_new", "w_new", "ompi_new", "sel", "meta", "x_old", "valid_old",
@@ -3437,6 +3453,7 @@ def run_train_path(argv, seed, device="cuda"):
                           "flash_launches": flash1["flash_attention"] - flash0["flash_attention"],
                           "flash_bwd_launches": flash1["flash_attention_bwd"]
                           - flash0["flash_attention_bwd"],
+                          "adamw_launches": [flash1[k] - flash0[k] for k in ADAMW_KERNELS],
                           **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
             stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
             if i > 0 and i % args.svc_every == 0:
@@ -3455,6 +3472,7 @@ def run_train_path(argv, seed, device="cuda"):
     if any(s["flash_bwd_launches"] != cfg.n_layers for s in steps):
         fail("train_path: flash_attention_bwd launches per step "
              f"{[s['flash_bwd_launches'] for s in steps]}, expected {cfg.n_layers} (one a layer)")
+    adamw_per_step = check_adamw_launches(steps, len(leaves), "train_path")
     if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps):
         fail(f"train_path: a non-finite loss or grad norm: {steps}")
     after = probe_params(state.params)
@@ -3489,24 +3507,24 @@ def run_train_path(argv, seed, device="cuda"):
     finally:
         kernels.set_profiler(None)
     ops = prof.summary()
-    for op, want in (("flash_attention", per_step), ("flash_attention_bwd", cfg.n_layers)):
+    for op, want in (("flash_attention", per_step), ("flash_attention_bwd", cfg.n_layers),
+                     ("adamw_norm", 1), ("adamw_update", 1)):
         got = ops.get(op, {})
         if got.get("dispatches") != want or got.get("fallbacks") != 0:
             fail(f"train_path: under the kernel profiler {op} read {got}, expected {want} "
                  "dispatches and 0 fallbacks")
     with uncounted():
         profile = profile_ops(lambda: one_step(pipe.batch(args.steps + 1)), top=12)
-    # AdamW alone: one more update of every leaf from the last step's
-    # gradients (the phase's checks are done), against its bytes bound
-    # (each parameter's f32 p, g, m, v read and p, m, v written: 28 bytes)
+    # AdamW alone, on the live state from the last step's gradients (the
+    # phase's checks are done): its kernel line, held against the plain
+    # version and timed beside it and beside the library's fused AdamW, and
+    # one update's wall through each
     from repro_torch.models.convert import jax_leaves
-    from repro_torch.training import adamw_update
 
     ranks = {n: r for n, (_k, _i, r) in jax_leaves(box[0].params).items()}
     named = {n: p for n, p in box[0].params.named_parameters()}
-    _, adamw_s = wall(lambda: adamw_update(step_fn.opt_cfg, named,
-                                           {n: p.grad for n, p in named.items()},
-                                           box[0].opt_state, ranks))
+    adamw_line, adamw_walls = adamw_entry(step_fn.opt_cfg, named, box[0].opt_state, ranks,
+                                          sum(launches[k] for k in ADAMW_KERNELS), ITERS)
     del box, state, leaves, before, after, named
     errs = [abs(e[0] - t) / abs(t) for e, t in zip(estimates, truth) if t]
     warm = steps[1:]
@@ -3529,12 +3547,205 @@ def run_train_path(argv, seed, device="cuda"):
         "stale_eq_exact_fresh_after_maintenance": True,
         "peak_device_gb": peak_gb, "launches": launches,
         "flash_launches_per_step": per_step, "kprof_step": {k: ops[k] for k in sorted(ops)},
-        "adamw_s": adamw_s, "adamw_bound_s": 28 * n_params / HBM_BYTES_PER_S,
+        "adamw_s": adamw_walls["kernel_s"], "adamw_plain_s": adamw_walls["plain_s"],
+        "adamw_launches_per_step": 2 * adamw_per_step,
+        # the norm reads every gradient (4 bytes a parameter), the update
+        # reads p, g, m, v and writes p, m, v (28)
+        "adamw_bound_s": 32 * n_params / HBM_BYTES_PER_S,
+        "adamw_bound_parts_s": {"norm": 4 * n_params / HBM_BYTES_PER_S,
+                                "update": 28 * n_params / HBM_BYTES_PER_S},
+        "adamw_kernel": adamw_line,
         "device_busy_share_of_warm_step": profile.get("device_only_ms", 0.0) / 1e3 / warm_s
         if warm_s else None,
         "step_profile": profile,
     }
     return report, cap, launches, svc_caps
+
+
+def check_adamw_launches(steps, n_leaves, what) -> int:
+    """Every step launched each AdamW kernel once for every group of
+    ``max_leaves()`` leaves (one group for every model here); returns that
+    count."""
+    from repro_torch.kernels.adamw import launches_per_call
+
+    per_call = launches_per_call(n_leaves)
+    if any(s["adamw_launches"] != [per_call, per_call] for s in steps):
+        fail(f"{what}: adamw_norm and adamw_update launches per step "
+             f"{[s['adamw_launches'] for s in steps]}, expected {per_call} each "
+             f"({n_leaves} leaves)")
+    return per_call
+
+
+def adamw_close(got, want, what) -> float:
+    """max |got − want|, after holding every element within 2 ulp of the
+    plain version's or within ADAMW_RTOL of the leaf's largest magnitude."""
+    import torch
+
+    err = (got.double() - want.double()).abs()
+    if err.numel() == 0:
+        return 0.0
+    want = want.float()
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) - want.abs()
+    ok = (err <= 2 * ulp.double()) | (err <= ADAMW_RTOL * float(want.abs().max()))
+    if not bool(ok.all()):
+        fail(f"adamw {what}: {int((~ok).sum())} elements beyond 2 ulp and {ADAMW_RTOL} of the "
+             f"leaf's largest magnitude from the plain version (max error {float(err.max())})")
+    return float(err.max())
+
+
+def hold_adamw_odd_tree(cfg, device) -> float:
+    """The kernel's norm and update against the plain version's over
+    ADAMW_ODD_TREE (odd sizes, ranks 1 and 2, one leaf at an offset of one
+    element, the scalar route), ADAMW_ODD_STEPS steps from one seed, each
+    side from its own scalars: the step exact, lr, grad_norm, clip_scale,
+    bc1, bc2 within ADAMW_RTOL relative, every p, m, v as ``adamw_close``.
+    Returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels.adamw import (adamw_apply, adamw_norm, adamw_norm_ref,
+                                           adamw_update_ref)
+
+    rng = np.random.default_rng(SEED)
+
+    def put(a, i):
+        if i != ADAMW_ODD_OFFSET:
+            return torch.from_numpy(a).to(device)
+        out = torch.empty(a.size + 1, dtype=torch.float32, device=device)[1:].view(a.shape)
+        return out.copy_(torch.from_numpy(a))
+
+    init = [[rng.normal(size=s).astype(np.float32) for s in ADAMW_ODD_TREE],
+            [rng.normal(scale=1e-2, size=s).astype(np.float32) for s in ADAMW_ODD_TREE],
+            [rng.uniform(0.0, 1e-4, s).astype(np.float32) for s in ADAMW_ODD_TREE]]
+    kern, plain = ([[put(a, i) for i, a in enumerate(x)] for x in init] for _ in range(2))
+    decay = [len(s) >= 2 for s in ADAMW_ODD_TREE]
+    steps = [torch.zeros((), dtype=torch.int32, device=device)] * 2
+    worst = 0.0
+    for i in range(ADAMW_ODD_STEPS):
+        g = [put(rng.normal(scale=0.1, size=s).astype(np.float32), j)
+             for j, s in enumerate(ADAMW_ODD_TREE)]
+        a, b = adamw_norm(cfg, g, steps[0]), adamw_norm_ref(cfg, g, steps[1])
+        if int(a.step) != int(b.step):
+            fail(f"adamw odd tree step {i + 1}: step {int(a.step)} against {int(b.step)}")
+        for name in ("lr", "grad_norm", "clip_scale", "bc1", "bc2"):
+            x, y = float(getattr(a, name)), float(getattr(b, name))
+            if not abs(x - y) <= ADAMW_RTOL * abs(y):
+                fail(f"adamw odd tree step {i + 1}: {name} {x} against the plain version's {y}")
+            worst = max(worst, abs(x - y))
+        adamw_apply(cfg, kern[0], g, kern[1], kern[2], decay, a)
+        adamw_update_ref(cfg, plain[0], g, plain[1], plain[2], decay, b)
+        for what, xs, ys in zip("pmv", kern, plain):
+            for shape, x, y in zip(ADAMW_ODD_TREE, xs, ys):
+                worst = max(worst, adamw_close(x, y, f"odd tree step {i + 1} {what} {shape}"))
+        steps = [a.step, b.step]
+    return worst
+
+
+def adamw_entry(cfg, named, opt_state, ranks, launches, iters):
+    """The AdamW kernels (``adamw_norm`` then ``adamw_apply``, two launches
+    a step) on train_path's live state (every leaf's p, m, v and the last
+    step's gradients), after the phase's checks.  Held: the kernel's
+    scalars against the plain version's on every gradient (ADAMW_RTOL
+    relative); the update of the ADAMW_HELD_LEAVES, on copies, from the
+    same scalars, and ``hold_adamw_odd_tree``.  Timed (CUDA events): one
+    ``training.adamw_update`` through the kernels (``ms``), each kernel's
+    wrapper alone, the plain version (``adamw_norm_ref`` +
+    ``adamw_update_ref``, ADAMW_PLAIN_ITERS calls) and the yardstick, which
+    the port never calls: ``torch._foreach_norm`` of the gradients and two
+    ``torch._fused_adamw_`` (decayed and undecayed leaves, lr a tensor),
+    null where that op is absent.  Each timed call updates the live state.
+    Returns (the kernel line, the walls of one update through the kernels
+    and through the plain version)."""
+    import torch
+
+    from repro_torch.kernels.adamw import (adamw_apply, adamw_norm, adamw_norm_ref,
+                                           adamw_update_ref, launches_per_call)
+    from repro_torch.training import adamw_update
+
+    names = list(named)
+    ps = [named[n] for n in names]
+    gs = [p.grad for p in ps]
+    grads = dict(zip(names, gs))
+    ms, vs = [opt_state["m"][n] for n in names], [opt_state["v"][n] for n in names]
+    decay = [ranks[n] >= 2 for n in names]
+    n = sum(p.numel() for p in ps)
+    per_call = launches_per_call(len(ps))
+    with uncounted():
+        step = opt_state["step"]
+        got, want = adamw_norm(cfg, gs, step), adamw_norm_ref(cfg, gs, step)
+        if int(got.step) != int(want.step):
+            fail(f"adamw: step {int(got.step)} against the plain version's {int(want.step)}")
+        scalars = {}
+        for name in ("lr", "grad_norm", "clip_scale", "bc1", "bc2"):
+            a, b = float(getattr(got, name)), float(getattr(want, name))
+            if not abs(a - b) <= ADAMW_RTOL * abs(b):
+                fail(f"adamw: {name} {a} against the plain version's {b} (limit {ADAMW_RTOL} "
+                     "relative)")
+            scalars[name] = {"kernel": a, "plain": b, "rel_diff": abs(a - b) / abs(b) if b else 0.0}
+        held = [i for i, nm in enumerate(names) if nm.startswith(ADAMW_HELD_LEAVES)]
+        kern = [[x[i].detach().clone() for i in held] for x in (ps, ms, vs)]
+        plain = [[t.clone() for t in x] for x in kern]
+        hg, hd = [gs[i] for i in held], [decay[i] for i in held]
+        adamw_apply(cfg, kern[0], hg, kern[1], kern[2], hd, got)
+        adamw_update_ref(cfg, plain[0], hg, plain[1], plain[2], hd, got)
+        err = max(abs(scalars[k]["kernel"] - scalars[k]["plain"]) for k in scalars)
+        for what, xs, ys in zip("pmv", kern, plain):
+            for i, x, y in zip(held, xs, ys):
+                err = max(err, adamw_close(x, y, f"{names[i]} {what}"))
+        del kern, plain
+        odd_err = hold_adamw_odd_tree(cfg, ps[0].device)
+        err = max(err, odd_err)
+
+        def kernels_call():
+            adamw_update(cfg, named, grads, opt_state, ranks)
+
+        def plain_call():
+            adamw_update_ref(cfg, ps, gs, ms, vs, decay, adamw_norm_ref(cfg, gs, opt_state["step"]))
+
+        ms_ = cuda_ms(kernels_call, iters)
+        norm_ms = cuda_ms(lambda: adamw_norm(cfg, gs, opt_state["step"]), iters)
+        update_ms = cuda_ms(lambda: adamw_apply(cfg, ps, gs, ms, vs, decay, got), iters)
+        plain_ms = cuda_ms(plain_call, ADAMW_PLAIN_ITERS)
+        rows = profile_raw(kernels_call, top=4)["top_device"]
+        launch_ms = {k: [r["device_ms"] for r in rows if k in r["op"]]
+                     for k in ("adamw_sumsq_kernel", "adamw_update_kernel")}
+        _, kernel_s = wall(kernels_call)
+        _, plain_s = wall(plain_call)
+    library_ms, library_call = None, "none: torch._fused_adamw_ is absent"
+    if hasattr(torch, "_fused_adamw_"):
+        dev = ps[0].device
+        lr = got.lr.clone()
+        counts = [torch.ones((), dtype=torch.float32, device=dev) for _ in ps]
+        groups = [([i for i, d in enumerate(decay) if d], cfg.weight_decay),
+                  ([i for i, d in enumerate(decay) if not d], 0.0)]
+
+        def library():
+            torch._foreach_norm(gs)
+            for idx, wd in groups:
+                torch._fused_adamw_([ps[i] for i in idx], [gs[i] for i in idx],
+                                    [ms[i] for i in idx], [vs[i] for i in idx], [],
+                                    [counts[i] for i in idx], lr=lr, beta1=cfg.b1, beta2=cfg.b2,
+                                    weight_decay=wd, eps=cfg.eps, amsgrad=False, maximize=False)
+
+        library_ms = cuda_ms(library, iters)
+        library_call = ("torch._foreach_norm(grads) + torch._fused_adamw_ over the decayed and "
+                        "the undecayed leaves (lr a tensor; no clip, its own decay form)")
+    line = kernel_entry(
+        "adamw", "cuda", "src/repro_torch/csrc/adamw.cu",
+        "none: XLA's fusion of src/repro/training/optim.py:53 adamw_update with global_norm "
+        "at :48 (plain jnp; no Pallas kernel)",
+        launches, err, ms_, plain_ms, bytes_=32 * n, ops=ADAMW_OPS_PER_ELEMENT * n,
+        library_ms=library_ms, entries_ms={"adamw_norm": norm_ms, "adamw_update": update_ms},
+        launch_ms=launch_ms, launches_per_step=2 * per_call, leaves=len(ps), params=n,
+        bound_parts_ms={"norm": 4 * n / HBM_BYTES_PER_S * 1e3,
+                        "update": 28 * n / HBM_BYTES_PER_S * 1e3},
+        scalars_vs_plain=scalars, held_leaves=[names[i] for i in held],
+        odd_tree={"shapes": [list(s) for s in ADAMW_ODD_TREE], "offset_leaf": ADAMW_ODD_OFFSET,
+                  "steps": ADAMW_ODD_STEPS, "max_abs_err": odd_err},
+        plain_call="adamw_norm_ref + adamw_update_ref (the plain version, ~13 passes a leaf)",
+        library_call=library_call,
+        bound_counts="bytes: g read by the norm (4 a parameter); p, g, m, v read and p, m, v "
+                     "written by the update (28); operations: ~19 float32 an element")
+    return line, {"kernel_s": kernel_s, "plain_s": plain_s}
 
 
 def train_svc_captures() -> dict:
@@ -3983,15 +4194,19 @@ def train_device_vs_cpu(archs, B, S, n_steps, seed, devices=("cuda", "cpu")) -> 
 
 def train_restart(argv, seed, restored_step, device="cuda") -> dict:
     """``launch.train.main`` on ``argv`` with a checkpoint directory under
-    ``build/``: the lost host's step restores ``restored_step``'s
-    checkpoint, the restored state equals the saved one bit for bit (every
-    leaf, as saved and as read back), and the run ends with a finite loss.
-    Reports ``main``'s dict, its log, and the checkpoints' bytes and
+    ``build/``, under the kernel profiler: the lost host's step restores
+    ``restored_step``'s checkpoint, the restored state equals the saved one
+    bit for bit (every leaf, as saved and as read back), every step
+    dispatched ``adamw_norm`` and ``adamw_update`` once and no op took its
+    plain version, and the run ends with a finite loss.  Reports ``main``'s
+    dict, its log, the profiler's ops, and the checkpoints' bytes and
     save/restore walls."""
     import io
     import tempfile
 
+    from repro_torch import kernels
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.obs.kprof import KernelProfiler
     from repro_torch.checkpoint.manager import host_leaves
     from repro_torch.launch import train
 
@@ -4018,6 +4233,7 @@ def train_restart(argv, seed, restored_step, device="cuda") -> dict:
     (ROOT / "build").mkdir(exist_ok=True)
     real, log = train.CheckpointManager, io.StringIO()
     train.CheckpointManager = Recording
+    prof = kernels.set_profiler(KernelProfiler())
     try:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
             with contextlib.redirect_stdout(log):
@@ -4028,6 +4244,14 @@ def train_restart(argv, seed, restored_step, device="cuda") -> dict:
             kept = sorted(p.name for p in Path(tmp).iterdir())
     finally:
         train.CheckpointManager = real
+        kernels.set_profiler(None)
+    ops = prof.summary()
+    for op in ADAMW_KERNELS:
+        if ops.get(op, {}).get("dispatches") != out["steps"]:
+            fail(f"train_restart: under the kernel profiler {op} read {ops.get(op)}, expected "
+                 f"{out['steps']} dispatches (one a step)")
+    if any(st["fallbacks"] for st in ops.values()):
+        fail(f"train_restart: an op took its plain version under the kernel profiler: {ops}")
     if [r["step"] for r in restored] != [restored_step]:
         fail(f"train_restart: restored {restored}, expected step {restored_step} once")
     if not all(r["bit_equal"] for r in restored):
@@ -4036,7 +4260,7 @@ def train_restart(argv, seed, restored_step, device="cuda") -> dict:
         fail(f"train_restart: the run ended with loss {out['last_loss']}")
     return {"main": out, "wall_s": wall_s, "restores": restored, "saves": sorted(saved),
             "save_s": walls["save_s"], "restore_s": walls["restore_s"],
-            "checkpoint_bytes_on_disk": ckpt_bytes, "kept": kept,
+            "checkpoint_bytes_on_disk": ckpt_bytes, "kept": kept, "kprof": ops,
             "bytes_per_checkpoint": ckpt_bytes // max(len(kept), 1),
             "log": log.getvalue().splitlines()}
 
@@ -4055,6 +4279,7 @@ def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
     missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the train path: {missing}")
+    adamw_line = report.pop("adamw_kernel")
     emit({"phase": "train_path", **report, "card": smi})
     torch.cuda.empty_cache()
     q, k, v = cap.captured["train causal"]
@@ -4065,6 +4290,7 @@ def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
                              launches["flash_attention_bwd"], ITERS)]
     del q, k, v
     lines += check_train_svc_kernels(svc, launches, ITERS)
+    lines.append(adamw_line)
     del svc
     for line in lines:
         emit({"phase": "kernel", **line, "card": smi})
@@ -4182,6 +4408,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
                           "flash_launches": flash1["flash_attention"] - flash0["flash_attention"],
                           "flash_bwd_launches": flash1["flash_attention_bwd"]
                           - flash0["flash_attention_bwd"],
+                          "adamw_launches": [flash1[k] - flash0[k] for k in ADAMW_KERNELS],
                           **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
             stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
             if i > 0 and i % TRAIN_SVC_EVERY == 0:
@@ -4218,6 +4445,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         fail(f"train_family {cfg.name}: flash_attention_bwd launches per step "
              f"{[s['flash_bwd_launches'] for s in steps]}, expected {attentions} (one an "
              "attention)")
+    adamw_per_step = check_adamw_launches(steps, len(named), f"train_family {cfg.name}")
     # one step under the kernel profiler (every dispatch synchronized)
     prof = KernelProfiler()
     kernels.set_profiler(prof)
@@ -4227,8 +4455,11 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
     finally:
         kernels.set_profiler(None)
     ops = prof.summary()
-    want_ops = {"flash_attention": per_step, "flash_attention_bwd": attentions} if attentions \
-        else {}
+    # one dispatch of each AdamW wrapper a step, and of the flash wrappers
+    # one an attention (twice the forward's under remat)
+    want_ops = {"adamw_norm": 1, "adamw_update": 1}
+    if attentions:
+        want_ops.update(flash_attention=per_step, flash_attention_bwd=attentions)
     for op, got in ops.items():
         if got.get("fallbacks") != 0:
             fail(f"train_family {cfg.name}: under the kernel profiler {op} read {got}")
@@ -4265,6 +4496,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         "unmoved_undecayed_leaves": still,
         "peak_device_gb": peak_gb,
         "launches": launches, "flash_launches_per_step": per_step,
+        "adamw_launches_per_step": 2 * adamw_per_step,
         "kprof_step": {k: ops[k] for k in sorted(ops)},
         "svc_estimates": [{"domain": d, "estimate": e, "ci": [lo, hi]}
                           for d, (e, (lo, hi)) in enumerate(estimates)],

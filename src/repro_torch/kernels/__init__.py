@@ -34,6 +34,12 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
                     (the LM transformer's attention)
   flash_attention_bwd — its gradient (dq, dk, dv from the forward's output
                     and log-sum-exp), on every train step on the card
+  adamw_norm      — AdamW's global norm over every trainable leaf and the
+                    step's scalars (lr, clip scale, bias corrections), one
+                    launch a step
+  adamw_update    — AdamW's update of every leaf's p, m and v, one launch a
+                    step (both on every train step on the card; JAX has no
+                    op name for either, XLA fuses its update)
 
 Every wrapper dispatches through ``obs.kprof.profiled`` under the JAX
 package's op name where it has one (``op_names``); ``set_profiler`` /
@@ -67,11 +73,14 @@ _OPS = {
     "corr_diff": "corr_diff",
     "flash_attention": "flash_attention",
     "flash_attention_bwd": "flash_attention_bwd",
+    "adamw_norm": "adamw_norm",
+    "adamw_update": "adamw_update",
 }
 
 
 def wrappers() -> Dict[str, object]:
     """Kernel name → the wrapper that launches it."""
+    from repro_torch.kernels.adamw.ops import adamw_apply, adamw_norm
     from repro_torch.kernels.corr_diff.ops import corr_moments
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
@@ -100,6 +109,8 @@ def wrappers() -> Dict[str, object]:
         "corr_diff": corr_moments,
         "flash_attention": flash_attention,
         "flash_attention_bwd": flash_attention_bwd,
+        "adamw_norm": adamw_norm,
+        "adamw_update": adamw_apply,
     }
 
 

@@ -5,11 +5,16 @@ The optimizer is a pair of plain functions over named trainable leaves
 (``{name: tensor}``), as JAX's is over a parameter pytree; not
 ``torch.optim.AdamW``.  States ``m`` and ``v`` are float32.  The schedule
 and the bias corrections are float32 functions of the step, computed on
-the step's device as JAX computes them (no host read).  Differences from
-JAX, deliberate: parameters, ``m`` and ``v`` are updated in place (JAX
-returns new trees), one leaf at a time so that no temporary outgrows a
-leaf; the gradients are left as they came (JAX's are local values), and
-the norm is a norm of the per-leaf norms (the same sum in another order).
+the step's device as JAX computes them (no host read).  ``adamw_update``
+runs through the two wrappers of ``kernels.adamw``: on the card one
+launch takes the global norm and the step's scalars and one updates every
+leaf (``csrc/adamw.cu``), where JAX's XLA fuses the same update into one
+pass a leaf; on the CPU and the meta device their plain version
+(``kernels/adamw/ref.py``).  Differences from JAX, deliberate: parameters,
+``m`` and ``v`` are updated in place (JAX returns new trees); the
+gradients are left as they came (JAX's are local values), and the norm
+is summed in another order (float64 on the card, a norm of the per-leaf
+norms in the plain version).
 
 Weight decay follows JAX's rule, "matrices only" by rank, ``p.ndim >=
 2`` of *JAX's* leaf, so ``adamw_update`` takes each leaf's JAX rank
@@ -21,10 +26,13 @@ JAX stacks them to (L, d), so JAX decays them
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Mapping, Tuple
 
 import torch
+
+from repro_torch.kernels.adamw import adamw_apply, adamw_norm, cosine_schedule, global_norm
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,21 +48,6 @@ class AdamWConfig:
     min_lr_ratio: float = 0.1
 
 
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    """A float32 0-d tensor filled on ``like``'s device (no host copy)."""
-    return torch.full((), x, dtype=torch.float32, device=like.device)
-
-
-def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
-    """The learning rate at ``step`` (an integer tensor), float32."""
-    step = torch.as_tensor(step).to(torch.float32)
-    warm = step / max(cfg.warmup_steps, 1)
-    prog = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)
-    prog = torch.clamp(prog, 0.0, 1.0)
-    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
-    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
-
-
 def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict:
     """``{"m": {name: zeros}, "v": {name: zeros}, "step": int32 0}``, float32
     states on each leaf's device."""
@@ -65,12 +58,6 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(Σ over leaves of Σ x²), float32."""
-    norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], opt_state: Dict,
@@ -78,23 +65,11 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     """One AdamW step over ``params`` in place; returns (params, opt_state,
     {"lr", "grad_norm", "clip_scale"}), the metrics float32 0-d tensors.
     ``ranks``: each leaf's JAX rank, which the decay rule reads."""
-    step = opt_state["step"] + 1
-    lr = cosine_schedule(cfg, step)
     names = list(params)
-    gnorm = global_norm([grads[n] for n in names])
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    b1, b2 = _f32(cfg.b1, step), _f32(cfg.b2, step)
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
-    for name in names:
-        p, m, v = params[name], opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].to(torch.float32) * scale
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        del g
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if ranks[name] >= 2:  # decoupled decay, matrices only
-            delta.add_(p, alpha=cfg.weight_decay)
-        p.sub_(delta.mul_(lr))
-    opt_state["step"] = step
-    return params, opt_state, {"lr": lr, "grad_norm": gnorm, "clip_scale": scale}
+    sc = adamw_norm(cfg, [grads[n] for n in names], opt_state["step"])
+    adamw_apply(cfg, [params[n] for n in names], [grads[n] for n in names],
+                [opt_state["m"][n] for n in names], [opt_state["v"][n] for n in names],
+                [ranks[n] >= 2 for n in names], sc)
+    opt_state["step"] = sc.step
+    return params, opt_state, {"lr": sc.lr, "grad_norm": sc.grad_norm,
+                               "clip_scale": sc.clip_scale}

@@ -54,6 +54,19 @@ two or more cards (else skipped, saying how many were seen), every
 wrapper on the last card against its plain version, the fleet and both
 sharded group-bys one shard a card against the same on ``cuda:0`` (plan
 and counts exact, sums within 1e-5), and both launchers on the last card.
+AdamW (``-k adamw``): the kernel's norm and update against the plain
+version over a tree of odd sizes (a leaf at an offset of one element among
+them), four steps through warm-up and the cosine, the clip on and off:
+step exact, lr, grad_norm, clip_scale, bc1, bc2 within 1e-6 relative,
+every p, m, v within 2 ulp or 1e-6 of the leaf's largest magnitude; two
+runs bit-equal; one launch of each kernel a step for 3 leaves and for 500,
+and for 1,500 (past one launch's table) ⌈1,500 / 704⌉ of each, held to the
+plain version as above;
+no synchronize; a raise for a non-float32 leaf, a CPU leaf and an int64
+step; leaves on the last card launch there (two or more cards) and leaves
+on two cards raise; gemma-2b's smoke config trained three steps on the
+card and the CPU within the smoke's limits (loss and grad norm 1e-5, lr
+and clip_scale 1e-6, the parameters 2e-2 of the update's norm).
 """
 
 import ctypes
@@ -2624,3 +2637,308 @@ def test_flash_bwd_row_split_matches_one_block_per_key_tile(dev, monkeypatch, B,
     for a, b in zip(split[1:], whole[1:]):
         a, b = a.float(), b.float()
         assert bool(((a - b).abs() <= 2.0 ** -8 * (b.abs() + b.abs().max())).all())
+
+
+# ---------------------------------------------------------------------------
+# AdamW (``-k adamw``): the norm and the update over every leaf, two launches
+# ---------------------------------------------------------------------------
+
+# leaf shapes: odd sizes, rank 1 and 2, one of them placed at an offset of
+# one element (not 16-byte aligned: the kernel's scalar route)
+ADAMW_ODD = ((1,), (7,), (4099,), (1025, 3), (64, 33))
+ADAMW_OFFSET = 2  # the (4099,) leaf
+
+
+def _adamw_tree(shapes, dev, seed, offset=None):
+    """p, m, v (v ≥ 0) and a decay flag per leaf (rank ≥ 2), float32 on
+    ``dev`` from a numpy seed; the leaf ``offset`` one element into its
+    storage."""
+    rng = np.random.default_rng(seed)
+
+    def put(a, at):
+        if not at:
+            return torch.from_numpy(a).to(dev)
+        buf = torch.empty(a.size + 1, dtype=torch.float32, device=dev)
+        out = buf[1:].view(a.shape)
+        out.copy_(torch.from_numpy(a))
+        return out
+
+    leaves = []
+    for i, s in enumerate(shapes):
+        at = i == offset
+        leaves.append((put(rng.normal(size=s).astype(np.float32), at),
+                       put(rng.normal(scale=1e-2, size=s).astype(np.float32), at),
+                       put(rng.uniform(0.0, 1e-4, s).astype(np.float32), at)))
+    ps, ms, vs = (list(x) for x in zip(*leaves))
+    return ps, ms, vs, [len(s) >= 2 for s in shapes]
+
+
+def _adamw_grads(shapes, dev, seed, offset=None, scale=0.1):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, s in enumerate(shapes):
+        a = rng.normal(scale=scale, size=s).astype(np.float32)
+        if i == offset:
+            g = torch.empty(a.size + 1, dtype=torch.float32, device=dev)[1:].view(a.shape)
+            g.copy_(torch.from_numpy(a))
+        else:
+            g = torch.from_numpy(a).to(dev)
+        out.append(g)
+    return out
+
+
+def _adamw_close(got, want, what):
+    """Every element within 2 ulp of the plain version's or within 1e-6 of
+    the leaf's largest magnitude."""
+    got, want = got.double().cpu(), want.double().cpu()
+    ulp = torch.from_numpy(np.spacing(np.abs(want.float().numpy()))).double()
+    err = (got - want).abs()
+    ok = (err <= 2 * ulp) | (err <= 1e-6 * float(want.abs().max()))
+    assert bool(ok.all()), (what, float(err.max()))
+
+
+@pytest.mark.parametrize("clip", [1e9, 0.05])
+def test_adamw_kernel_matches_the_plain_version(dev, clip):
+    """Four steps (warm-up and cosine) over the odd tree, the kernel's copy
+    and the plain version's from the same values: step, lr, grad_norm and
+    clip_scale within 1e-6 relative, every p, m, v within 2 ulp or 1e-6 of
+    the leaf's largest magnitude; then the kernel's update fed the plain
+    version's scalars, against the plain update from the same state."""
+    from repro_torch.kernels.adamw import (adamw_apply, adamw_norm, adamw_norm_ref,
+                                           adamw_update_ref)
+    from repro_torch.training import AdamWConfig
+
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=4, clip_norm=clip)
+    kern = _adamw_tree(ADAMW_ODD, dev, 0, ADAMW_OFFSET)
+    plain = _adamw_tree(ADAMW_ODD, dev, 0, ADAMW_OFFSET)
+    kstep = pstep = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(4):
+        g = _adamw_grads(ADAMW_ODD, dev, 10 + i, ADAMW_OFFSET)
+        a, b = adamw_norm(cfg, g, kstep), adamw_norm_ref(cfg, g, pstep)
+        assert int(a.step) == int(b.step) == i + 1 and a.step.dtype == torch.int32
+        for name in ("lr", "grad_norm", "clip_scale", "bc1", "bc2"):
+            x, y = float(getattr(a, name)), float(getattr(b, name))
+            assert abs(x - y) <= 1e-6 * abs(y), (i, name, x, y)
+        assert (float(a.clip_scale) < 1.0) == (clip < 1.0)
+        adamw_apply(cfg, kern[0], g, kern[1], kern[2], kern[3], a)
+        adamw_update_ref(cfg, plain[0], g, plain[1], plain[2], plain[3], b)
+        for what, xs, ys in zip("pmv", kern[:3], plain[:3]):
+            for j, (x, y) in enumerate(zip(xs, ys)):
+                _adamw_close(x, y, (i, what, ADAMW_ODD[j]))
+        kstep, pstep = a.step, b.step
+    # one more update from equal states and the same scalars
+    for xs, ys in zip(kern[:3], plain[:3]):
+        for x, y in zip(xs, ys):
+            x.copy_(y)
+    g = _adamw_grads(ADAMW_ODD, dev, 20, ADAMW_OFFSET)
+    sc = adamw_norm_ref(cfg, g, pstep)
+    adamw_apply(cfg, kern[0], g, kern[1], kern[2], kern[3], sc)
+    adamw_update_ref(cfg, plain[0], g, plain[1], plain[2], plain[3], sc)
+    for what, xs, ys in zip("pmv", kern[:3], plain[:3]):
+        for j, (x, y) in enumerate(zip(xs, ys)):
+            _adamw_close(x, y, ("same scalars", what, ADAMW_ODD[j]))
+
+
+def test_adamw_repeats_bit_for_bit(dev):
+    """Two runs of the kernel from the same state and gradients: the same
+    bits in every scalar and every p, m, v."""
+    from repro_torch.kernels.adamw import adamw_apply, adamw_norm
+    from repro_torch.training import AdamWConfig
+
+    shapes = ADAMW_ODD + ((2048, 1000),)  # enough chunks to spread over the card
+    cfg = AdamWConfig(warmup_steps=0, total_steps=10, clip_norm=0.5)
+    runs = []
+    for _ in range(2):
+        ps, ms, vs, decay = _adamw_tree(shapes, dev, 1, ADAMW_OFFSET)
+        step = torch.full((), 5, dtype=torch.int32, device=dev)
+        for i in range(2):
+            g = _adamw_grads(shapes, dev, 30 + i, ADAMW_OFFSET, scale=1.0)
+            sc = adamw_norm(cfg, g, step)
+            adamw_apply(cfg, ps, g, ms, vs, decay, sc)
+            step = sc.step
+        runs.append([t.clone() for t in sc] + ps + ms + vs)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_leaves", [3, 500])
+def test_adamw_launches_once_a_step_each(dev, n_leaves):
+    """One launch of each kernel a step for 3 leaves and for 500 (more than
+    xlstm-1.3b's ~450): the wrappers' counts and the card's own launches."""
+    from repro_torch import kernels
+    from repro_torch.kernels.adamw import launches_per_call, max_leaves
+    from repro_torch.training import AdamWConfig, adamw_init, adamw_update
+
+    assert max_leaves() >= 500 and launches_per_call(n_leaves) == 1
+    rng = np.random.default_rng(n_leaves)
+    sizes = rng.integers(1, 3000, n_leaves)
+    params = {f"l{i}": torch.randn(int(n), device=dev) for i, n in enumerate(sizes)}
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    state = adamw_init(params)
+    ranks = {k: 1 + i % 2 for i, k in enumerate(params)}
+    cfg = AdamWConfig()
+
+    def step():
+        adamw_update(cfg, params, grads, state, ranks)
+
+    step()
+    before = kernels.launch_counts()
+    step()
+    after = kernels.launch_counts()
+    assert (after["adamw_norm"] - before["adamw_norm"],
+            after["adamw_update"] - before["adamw_update"]) == (1, 1)
+    assert _device_launches(step) == 2
+
+
+def test_adamw_splits_past_the_parameter_block(dev):
+    """1,500 leaves (more than a launch's table holds; qwen2-vl-72b has
+    723): ``launches_per_call`` launches of each kernel, the norm summed
+    over every group's partials, and every scalar and leaf against the
+    plain version as for one group."""
+    from repro_torch import kernels
+    from repro_torch.kernels.adamw import (adamw_apply, adamw_norm, adamw_norm_ref,
+                                           adamw_update_ref, launches_per_call, max_leaves)
+    from repro_torch.training import AdamWConfig
+
+    shapes = tuple((int(n),) if i % 3 else (int(n), 3) for i, n in
+                   enumerate(np.random.default_rng(6).integers(1, 700, 1500)))
+    groups = launches_per_call(len(shapes))
+    assert groups == -(-1500 // max_leaves()) > 1
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=4, clip_norm=0.5)
+    kern, plain = _adamw_tree(shapes, dev, 7, 5), _adamw_tree(shapes, dev, 7, 5)
+    g = _adamw_grads(shapes, dev, 8, 5)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()
+    a = adamw_norm(cfg, g, step)
+    adamw_apply(cfg, kern[0], g, kern[1], kern[2], kern[3], a)
+    after = kernels.launch_counts()
+    assert after["adamw_norm"] - before["adamw_norm"] == groups
+    assert after["adamw_update"] - before["adamw_update"] == groups
+    b = adamw_norm_ref(cfg, g, step)
+    for name in ("lr", "grad_norm", "clip_scale"):
+        x, y = float(getattr(a, name)), float(getattr(b, name))
+        assert abs(x - y) <= 1e-6 * abs(y), (name, x, y)
+    assert float(a.clip_scale) < 1.0
+    adamw_update_ref(cfg, plain[0], g, plain[1], plain[2], plain[3], b)
+    for what, xs, ys in zip("pmv", kern[:3], plain[:3]):
+        for j, (x, y) in enumerate(zip(xs, ys)):
+            _adamw_close(x, y, (what, j, shapes[j]))
+
+
+def test_adamw_does_not_synchronize(dev):
+    """A warm train step's update under set_sync_debug_mode("error")."""
+    from repro_torch.training import AdamWConfig, adamw_init, adamw_update
+
+    params = {"w": torch.randn(300, 7, device=dev), "b": torch.randn(7, device=dev)}
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    state = adamw_init(params)
+    adamw_update(AdamWConfig(), params, grads, state, {"w": 2, "b": 1})  # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, state, met = adamw_update(AdamWConfig(), params, grads, state, {"w": 2, "b": 1})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state["step"]) == 2 and all(v.is_cuda for v in met.values())
+
+
+@pytest.mark.parametrize("case", ["a bfloat16 leaf", "a float64 gradient", "a leaf on the CPU",
+                                  "an int64 step"])
+def test_adamw_refuses_what_the_kernel_does_not_take(dev, case):
+    from repro_torch.kernels.adamw import adamw_apply, adamw_norm
+    from repro_torch.training import AdamWConfig
+
+    cfg = AdamWConfig()
+    ps, ms, vs, decay = _adamw_tree(ADAMW_ODD[:3], dev, 2)
+    g = _adamw_grads(ADAMW_ODD[:3], dev, 3)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    sc = adamw_norm(cfg, g, step)
+    if case == "a bfloat16 leaf":
+        with pytest.raises(TypeError, match="bfloat16"):
+            adamw_apply(cfg, [ps[0].bfloat16()] + ps[1:], g, ms, vs, decay, sc)
+    elif case == "a float64 gradient":
+        with pytest.raises(TypeError, match="float64"):
+            adamw_norm(cfg, [g[0].double()] + g[1:], step)
+    elif case == "a leaf on the CPU":
+        with pytest.raises(ValueError, match="on cpu"):
+            adamw_apply(cfg, ps, g, ms, [vs[0].cpu()] + vs[1:], decay, sc)
+        with pytest.raises(ValueError, match="on cpu"):
+            adamw_norm(cfg, g[:2] + [g[2].cpu()], step)
+    else:
+        with pytest.raises(TypeError, match="step"):
+            adamw_norm(cfg, g, step.long())
+
+
+def test_adamw_launches_on_the_last_card(last_card):
+    """Leaves on the last card launch there and equal the plain version's
+    update on that card; leaves on two cards raise."""
+    from repro_torch import kernels
+    from repro_torch.kernels.adamw import (adamw_apply, adamw_norm, adamw_norm_ref,
+                                           adamw_update_ref)
+    from repro_torch.training import AdamWConfig
+
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    kern = _adamw_tree(ADAMW_ODD, last_card, 4, ADAMW_OFFSET)
+    plain = _adamw_tree(ADAMW_ODD, last_card, 4, ADAMW_OFFSET)
+    g = _adamw_grads(ADAMW_ODD, last_card, 5, ADAMW_OFFSET)
+    step = torch.zeros((), dtype=torch.int32, device=last_card)
+    before = kernels.launch_counts()
+    sc = adamw_norm(cfg, g, step)
+    adamw_apply(cfg, kern[0], g, kern[1], kern[2], kern[3], sc)
+    after = kernels.launch_counts()
+    assert after["adamw_norm"] - before["adamw_norm"] == 1
+    assert after["adamw_update"] - before["adamw_update"] == 1
+    assert all(t.device == last_card for t in sc)
+    ref = adamw_norm_ref(cfg, g, step)
+    assert abs(float(sc.grad_norm) - float(ref.grad_norm)) <= 1e-6 * float(ref.grad_norm)
+    adamw_update_ref(cfg, plain[0], g, plain[1], plain[2], plain[3], ref)
+    for what, xs, ys in zip("pmv", kern[:3], plain[:3]):
+        for j, (x, y) in enumerate(zip(xs, ys)):
+            _adamw_close(x, y, (what, ADAMW_ODD[j]))
+    with pytest.raises(ValueError, match="expected"):
+        adamw_norm(cfg, [g[0].to("cuda:0")] + g[1:], step)
+
+
+def test_adamw_train_steps_on_the_card_match_the_cpu(dev):
+    """gemma-2b's smoke config (f32, TF32 off), three steps from the same
+    masters on the same batches, the card's update through the kernel: loss
+    and grad norm within 1e-5 relative, lr and clip_scale within 1e-6, all
+    the parameters after each step within 2e-2 of the step's update norm
+    over every leaf (the smoke's train_device_vs_cpu limits)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("gemma-2b")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    models = [get_model(cfg, device=device, train=True) for device in ("cpu", dev)]
+    states = [init_train_state(m, 0) for m in models]
+    states[1].params.load_state_dict(states[0].params.state_dict())
+    steps = [make_train_step(m, opt) for m in models]
+    gen = torch.Generator().manual_seed(0)
+    for i in range(3):
+        toks = torch.randint(0, cfg.vocab, (4, 32), generator=gen, dtype=torch.int32)
+        prev = {n: p.detach().clone() for n, p in states[0].params.named_parameters()}
+        mets = []
+        before = kernels.launch_counts()
+        for j, (model, step) in enumerate(zip(models, steps)):
+            d = model.device
+            batch = {"tokens": toks.to(d), "labels": toks.roll(-1, 1).to(d),
+                     "domain": torch.arange(4, dtype=torch.int32, device=d)}
+            states[j], met = step(states[j], batch)
+            mets.append(met)
+        after = kernels.launch_counts()
+        assert after["adamw_norm"] - before["adamw_norm"] == 1
+        assert after["adamw_update"] - before["adamw_update"] == 1
+        (cm, dm) = mets
+        for key, tol in (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6), ("clip_scale", 1e-6)):
+            assert abs(float(dm[key]) - float(cm[key])) <= tol * abs(float(cm[key])), (i, key)
+        cpu = dict(states[0].params.named_parameters())
+        err2 = upd2 = 0.0
+        for name, p in states[1].params.named_parameters():
+            err2 += float((p.detach().cpu() - cpu[name].detach()).norm()) ** 2
+            upd2 += float((cpu[name].detach() - prev[name]).norm()) ** 2
+        assert err2 ** 0.5 <= 2e-2 * upd2 ** 0.5, (i, err2 ** 0.5, upd2 ** 0.5)
+        assert int(states[1].opt_state["step"]) == i + 1

@@ -403,9 +403,16 @@ def test_cpu_runs_never_count_as_launches():
     wrappers["flash_attention_bwd"](torch.ones(1, 2, 2, 16), torch.ones(1, 2, 1, 16),
                                     torch.ones(1, 2, 1, 16), torch.ones(1, 2, 2, 16),
                                     torch.zeros(1, 2, 2), torch.ones(1, 2, 2, 16))
+    from repro_torch.training import AdamWConfig
+
+    opt, leaf = AdamWConfig(), [torch.ones(3)]
+    sc = wrappers["adamw_norm"](opt, leaf, torch.zeros((), dtype=torch.int32))
+    wrappers["adamw_update"](opt, [torch.ones(3)], leaf, [torch.zeros(3)], [torch.zeros(3)],
+                             [False], sc)
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
                            "fleet_merge", "fleet_moments", "fleet_score", "fleet_score_sharded",
                            "segment_aggsum", "segment_aggsum_unsorted", "corr_diff",
-                           "flash_attention", "flash_attention_bwd"}
+                           "flash_attention", "flash_attention_bwd", "adamw_norm",
+                           "adamw_update"}

@@ -15,6 +15,7 @@ import torch
 
 def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     """Kernel name → a call of its wrapper on seeded tensors on ``dev``."""
+    from repro_torch.kernels.adamw import Scalars, adamw_apply, adamw_norm
     from repro_torch.kernels.corr_diff import corr_moments
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -67,6 +68,19 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
                         for shape in ((2, 40, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64),
                                       (2, 40, 4, 64))]
     bo, lse = flash_attention_ref(bq, bk, bv, return_lse=True)
+    # AdamW over a tree of odd sizes (rank 1 and 2); the update works on
+    # copies of the state, so every call gives the same outputs
+    from repro_torch.training import AdamWConfig
+
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10, clip_norm=0.5)
+    opt_shapes = ((7,), (5, 3), (4099,))
+    opt_p, opt_g, opt_m = [[t(rng.normal(size=s).astype(np.float32)) for s in opt_shapes]
+                           for _ in range(3)]
+    opt_v = [t(rng.uniform(0.0, 1.0, s).astype(np.float32)) for s in opt_shapes]
+    opt_step = torch.tensor(3, dtype=torch.int32, device=dev)
+    opt_sc = Scalars(torch.tensor(4, dtype=torch.int32, device=dev),
+                     *[torch.tensor(x, dtype=torch.float32, device=dev)
+                       for x in (5e-3, 2.0, 0.25, 1 - 0.9 ** 4, 1 - 0.95 ** 4)])
     return {
         "hash_threshold": lambda: hash_threshold((keys,), 0.3, 1, valid),
         "fused_clean": lambda: fused_clean_groupby(gid, vals, valid, 0.3, 1, G),
@@ -85,4 +99,8 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
         "corr_diff": lambda: corr_moments(t_new, t_old, valid),
         "flash_attention": lambda: flash_attention(q, k, v, causal=False),
         "flash_attention_bwd": lambda: flash_attention_bwd(bq, bk, bv, bo, lse, dout),
+        "adamw_norm": lambda: adamw_norm(opt, opt_g, opt_step),
+        "adamw_update": lambda: adamw_apply(
+            opt, *[[x.clone() for x in xs] for xs in (opt_p, opt_g, opt_m, opt_v)],
+            [True, True, False], opt_sc),
     }
