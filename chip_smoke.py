@@ -47,7 +47,8 @@ size, through the entry points a user calls:
      4,096 tokens (the banded window mask at full width) and its first 64
      positions decoded against it; ``ssm_serve`` — xlstm-1.3b through
      ``ServeEngine`` (no attention: the mLSTM's matrix memory and the
-     sLSTM) and its forward over 2 × 512; flash ``kernel`` lines for the
+     sLSTM, whose every step is the slstm_fwd kernel) and its forward over
+     2 × 512; flash ``kernel`` lines for the
      ring decode and the banded prefill; and each smoke config served on
      the card against the CPU;
   7. training (``launch/train.py``'s ``build``): ``train_path`` —
@@ -68,7 +69,13 @@ size, through the entry points a user calls:
   8. training the other families through ``make_train_step`` in bf16 with
      float32 masters and remat "full" (``train_family``): xlstm-1.3b (48
      layers, no attention: the mLSTM's chunked parallel form and the
-     sLSTM's loop over time under autograd) and seamless-m4t-large-v2 (12 +
+     sLSTM's loop over time, one slstm_fwd launch a step forward and again
+     in the recompute, one slstm_bwd launch a step backward, counted
+     exactly; the two sLSTM ``kernel`` lines at its shape, one layer; its
+     first step held against the plain loop within the spread of two
+     rounding-sized controls, and its loss-falls check made on one
+     super-block, where rounding does not decide it) and
+     seamless-m4t-large-v2 (12 +
      12 layers, a frames stub) at their published sizes on (8, 512)
      batches, recurrentgemma-9b at its published widths and 8 of its 38
      layers on one 4,096-token sequence (the 2,048 window binds); each a
@@ -453,6 +460,27 @@ ADAMW_ODD_OFFSET = 2
 ADAMW_ODD_STEPS = 3
 ADAMW_PLAIN_ITERS = 3
 ADAMW_OPS_PER_ELEMENT = 19  # float32 update 17 (a fused multiply-add as 2), the norm's 2
+# the sLSTM's kernel lines (train_family's xlstm shape, one layer): the
+# kernels against the plain version on the same card within SLSTM_TOL of
+# each output's largest magnitude (measured on an H100: at most 3.4e-7);
+# the plain version timed over SLSTM_PLAIN_ITERS calls (~0.2 s forward and
+# ~0.5 s backward each)
+SLSTM_TOL = 5e-6
+SLSTM_PLAIN_ITERS = 2
+# calls timed with every launch queued before the card reaches it (prequeued_ms)
+SLSTM_QUEUED_ITERS = 5
+SLSTM_SEED = 7
+# train_family's xlstm: each sLSTM layer's kernels (hs, dwx, dR) on the
+# inputs its warm-up step gave them, against autograd of the plain loop on
+# the card, within SLSTM_PATH_TOL of each output's largest magnitude
+# (measured on an H100: at most 3.4e-6, dR of layer 0)
+SLSTM_PATH_TOL = 2e-5
+# train_family's xlstm at full depth: the first step's loss and grad norm
+# through the kernels against the plain loop's, within XLSTM_STEP_SPREAD
+# times the spread of the plain loop and its two controls (its outputs
+# scaled by 1 ± XLSTM_CONTROL, a rounding-sized change)
+XLSTM_CONTROL = 1e-7
+XLSTM_STEP_SPREAD = 4
 
 # the kernels each path must launch
 SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
@@ -466,13 +494,16 @@ SHARDED_KERNELS = ("fleet_score_sharded", "fleet_moments", "fused_clean_fleet", 
 SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
                  "multi_agg_one")
 FAMILY_KERNELS = ("flash_attention",)  # vlm_prefill and encdec_generate: every attention
-SSM_KERNELS = SERVE_KERNELS[1:]  # xlstm has no attention: the telemetry's kernels
+# xlstm has no attention: the telemetry's kernels and the sLSTM's forward
+SSM_KERNELS = SERVE_KERNELS[1:] + ("slstm_fwd",)
 # every attention of the train step; the loss view's unfused clean, group-bys
 # and queries; AdamW's norm and update
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "hash_threshold", "segment_aggsum",
                  "multi_agg_two", "multi_agg_one", "adamw_norm", "adamw_update")
-TRAIN_SSM_KERNELS = TRAIN_KERNELS[2:]  # xlstm has no attention: the loss view's kernels
 ADAMW_KERNELS = ("adamw_norm", "adamw_update")
+SLSTM_KERNELS = ("slstm_fwd", "slstm_bwd")
+# xlstm has no attention: the loss view's kernels, AdamW's and the sLSTM's
+TRAIN_SSM_KERNELS = TRAIN_KERNELS[2:] + SLSTM_KERNELS
 # multi_agg_moments' arguments by name: the one-sided call's six, then the
 # two-sided call's other four
 MULTI_AGG_ARGS = ("x_new", "valid_new", "w_new", "ompi_new", "sel", "meta", "x_old", "valid_old",
@@ -524,6 +555,28 @@ def host_enqueue_us(fn, iters: int) -> float:
     us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def prequeued_ms(fn, iters: int, hold_cycles: int = 100_000_000) -> float:
+    """Median device milliseconds of one call of ``fn`` whose launches were
+    all queued before the card reached them: a spin kernel
+    (``torch.cuda._sleep``, ~50 ms at the card's clock) holds the stream
+    while the host enqueues the call, which its own event pair then times.
+    What the card takes, apart from the host's launch rate."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    return float(np.median(runs))
 
 
 def cold_ms(fn, iters: int) -> float:
@@ -2496,6 +2549,96 @@ class CallCapture:
         setattr(self.mod, self.name, self.real)
 
 
+@contextlib.contextmanager
+def slstm_scan_as(scan):
+    """``kernels.slstm.ops.SLSTMScan``, which ``SLSTMBlock.full`` applies on
+    the card when a gradient is wanted, replaced by ``scan`` in this block."""
+    from repro_torch.kernels.slstm import ops
+
+    real = ops.SLSTMScan
+    ops.SLSTMScan = scan
+    try:
+        yield
+    finally:
+        ops.SLSTMScan = real
+
+
+class SLSTMCapture:
+    """While a train step runs (``with slstm_scan_as(capture.scan())``):
+    every sLSTM backward's inputs, (wx, a copy of R, the gradient reaching
+    hs), layer by layer (R is updated in place by the optimizer after the
+    step; wx and the gradient are not).  Its scan is ``SLSTMScan`` keeping
+    each forward's wx on its autograd context (the remat recompute's, which
+    the backward reads); it launches nothing of its own."""
+
+    def __init__(self):
+        self.calls = []
+
+    def scan(self):
+        from repro_torch.kernels.slstm import SLSTMScan
+
+        calls = self.calls
+
+        class Captured(SLSTMScan):
+            @staticmethod
+            def forward(ctx, wx, R):
+                ctx.inputs = wx.detach(), R.detach()  # with a graph: the first pass's activations
+                return SLSTMScan.forward(ctx, wx, R)
+
+            @staticmethod
+            def backward(ctx, dhs):
+                wx, R = ctx.inputs
+                calls.append((wx, R.clone(), dhs.contiguous()))
+                return SLSTMScan.backward(ctx, dhs)
+
+        return Captured
+
+
+class PlainScan:
+    """Stands in for ``SLSTMScan`` (``slstm_scan_as``): the plain loop under
+    autograd on the card, the model's loop before the kernels, its hs
+    scaled by ``scale`` (1 ± XLSTM_CONTROL: a rounding-sized control)."""
+
+    def __init__(self, scale: float = 1.0):
+        self.scale = scale
+
+    def apply(self, wx, R):
+        from repro_torch.kernels.slstm import slstm_scan_ref
+
+        hs = slstm_scan_ref(wx, R)[0]
+        return hs if self.scale == 1.0 else hs * self.scale
+
+
+def hold_slstm_layers(calls, what: str) -> list:
+    """The sLSTM kernels on each captured layer's inputs (``slstm_fwd`` with
+    save, then ``slstm_bwd``) against autograd of the plain loop on the
+    same tensors: hs, dwx and dR each within SLSTM_PATH_TOL of the plain
+    output's largest magnitude.  Not counted as launches."""
+    import torch
+
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd, slstm_scan_ref
+
+    held = []
+    with uncounted():
+        for layer, (wx, R, dhs) in enumerate(calls):
+            hs, _last, saved = slstm_fwd(wx, R, save=True)
+            dwx, dR = slstm_bwd(dhs, R, hs, saved)
+            w, r = wx.detach().requires_grad_(), R.detach().requires_grad_()
+            with torch.enable_grad():
+                phs = slstm_scan_ref(w, r)[0]
+                pwx, pR = torch.autograd.grad(phs, (w, r), dhs)
+            errs = {}
+            for name, a, b in (("hs", hs, phs.detach()), ("dwx", dwx, pwx), ("dR", dR, pR)):
+                scale = float(b.abs().max())
+                errs[name] = float((a - b).abs().max()) / scale if scale else 0.0
+            if not max(errs.values()) <= SLSTM_PATH_TOL:
+                fail(f"{what}: sLSTM layer {layer}'s kernels on the path's inputs {errs} against "
+                     f"autograd of the plain loop (limit {SLSTM_PATH_TOL} of the largest "
+                     "magnitude)")
+            held.append(errs)
+    return held
+
+
 def attention_layers(params) -> int:
     """The attention blocks of a model's parameters: every transformer
     block (dense, moe, vlm) and the hybrid's attention blocks."""
@@ -4394,6 +4537,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
 
     cap = FlashCapture(wants=family_flash_wants(cfg.family, S))
     svc_caps = train_svc_captures()
+    slstm_cap = SLSTMCapture() if cfg.family == "ssm" else None
     n_steps = 1 + TRAIN_FAMILY_STEPS
     steps = []
     first_before = first_batch_loss()
@@ -4402,13 +4546,16 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         for i in range(n_steps):
             b = batch(i)
             flash0 = kernels.launch_counts()
-            met, step_s = wall(lambda: one_step(b))
+            with (slstm_scan_as(slstm_cap.scan()) if slstm_cap is not None and i == 0
+                  else contextlib.nullcontext()):
+                met, step_s = wall(lambda: one_step(b))
             flash1 = kernels.launch_counts()
             steps.append({"step": i + 1, "wall_s": step_s, "tok_per_s": B * S / step_s,
                           "flash_launches": flash1["flash_attention"] - flash0["flash_attention"],
                           "flash_bwd_launches": flash1["flash_attention_bwd"]
                           - flash0["flash_attention_bwd"],
                           "adamw_launches": [flash1[k] - flash0[k] for k in ADAMW_KERNELS],
+                          "slstm_launches": [flash1[k] - flash0[k] for k in SLSTM_KERNELS],
                           **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
             stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
             if i > 0 and i % TRAIN_SVC_EVERY == 0:
@@ -4446,6 +4593,15 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
              f"{[s['flash_bwd_launches'] for s in steps]}, expected {attentions} (one an "
              "attention)")
     adamw_per_step = check_adamw_launches(steps, len(named), f"train_family {cfg.name}")
+    # the sLSTM's kernels: one forward launch a time step and layer, twice
+    # under remat (the recompute), and one backward launch
+    sl_layers = cfg.n_layers // cfg.slstm_every if cfg.family == "ssm" else 0
+    passes = 1 if cfg.remat == "none" else 2
+    slstm_per_step = [sl_layers * S * passes, sl_layers * S]
+    if any(s["slstm_launches"] != slstm_per_step for s in steps):
+        fail(f"train_family {cfg.name}: (slstm_fwd, slstm_bwd) launches per step "
+             f"{[s['slstm_launches'] for s in steps]}, expected {slstm_per_step} ({sl_layers} "
+             f"sLSTM layers x {S} steps, the forward {passes} times)")
     # one step under the kernel profiler (every dispatch synchronized)
     prof = KernelProfiler()
     kernels.set_profiler(prof)
@@ -4460,6 +4616,8 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
     want_ops = {"adamw_norm": 1, "adamw_update": 1}
     if attentions:
         want_ops.update(flash_attention=per_step, flash_attention_bwd=attentions)
+    if sl_layers:
+        want_ops.update(slstm_fwd=sl_layers * passes, slstm_bwd=sl_layers)
     for op, got in ops.items():
         if got.get("fallbacks") != 0:
             fail(f"train_family {cfg.name}: under the kernel profiler {op} read {got}")
@@ -4471,7 +4629,29 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         profile, profile_wall_s = wall(lambda: profile_raw(lambda: one_step(batch(n_steps + 1))))
         first_after = first_batch_loss()
     del box
-    if not first_after < first_before:
+    slstm_held = None
+    if slstm_cap is not None:
+        slstm_held = hold_slstm_layers(slstm_cap.calls, f"train_family {cfg.name}")
+        if len(slstm_held) != slstm_per_step[1] // S:
+            fail(f"train_family {cfg.name}: {len(slstm_held)} sLSTM backwards captured in the "
+                 f"warm-up step, expected {slstm_per_step[1] // S}")
+        del slstm_cap
+    # a random xlstm deeper than one super-block amplifies a rounding some
+    # 1e4-fold into its loss and gradient, in JAX too
+    # (tests/torch_xlstm_train_depth.py): whether batch 0's loss falls over a
+    # few steps is decided by rounding there, so xlstm's check is made on one
+    # super-block (xlstm_superblock_trains), and its whole first step at full
+    # depth is held against the plain loop within what rounding does
+    # (hold_xlstm_step)
+    chaotic = cfg.family == "ssm" and cfg.n_layers > cfg.slstm_every
+    xlstm_held = None
+    if chaotic:
+        with uncounted():
+            xlstm_held = {
+                "first_step": hold_xlstm_step(model, seed, batch(0), f"train_family {cfg.name}"),
+                "one_superblock": xlstm_superblock_trains(cfg, seed, batch,
+                                                          f"train_family {cfg.name}", device)}
+    elif not first_after < first_before:
         fail(f"train_family {cfg.name}: the first batch's loss did not fall: {first_before} "
              f"before the steps, {first_after} after; steps {steps}")
     warm = steps[1:]
@@ -4497,6 +4677,9 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         "peak_device_gb": peak_gb,
         "launches": launches, "flash_launches_per_step": per_step,
         "adamw_launches_per_step": 2 * adamw_per_step,
+        "slstm_launches_per_step": slstm_per_step,
+        "slstm_layers_vs_plain_autograd": slstm_held,
+        "xlstm_step_holds": xlstm_held,
         "kprof_step": {k: ops[k] for k in sorted(ops)},
         "svc_estimates": [{"domain": d, "estimate": e, "ci": [lo, hi]}
                           for d, (e, (lo, hi)) in enumerate(estimates)],
@@ -4505,6 +4688,188 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         "step_profile": profile, "profiled_step_wall_s": profile_wall_s,
     }
     return report, cap, launches
+
+
+def hold_xlstm_step(model, seed, b, what: str) -> dict:
+    """xlstm's whole first train step (``make_train_step``: the forward, the
+    loss, the backward and AdamW) from the masters of ``seed`` on batch
+    ``b``, the sLSTM's recurrence run four ways: the kernels, the plain loop
+    (``PlainScan``), and the plain loop with its outputs scaled by
+    1 + XLSTM_CONTROL and by 1 − XLSTM_CONTROL (the controls).  Every loss
+    and grad norm must be finite, and the kernels' loss and grad norm each
+    lie within XLSTM_STEP_SPREAD times the widest distance among the plain
+    loop and its controls from the plain loop's."""
+    import itertools
+
+    import torch
+
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    step = make_train_step(model, AdamWConfig(**TRAIN_FAMILY_OPT))
+
+    def first(scan):
+        state = init_train_state(model, seed)
+        with slstm_scan_as(scan) if scan is not None else contextlib.nullcontext():
+            state, met = step(state, b)
+        out = [float(met["loss"]), float(met["grad_norm"])]
+        del state, met
+        torch.cuda.empty_cache()
+        return out
+
+    runs = {"kernels": first(None), "plain": first(PlainScan())}
+    for sign in (1.0, -1.0):
+        runs[f"plain x (1 {'+' if sign > 0 else '-'} {XLSTM_CONTROL})"] = first(
+            PlainScan(1.0 + sign * XLSTM_CONTROL))
+    if not all(math.isfinite(v) for r in runs.values() for v in r):
+        fail(f"{what}: a non-finite first-step loss or grad norm: {runs}")
+    refs = [r for name, r in runs.items() if name != "kernels"]
+    held = {}
+    for i, q in enumerate(("loss", "grad_norm")):
+        spread = max(abs(a[i] - c[i]) for a, c in itertools.combinations(refs, 2))
+        dist = abs(runs["kernels"][i] - runs["plain"][i])
+        held[q] = {"kernels_vs_plain": dist, "control_spread": spread}
+        if not dist <= XLSTM_STEP_SPREAD * spread:
+            fail(f"{what}: the first step's {q} through the kernels lies {dist} from the plain "
+                 f"loop's, beyond {XLSTM_STEP_SPREAD} x the controls' spread {spread}: {runs}")
+    return {"runs": {name: dict(zip(("loss", "grad_norm"), r)) for name, r in runs.items()},
+            "held": held, "limit": f"{XLSTM_STEP_SPREAD} x the control spread"}
+
+
+def xlstm_superblock_trains(cfg, seed, batch, what: str, device="cuda") -> dict:
+    """xlstm cut to one super-block (its mLSTM layers and one sLSTM) at the
+    run's widths, batches and optimizer, from the masters of ``seed``: a
+    warm-up and TRAIN_FAMILY_STEPS steps through the kernels, every loss and
+    grad norm finite, and batch 0's loss after them below its loss before
+    (``run_family_train``'s check, at a depth where rounding does not
+    decide it)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.train_step import cross_entropy
+
+    cut = dc.replace(cfg, n_layers=cfg.slstm_every)
+    model = get_model(cut, device=device, train=True)
+    step = make_train_step(model, AdamWConfig(**TRAIN_FAMILY_OPT))
+    box = [init_train_state(model, seed)]
+
+    def batch0_loss():
+        b = batch(0)
+        with torch.no_grad():
+            return float(cross_entropy(model.forward(box[0].params, b)[0], b["labels"])[0])
+
+    before = batch0_loss()
+    steps = []
+    for i in range(1 + TRAIN_FAMILY_STEPS):
+        box[0], met = step(box[0], batch(i))
+        steps.append({k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale")})
+    after = batch0_loss()
+    del box
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps):
+        fail(f"{what}, {cut.n_layers} layers: a non-finite loss or grad norm: {steps}")
+    if not after < before:
+        fail(f"{what}, {cut.n_layers} layers: the first batch's loss did not fall: {before} "
+             f"before the steps, {after} after; steps {steps}")
+    return {"n_layers": cut.n_layers, "steps": steps,
+            "first_batch_loss_before_after": [before, after]}
+
+
+def slstm_entries(B, S, d, launches, iters, device="cuda") -> list:
+    """The sLSTM's kernel lines at (B, S, d), one layer: wx ~ N(0, 1) and R
+    at the init scale (0.5/sqrt(d)) from SLSTM_SEED, and dhs ~ N(0, 1).
+    Held: the forward (``save=True``, as every train forward calls it: hs,
+    the last state and the saved gates and states) and the backward (dwx,
+    dR from the kernel's saved forward) against the plain version on the
+    same inputs, within SLSTM_TOL of each output's largest magnitude.
+    Timed (CUDA events): each wrapper call (``ms``), the same call with
+    all its launches queued before the card starts (``prequeued_ms``), the
+    plain version over SLSTM_PLAIN_ITERS calls, and the host's enqueue of
+    a call.  The bound:
+    the larger of the operations (2·B·d·d a step for R·h, and for the
+    backward's dh also the dR product, at the float32 CUDA-core peak) and
+    the bytes (every input read once, R once, every output written once);
+    beside it the time R takes to stream from device memory once a step,
+    the price of relaunching each step.  No PyTorch call computes the
+    recurrence: ``library_ms`` is null."""
+    import torch
+
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_bwd_ref, slstm_fwd, slstm_scan_ref
+    from repro_torch.kernels.slstm.ref import slstm_dR
+
+    gen = torch.Generator(device=device).manual_seed(SLSTM_SEED)
+    wx = torch.randn((B, S, 4 * d), generator=gen, device=device)
+    R = torch.randn((4, d // 4, d), generator=gen, device=device) * (0.5 / d ** 0.5)
+    dhs = torch.randn((B, S, d), generator=gen, device=device)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    def hold(what, pairs):
+        errs = {name: rel(a, b) for name, a, b in pairs}
+        worst = max(errs.values())
+        if not worst <= SLSTM_TOL:
+            fail(f"{what}: {errs} against the plain version (limit {SLSTM_TOL} of the largest "
+                 "magnitude)")
+        abs_err = max(float((a.double() - b.double()).abs().max()) for _n, a, b in pairs)
+        return errs, abs_err
+
+    with uncounted():
+        hs, last, saved = slstm_fwd(wx, R, save=True)
+        rhs, rlast, rsaved = slstm_scan_ref(wx, R, save=True)
+        fwd_errs, fwd_abs = hold("slstm_fwd", [("hs", hs, rhs)] + [
+            (f"last {n}", a, b) for n, a, b in zip("hcnm", last, rlast)] + [
+            (f"saved {n}", a, b) for n, a, b in zip("gcnm", saved, rsaved)])
+        del rhs, rlast, rsaved
+        dwx, dR = slstm_bwd(dhs, R, hs, saved)
+        rwx, rR = slstm_bwd_ref(dhs, R, hs, saved)
+        bwd_errs, bwd_abs = hold("slstm_bwd", [("dwx", dwx, rwx), ("dR", dR, rR)])
+        del dwx, dR, rwx, rR
+        fwd_ms = cuda_ms(lambda: slstm_fwd(wx, R, save=True), iters)
+        fwd_nosave_ms = cuda_ms(lambda: slstm_fwd(wx, R), iters)
+        bwd_ms = cuda_ms(lambda: slstm_bwd(dhs, R, hs, saved), iters)
+        dG = slstm_bwd(dhs, R, hs, saved)[0]
+        dR_ms = cuda_ms(lambda: slstm_dR(hs, dG), iters)  # the backward's product after its loop
+        del dG
+        fwd_queued_ms = prequeued_ms(lambda: slstm_fwd(wx, R, save=True), SLSTM_QUEUED_ITERS)
+        bwd_queued_ms = prequeued_ms(lambda: slstm_bwd(dhs, R, hs, saved), SLSTM_QUEUED_ITERS)
+        fwd_host_us = host_enqueue_us(lambda: slstm_fwd(wx, R, save=True), iters)
+        bwd_host_us = host_enqueue_us(lambda: slstm_bwd(dhs, R, hs, saved), iters)
+        plain_fwd_ms = cuda_ms(lambda: slstm_scan_ref(wx, R, save=True), SLSTM_PLAIN_ITERS)
+        plain_bwd_ms = cuda_ms(lambda: slstm_bwd_ref(dhs, R, hs, saved), SLSTM_PLAIN_ITERS)
+    f4, steps_ops = 4, 2 * B * d * d * S  # R·h over every step
+    r_bytes = f4 * R.numel()
+    state = f4 * B * d
+    r_stream_ms = r_bytes * S / HBM_BYTES_PER_S * 1e3
+    common = dict(route="cuda", source="src/repro_torch/csrc/slstm.cu", library_ms=None,
+                  library_call="none: no PyTorch call computes the sLSTM's recurrence",
+                  shape={"B": B, "S": S, "d": d}, launches_per_call=S,
+                  r_streamed_from_hbm_each_step_ms=r_stream_ms, tolerance=SLSTM_TOL)
+    fwd = kernel_entry(
+        "slstm_fwd", replaces="none: the forward of XLA's lax.scan at "
+        "src/repro/models/xlstm.py:242-256 (the einsum with R, then _slstm_cell at :213)",
+        launches=launches["slstm_fwd"], err=fwd_abs, ms=fwd_ms, plain_ms=plain_fwd_ms,
+        bytes_=f4 * B * S * 4 * d + r_bytes + 4 * state + f4 * B * S * d * 4 + f4 * B * S * 4 * d,
+        ops=steps_ops, rel_errs=fwd_errs, ms_without_save=fwd_nosave_ms,
+        host_enqueue_us=fwd_host_us, ms_launches_prequeued=fwd_queued_ms,
+        bound_counts="operations: 2·B·d·d a step (R·h); bytes: wx and R read, hs, the last "
+                     "state and the saved gates and c, n, m written",
+        plain_call="slstm_scan_ref(wx, R, save=True): the model's loop before the kernel",
+        **common)
+    bwd = kernel_entry(
+        "slstm_bwd", replaces="none: the VJP JAX's autodiff takes of the lax.scan at "
+        "src/repro/models/xlstm.py:242-256",
+        launches=launches["slstm_bwd"], err=bwd_abs, ms=bwd_ms, plain_ms=plain_bwd_ms,
+        bytes_=f4 * B * S * d * 2 + r_bytes + f4 * B * S * 4 * d * 2 + f4 * B * S * d * 3
+        + r_bytes, ops=2 * steps_ops, rel_errs=bwd_errs, dR_product_ms=dR_ms,
+        host_enqueue_us=bwd_host_us, ms_launches_prequeued=bwd_queued_ms,
+        bound_counts="operations: 2·B·d·d a step for dg·Rᵀ and as many for dR; bytes: dhs, "
+                     "hs, R, the saved gates and c, n, m read, dwx and dR written",
+        plain_call="slstm_bwd_ref: the hand-derived backward in plain PyTorch, step by step",
+        **common)
+    return [fwd, bwd]
 
 
 def train_family_phases(smi: str, device: str = "cuda", runs=TRAIN_FAMILY_RUNS) -> list:
@@ -4529,6 +4894,10 @@ def train_family_phases(smi: str, device: str = "cuda", runs=TRAIN_FAMILY_RUNS) 
         emit({"phase": "train_family", **report, "card": smi})
         gc.collect()
         torch.cuda.empty_cache()
+        if report["family"] == "ssm":
+            from repro_torch.configs import get_config
+
+            lines += slstm_entries(B, S, get_config(arch).d_model, launches, ITERS, device)
         for label, (q, k, v) in cap.captured.items():
             mask, causal = cap.masks[label], cap.causal[label]
             what = f"train_family {arch} {label} (layer 0, captured)"

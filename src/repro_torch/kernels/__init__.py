@@ -40,6 +40,12 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
   adamw_update    — AdamW's update of every leaf's p, m and v, one launch a
                     step (both on every train step on the card; JAX has no
                     op name for either, XLA fuses its update)
+  slstm_fwd       — the sLSTM's recurrence over a sequence, one launch a
+                    time step (every xlstm forward, recompute and decode
+                    on the card)
+  slstm_bwd       — its gradient, one launch a time step backward, then
+                    dR as one batched product (JAX has no op name for
+                    either: XLA compiles its lax.scan)
 
 Every wrapper dispatches through ``obs.kprof.profiled`` under the JAX
 package's op name where it has one (``op_names``); ``set_profiler`` /
@@ -75,6 +81,8 @@ _OPS = {
     "flash_attention_bwd": "flash_attention_bwd",
     "adamw_norm": "adamw_norm",
     "adamw_update": "adamw_update",
+    "slstm_fwd": "slstm_fwd",
+    "slstm_bwd": "slstm_bwd",
 }
 
 
@@ -91,6 +99,7 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
     from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
     from repro_torch.kernels.segment_aggsum.ops import segment_groupby, segment_sum
+    from repro_torch.kernels.slstm.ops import slstm_bwd, slstm_fwd
 
     return {
         "hash_threshold": hash_threshold,
@@ -111,6 +120,8 @@ def wrappers() -> Dict[str, object]:
         "flash_attention_bwd": flash_attention_bwd,
         "adamw_norm": adamw_norm,
         "adamw_update": adamw_apply,
+        "slstm_fwd": slstm_fwd,
+        "slstm_bwd": slstm_bwd,
     }
 
 

@@ -199,10 +199,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first made under inference_mode: autograd
+    # saves it in maximum's backward
+    with torch.inference_mode(False):
+        return torch.full((), value, dtype=dtype, device=device)
+
+
+def maximum(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``jnp.maximum(x, value)``: ``torch.maximum`` against a 0-d constant
+    of x's dtype and device (made once per dtype and device).  At a tie its
+    gradient goes half to x, as ``jnp.maximum``'s does; ``clamp_min`` would
+    pass all of it.  The forward is ``clamp_min``'s, bit for bit."""
+    return torch.maximum(x, _constant(value, x.dtype, x.device))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` = max(x, 0) +
-    log1p(exp(−|x|)) (no large-x cutoff, unlike ``F.softplus``)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    log1p(exp(−|x|)) (no large-x cutoff, unlike ``F.softplus``); its
+    gradient at 0 is 0.5, as ``logaddexp``'s is."""
+    return maximum(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -85,7 +85,7 @@ def rglru_gates(xb: torch.Tensor, blk: "RecBlock") -> Tuple[torch.Tensor, torch.
     i = torch.sigmoid(xb @ blk.w_i.to(dt) + blk.b_i.to(dt))
     log_a = (-RGLRU_C * L.softplus(blk.lam.float())) * r.float()
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-6)) * (i.float() * xb.float())
+    b = torch.sqrt(L.maximum(1.0 - a * a, 1e-6)) * (i.float() * xb.float())
     return a, b
 
 

@@ -6,7 +6,8 @@ Super-blocks of (slstm_every − 1) mLSTM layers and one sLSTM layer (48 =
 decay chunked over queries of ``CHUNK``, and ``decode_step`` updates the
 O(1) per-head matrix memory ``C_t = f' C_{t−1} + i' (k ⊗ v)``.  sLSTM
 keeps a true recurrence (block-diagonal ``R`` over 4 heads) and runs as a
-loop over time, as JAX's ``lax.scan`` does.
+loop over time, as JAX's ``lax.scan`` does: on the card as the
+``kernels.slstm`` kernels, one launch a step.
 
 Dtypes follow JAX's: matrices in ``compute_dtype``; ``b_f``, sLSTM's ``b``
 and ``R`` in f32 and used uncast; the parallel form materializes its decay
@@ -20,9 +21,10 @@ super-block (its mLSTM layers and its sLSTM) under ``layers.remat``, as
 JAX scans ``_remat(sb_body)``; the gradient flows through the parallel
 form's chunks (the row max's through ``amax``, which splits it evenly
 between tied maxima, as ``jnp.max``'s does) and the sLSTM's loop over
-time.  ``prefill`` and ``decode_step`` build no graph.  Under a
-``ParallelCtx`` the pins go through ``parallel.constrain`` (JAX's ``_pin``
-after each block and the sLSTM's batch-only pins), which computes nothing.
+time (on the card the backward kernel).  ``prefill`` and ``decode_step``
+build no graph.  Under a ``ParallelCtx`` the pins go through
+``parallel.constrain`` (JAX's ``_pin`` after each block and the sLSTM's
+batch-only pins, here on its outputs), which computes nothing.
 On the meta device (the dry run's trace) the sLSTM's loop is one step
 counted S times, forward and backward (``obs.opcount.repeated``), as
 JAX's analyzer counts its scan's body.
@@ -45,6 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.slstm import ops as slstm_ops
+from repro_torch.kernels.slstm import ref as slstm_ref
 from repro_torch.models import layers as L
 from repro_torch.models.parallel import P, constrain
 from repro_torch.models.transformer import _add_params, _param, _pin, compute_dtype
@@ -169,24 +173,13 @@ class MLSTMBlock(nn.Module):
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def slstm_cell(state, g):
-    """state (h, c, n, m), each (B,d) f32; g (B,4d) f32 → (new state, h)."""
-    _h, c, n, m = state
-    z, i, f, o = g.chunk(4, dim=-1)
-    z = torch.tanh(z)
-    o = torch.sigmoid(o)
-    logf = L.log_sigmoid(f)
-    m_new = torch.maximum(logf + m, i)
-    iprime = torch.exp(i - m_new)
-    fprime = torch.exp(logf + m - m_new)
-    c = fprime * c + iprime * z
-    n = fprime * n + iprime
-    h = o * c / torch.clamp_min(n, 1.0)
-    return (h, c, n, m_new), h
-
-
 class SLSTMBlock(nn.Module):
-    """One sLSTM layer (JAX ``_slstm_block_full`` / ``_slstm_block_decode``)."""
+    """One sLSTM layer (JAX ``_slstm_block_full`` / ``_slstm_block_decode``).
+
+    The recurrence over time is ``kernels.slstm``'s wrapper: on the card
+    the kernel, one launch a step (``SLSTMScan`` when a gradient is wanted,
+    with the backward kernel); on the CPU its plain loop under autograd;
+    on meta one step counted S times."""
 
     def __init__(self, cfg: ArchConfig, device="cuda", masters: bool = False):
         super().__init__()
@@ -199,36 +192,37 @@ class SLSTMBlock(nn.Module):
     def _gates_in(self, x):
         return (L.rmsnorm(x, self.ln, self.cfg.norm_eps) @ self.W.to(x.dtype)).float() + self.b
 
-    def _step(self, state, wx_t, R=None):
-        h = state[0]
-        B = h.shape[0]
-        R = self.R if R is None else R
-        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, 4, -1), R).reshape(B, -1)
-        return slstm_cell(state, wx_t + rec)
-
     def full(self, x, ctx=None):
         B, S, d = x.shape
         wx = self._gates_in(x)  # (B,S,4d) f32
         if ctx is not None:
             wx = constrain(wx, ctx, P(ctx.dp_axes, None, None))
-        state = tuple(torch.zeros((B, d), dtype=torch.float32, device=x.device)
-                      for _ in range(4))
         if x.device.type == "meta":  # one step, counted S times
-            h = opcount.repeated(lambda R, w, *st: self._step(st, w, R)[0], S, self.R,
-                                 wx[:, 0], *state, name="slstm_time")[0]
+            state = slstm_ref.zero_state(B, d, x.device)
+            h = opcount.repeated(lambda R, w, *st: slstm_ref.slstm_step_ref(st, w, R)[0], S,
+                                 self.R, wx[:, 0], *state, name="slstm_time")[0]
             return x + h[:, None].expand(B, S, d).to(x.dtype) @ self.w_out.to(x.dtype)
-        hs = []
-        for t in range(S):
-            state, h = self._step(state, wx[:, t])
-            if ctx is not None:
-                state = tuple(constrain(c, ctx, P(ctx.dp_axes, None)) for c in state)
-            hs.append(h)
-        return x + torch.stack(hs, 1).to(x.dtype) @ self.w_out.to(x.dtype)
+        if x.device.type == "cuda" and torch.is_grad_enabled() and (
+                wx.requires_grad or self.R.requires_grad):
+            hs = slstm_ops.SLSTMScan.apply(wx, self.R)
+        else:  # the CPU's plain loop runs under the caller's grad mode
+            hs = slstm_ops.slstm_fwd(wx, self.R)[0]
+        if ctx is not None:  # JAX's batch-only pins of every step's state and output
+            hs = constrain(hs, ctx, P(ctx.dp_axes, None, None))
+        return x + hs.to(x.dtype) @ self.w_out.to(x.dtype)
 
     def decode(self, x, states, rows=None):
         """x (B,1,d); ``states`` (h, c, n, m), each (B,d) f32, updated in
         place (at ``rows`` only when given)."""
-        new, h = self._step(tuple(states), self._gates_in(x)[:, 0])
+        wx = self._gates_in(x)
+        if x.device.type == "meta":
+            # the dry run's decode cells count one step's ops, as JAX's does:
+            # the wrapper's plain loop would add its stack of the steps (the
+            # decode_32k cell of xlstm-1.3b: 14 dispatches, 12.6 MB more)
+            new, h = slstm_ref.slstm_step_ref(tuple(states), wx[:, 0], self.R)
+        else:  # on the card the kernel (one launch), on the CPU its plain version
+            hs, new = slstm_ops.slstm_fwd(wx, self.R, states)
+            h = hs[:, 0]
         y = x + (h.to(x.dtype) @ self.w_out.to(x.dtype))[:, None]
         for dst, src in zip(states, new):
             L.put_rows(dst, src, rows)

@@ -67,6 +67,14 @@ step; leaves on the last card launch there (two or more cards) and leaves
 on two cards raise; gemma-2b's smoke config trained three steps on the
 card and the CPU within the smoke's limits (loss and grad norm 1e-5, lr
 and clip_scale 1e-6, the parameters 2e-2 of the update's norm).
+The sLSTM's recurrence (``-k slstm``): the forward and backward kernels
+against the plain version at xlstm-1.3b's widths over 512 steps (hs, the
+last state, the saved gates and states, dwx and dR within SLSTM_TOL of
+each one's largest magnitude), at ragged rows from a given state and the
+decode's one step with rows within SLSTM_CPU_TOL of the CPU's; two runs
+bit-equal; S launches of each kernel a call and no synchronize; a width
+that is not a multiple of 64 refused; xlstm's smoke config trained one
+step under each remat mode within the train step's limits of the CPU's.
 """
 
 import ctypes
@@ -2942,3 +2950,217 @@ def test_adamw_train_steps_on_the_card_match_the_cpu(dev):
             upd2 += float((cpu[name].detach() - prev[name]).norm()) ** 2
         assert err2 ** 0.5 <= 2e-2 * upd2 ** 0.5, (i, err2 ** 0.5, upd2 ** 0.5)
         assert int(states[1].opt_state["step"]) == i + 1
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM's recurrence (``-k slstm``): one launch a time step, forward and
+# backward, held to the plain version (kernels/slstm/ref.py)
+# ---------------------------------------------------------------------------
+
+SLSTM_SHAPE = (8, 512, 2048)  # xlstm-1.3b's training batch and width: B, S, d
+# of each output's largest magnitude: the kernels against the plain version
+# on the same card (measured on an H100 at xlstm-1.3b's widths over 512
+# steps by the smoke's slstm lines: at most 3.4e-7 forward, 2.8e-7
+# backward: the dot products' sums in another order, CUDA's
+# expf/tanhf/log1pf), and the decode against the CPU
+SLSTM_TOL = 5e-6
+SLSTM_CPU_TOL = 1e-5
+
+
+def _slstm_inputs(dev, B, S, d, seed=0, state=False):
+    """wx (B, S, 4d) ~ N(0, 1), R at 4× the init scale (2/sqrt(d)), dhs
+    ~ N(0, 1) and, with ``state``, a state (h, c, n ≥ 1, m)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    wx, R, dhs = rn(B, S, 4 * d), rn(4, d // 4, d, scale=2.0 / d ** 0.5), rn(B, S, d)
+    st = None
+    if state:
+        st = [rn(B, d), rn(B, d), 1.0 + rn(B, d).abs(), rn(B, d)]
+    return wx, R, dhs, st
+
+
+def _slstm_rel(a, b):
+    """|a − b|'s largest element over b's largest magnitude (|a|'s largest
+    where b is all zeros, as dR of one step from the zero state is)."""
+    scale = b.double().abs().max()
+    err = (a.double() - b.double()).abs().max()
+    return float(err / scale if scale > 0 else err)
+
+
+def test_slstm_fwd_kernel_matches_the_plain_version(dev):
+    """At xlstm-1.3b's widths over 512 steps: hs, the last state and every
+    saved gate pre-activation and state within SLSTM_TOL of the plain
+    version's largest magnitude."""
+    from repro_torch.kernels.slstm import slstm_fwd, slstm_scan_ref
+
+    B, S, d = SLSTM_SHAPE
+    wx, R, _, _ = _slstm_inputs(dev, B, S, d)
+    hs, last, saved = slstm_fwd(wx, R, save=True)
+    rhs, rlast, rsaved = slstm_scan_ref(wx, R, save=True)
+    errs = {"hs": _slstm_rel(hs, rhs)}
+    errs.update({f"last {n}": _slstm_rel(a, b) for n, a, b in zip("hcnm", last, rlast)})
+    errs.update({f"saved {n}": _slstm_rel(a, b) for n, a, b in zip("gcnm", saved, rsaved)})
+    assert all(e <= SLSTM_TOL for e in errs.values()), errs
+
+
+def test_slstm_bwd_kernel_matches_the_plain_version(dev):
+    """dwx and dR from the kernel's saved forward against ``slstm_bwd_ref``
+    on the same saved tensors, within SLSTM_TOL."""
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_bwd_ref, slstm_fwd
+
+    B, S, d = SLSTM_SHAPE
+    wx, R, dhs, _ = _slstm_inputs(dev, B, S, d, seed=1)
+    hs, _, saved = slstm_fwd(wx, R, save=True)
+    dwx, dR = slstm_bwd(dhs, R, hs, saved)
+    rwx, rR = slstm_bwd_ref(dhs, R, hs, saved)
+    errs = {"dwx": _slstm_rel(dwx, rwx), "dR": _slstm_rel(dR, rR)}
+    assert all(e <= SLSTM_TOL for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("B,S,d", [(3, 7, 64), (9, 5, 128), (1, 2, 2048), (8, 1, 2048)])
+def test_slstm_kernels_at_ragged_rows_from_a_given_state(dev, B, S, d):
+    """Rows past a block's 8 and short of it, one step and a few: the
+    forward from a given state, and the backward of the forward from the
+    zero state (the only one that takes a gradient), within SLSTM_TOL."""
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_bwd_ref, slstm_fwd, slstm_scan_ref
+
+    wx, R, dhs, st = _slstm_inputs(dev, B, S, d, seed=2, state=True)
+    hs, last = slstm_fwd(wx, R, st)
+    rhs, rlast = slstm_scan_ref(wx, R, st)
+    assert _slstm_rel(hs, rhs) <= SLSTM_TOL
+    for a, b in zip(last, rlast):
+        assert _slstm_rel(a, b) <= SLSTM_TOL
+    hs, _, saved = slstm_fwd(wx, R, save=True)
+    got, want = slstm_bwd(dhs, R, hs, saved), slstm_bwd_ref(dhs, R, hs, saved)
+    for a, b in zip(got, want):
+        assert _slstm_rel(a, b) <= SLSTM_TOL
+
+
+def test_slstm_decode_with_rows_matches_the_cpu(dev):
+    """``SLSTMBlock.decode`` at xlstm-1.3b's width (one step, the kernel)
+    for rows [0, 2] of 4 equals the CPU block's (f32, TF32 off): output
+    and every state within SLSTM_CPU_TOL, rows 1 and 3 untouched."""
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.xlstm import SLSTMBlock
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-1.3b")
+    d = cfg.d_model
+    cpu = SLSTMBlock(cfg, device="cpu", masters=True)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel()))
+                    / p.shape[-1] ** 0.5)
+    card = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 1, d), generator=g)
+    states = [torch.randn((4, d), generator=g), torch.randn((4, d), generator=g),
+              1.0 + torch.randn((4, d), generator=g).abs(), torch.randn((4, d), generator=g)]
+    on_card = [s.to(dev) for s in states]
+    rows = [0, 2]
+    before = kernels.launch_counts()["slstm_fwd"]
+    with torch.no_grad():
+        got = card.decode(x.to(dev), on_card, torch.tensor(rows, device=dev))
+        want = cpu.decode(x, states, torch.tensor(rows))
+    assert kernels.launch_counts()["slstm_fwd"] - before == 1
+    assert _slstm_rel(got.cpu(), want) <= SLSTM_CPU_TOL
+    for a, b in zip(on_card, states):
+        assert _slstm_rel(a.cpu(), b) <= SLSTM_CPU_TOL
+        assert torch.equal(a.cpu()[[1, 3]], b[[1, 3]])
+
+
+def test_slstm_repeats_bit_for_bit(dev):
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd
+
+    B, S, d = SLSTM_SHAPE
+    wx, R, dhs, _ = _slstm_inputs(dev, B, 64, d, seed=4)
+    outs = []
+    for _ in range(2):
+        hs, last, saved = slstm_fwd(wx, R, save=True)
+        outs.append([hs, *last, *saved, *slstm_bwd(dhs, R, hs, saved)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_slstm_launches_once_a_step_without_a_synchronize(dev):
+    """S launches of each kernel a call, whatever B: the wrappers'
+    counters exactly, and the card's own kernels under the profiler, which
+    at times drops up to one kernel a call and never adds one; neither
+    wrapper synchronizes."""
+    from repro_torch import kernels
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd
+    from repro_torch.kernels.slstm.ref import slstm_dR
+
+    for B, S, d in ((8, 48, 2048), (17, 48, 128)):
+        wx, R, dhs, _ = _slstm_inputs(dev, B, S, d, seed=5)
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            hs, _, saved = slstm_fwd(wx, R, save=True)
+            slstm_bwd(dhs, R, hs, saved)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        after = kernels.launch_counts()
+        assert after["slstm_fwd"] - before["slstm_fwd"] == S
+        assert after["slstm_bwd"] - before["slstm_bwd"] == S
+        assert S - 1 <= _device_launches(lambda: slstm_fwd(wx, R)) <= S
+        dG = slstm_bwd(dhs, R, hs, saved)[0]
+        loop = (_device_launches(lambda: slstm_bwd(dhs, R, hs, saved))
+                - _device_launches(lambda: slstm_dR(hs, dG)))  # less the one product after
+        assert S - 1 <= loop <= S
+
+
+def test_slstm_wrappers_refuse_a_width_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.slstm import slstm_fwd
+
+    wx, R, _, _ = _slstm_inputs(dev, 2, 3, 96)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        slstm_fwd(wx, R)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_slstm_train_step_on_the_card_matches_the_cpu_under_remat(dev, remat):
+    """xlstm's smoke config, one train step from the same masters under
+    each remat mode: loss and grad norm within 1e-5 relative, every
+    gradient within 1e-4 of its leaf's largest; the card launches the
+    forward kernel once a step and layer (twice under remat, which
+    recomputes the loop) and the backward kernel once."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"), remat=remat)
+    toks = torch.randint(0, cfg.vocab, (4, 32), generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32)
+    models = [get_model(cfg, device=device, train=True) for device in ("cpu", dev)]
+    states = [init_train_state(m, 0) for m in models]
+    states[1].params.load_state_dict(states[0].params.state_dict())
+    runs = []
+    for model, state in zip(models, states):
+        d = model.device
+        batch = {"tokens": toks.to(d), "labels": toks.roll(-1, 1).to(d),
+                 "domain": torch.arange(4, dtype=torch.int32, device=d)}
+        before = kernels.launch_counts()
+        runs.append(make_train_step(model, AdamWConfig(lr=1e-3))(state, batch))
+        after = kernels.launch_counts()
+    layers = cfg.n_layers // cfg.slstm_every
+    assert after["slstm_fwd"] - before["slstm_fwd"] == layers * 32 * (1 if remat == "none" else 2)
+    assert after["slstm_bwd"] - before["slstm_bwd"] == layers * 32
+    (cs, cm), (ds, dm) = runs
+    for key in ("loss", "grad_norm"):
+        assert abs(float(dm[key]) - float(cm[key])) <= 1e-5 * abs(float(cm[key])), key
+    cpu = dict(cs.params.named_parameters())
+    for name, p in ds.params.named_parameters():
+        want = cpu[name].grad
+        assert float((p.grad.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max()), name

@@ -27,6 +27,7 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
     from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
     from repro_torch.kernels.segment_aggsum import segment_groupby, segment_sum
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd, slstm_scan_ref
 
     rng = np.random.default_rng(0)
 
@@ -81,6 +82,14 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     opt_sc = Scalars(torch.tensor(4, dtype=torch.int32, device=dev),
                      *[torch.tensor(x, dtype=torch.float32, device=dev)
                        for x in (5e-3, 2.0, 0.25, 1 - 0.9 ** 4, 1 - 0.95 ** 4)])
+    # the sLSTM over 5 steps of 3 rows (d = 64) from a given state; the
+    # backward's saved forward from the plain version
+    sl_wx = t(rng.normal(size=(3, 5, 256)).astype(np.float32))
+    sl_R = t((rng.normal(size=(4, 16, 64)) * 0.25).astype(np.float32))
+    sl_state = [t(rng.normal(size=(3, 64)).astype(np.float32)) for _ in range(4)]
+    sl_state[2] = sl_state[2].abs() + 1.0
+    sl_dhs = t(rng.normal(size=(3, 5, 64)).astype(np.float32))
+    sl_hs, _, sl_saved = slstm_scan_ref(sl_wx, sl_R, save=True)  # a gradient's: from zeros
     return {
         "hash_threshold": lambda: hash_threshold((keys,), 0.3, 1, valid),
         "fused_clean": lambda: fused_clean_groupby(gid, vals, valid, 0.3, 1, G),
@@ -103,4 +112,6 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
         "adamw_update": lambda: adamw_apply(
             opt, *[[x.clone() for x in xs] for xs in (opt_p, opt_g, opt_m, opt_v)],
             [True, True, False], opt_sc),
+        "slstm_fwd": lambda: slstm_fwd(sl_wx, sl_R, sl_state, save=True),
+        "slstm_bwd": lambda: slstm_bwd(sl_dhs, sl_R, sl_hs, sl_saved),
     }
