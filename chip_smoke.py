@@ -60,8 +60,12 @@ size, through the entry points a user calls:
      ingesting every step (refreshed every 2, the mixture re-weighted at
      step 4, then a full maintenance whose exact answers the SVC estimates
      are reported against), one step under the kernel profiler and one
-     under ``torch.profiler``; the flash ``kernel`` lines at the training
-     shape, forward and backward, each beside SDPA's; ``train_device_vs_cpu`` — the
+     under ``torch.profiler``; every step's loss through the cross-entropy
+     kernels (``cross_entropy_fwd`` once a microbatch, ``cross_entropy_bwd``
+     once in its backward, counted exactly); the flash ``kernel`` lines at
+     the training shape, forward and backward, each beside SDPA's, and the
+     two cross-entropy lines at its 4,096 × 256,000 bf16 logits, each beside
+     ``F.cross_entropy``'s; ``train_device_vs_cpu`` — the
      smoke configs of gemma-2b, grok-1-314b and the hybrid, ssm and encdec
      archs trained 3 steps on the card and on the CPU; ``train_restart`` —
      ``launch/train.main`` with checkpoints and a host lost at step 6,
@@ -81,7 +85,9 @@ size, through the entry points a user calls:
      layers on one 4,096-token sequence (the 2,048 window binds); each a
      warm-up and 3 timed steps with the loss view ingesting, one step under
      each profiler, and flash ``kernel`` lines, forward and backward, at the
-     banded, encoder and cross shapes, each beside SDPA's;
+     banded, encoder and cross shapes, each beside SDPA's; the cross-entropy
+     kernels once each a step on every family, and their two lines at
+     seamless's 4,096 × 256,206 (rows off the 16-byte grid);
   9. the dry run (``launch/dryrun.py``, ``dryrun``): every arch's
      ``train_4k`` and ``decode_32k`` cells, and ``long_500k`` for the two
      sub-quadratic archs, traced on the meta device over the 16×16
@@ -460,6 +466,21 @@ ADAMW_ODD_OFFSET = 2
 ADAMW_ODD_STEPS = 3
 ADAMW_PLAIN_ITERS = 3
 ADAMW_OPS_PER_ELEMENT = 19  # float32 update 17 (a fused multiply-add as 2), the norm's 2
+# the cross-entropy's kernel lines: gemma-2b's train shape (8 × 512 rows of
+# its 256,000 vocabulary, bf16) and seamless-m4t-large-v2's (256,206, whose
+# bf16 rows start 4 bytes past a 16-byte boundary), seeded logits and labels
+# in range; the forward's lse and nll against the plain version's within
+# CE_TOL of their largest magnitude (float32 sums of the row's exps in
+# another order), the backward from the kernel's lse within one bf16 ulp of
+# the plain backward's; the held copy of the labels also wraps (−1, −V) and
+# leaves the range (V), whose NaN must match.  The plain version timed over
+# CE_PLAIN_ITERS calls (~12 ms forward, ~17 ms backward each); the library
+# call is F.cross_entropy(logits.float(), labels, reduction="none"), its
+# forward and its backward (the nll alone: it returns no lse)
+CE_TOL = 1e-5
+CE_PLAIN_ITERS = 5
+CE_SEED = 11
+CE_OPS_PER_ELEMENT = 4  # forward: max, subtract, exp, add; backward: subtract, exp, two products
 # the sLSTM's kernel lines (train_family's xlstm shape, one layer): the
 # kernels against the plain version on the same card within SLSTM_TOL of
 # each output's largest magnitude (measured on an H100: at most 3.4e-7);
@@ -497,12 +518,15 @@ FAMILY_KERNELS = ("flash_attention",)  # vlm_prefill and encdec_generate: every 
 # xlstm has no attention: the telemetry's kernels and the sLSTM's forward
 SSM_KERNELS = SERVE_KERNELS[1:] + ("slstm_fwd",)
 # every attention of the train step; the loss view's unfused clean, group-bys
-# and queries; AdamW's norm and update
+# and queries; AdamW's norm and update; the loss's cross-entropy
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "hash_threshold", "segment_aggsum",
-                 "multi_agg_two", "multi_agg_one", "adamw_norm", "adamw_update")
+                 "multi_agg_two", "multi_agg_one", "adamw_norm", "adamw_update",
+                 "cross_entropy_fwd", "cross_entropy_bwd")
 ADAMW_KERNELS = ("adamw_norm", "adamw_update")
+CE_KERNELS = ("cross_entropy_fwd", "cross_entropy_bwd")
 SLSTM_KERNELS = ("slstm_fwd", "slstm_bwd")
-# xlstm has no attention: the loss view's kernels, AdamW's and the sLSTM's
+# xlstm has no attention: the loss view's kernels, AdamW's, the
+# cross-entropy's and the sLSTM's
 TRAIN_SSM_KERNELS = TRAIN_KERNELS[2:] + SLSTM_KERNELS
 # multi_agg_moments' arguments by name: the one-sided call's six, then the
 # two-sided call's other four
@@ -3597,6 +3621,7 @@ def run_train_path(argv, seed, device="cuda"):
                           "flash_bwd_launches": flash1["flash_attention_bwd"]
                           - flash0["flash_attention_bwd"],
                           "adamw_launches": [flash1[k] - flash0[k] for k in ADAMW_KERNELS],
+                          "ce_launches": [flash1[k] - flash0[k] for k in CE_KERNELS],
                           **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
             stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
             if i > 0 and i % args.svc_every == 0:
@@ -3616,6 +3641,7 @@ def run_train_path(argv, seed, device="cuda"):
         fail("train_path: flash_attention_bwd launches per step "
              f"{[s['flash_bwd_launches'] for s in steps]}, expected {cfg.n_layers} (one a layer)")
     adamw_per_step = check_adamw_launches(steps, len(leaves), "train_path")
+    check_ce_launches(steps, args.microbatches, "train_path")
     if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps):
         fail(f"train_path: a non-finite loss or grad norm: {steps}")
     after = probe_params(state.params)
@@ -3651,7 +3677,9 @@ def run_train_path(argv, seed, device="cuda"):
         kernels.set_profiler(None)
     ops = prof.summary()
     for op, want in (("flash_attention", per_step), ("flash_attention_bwd", cfg.n_layers),
-                     ("adamw_norm", 1), ("adamw_update", 1)):
+                     ("adamw_norm", 1), ("adamw_update", 1),
+                     ("cross_entropy_fwd", args.microbatches),
+                     ("cross_entropy_bwd", args.microbatches)):
         got = ops.get(op, {})
         if got.get("dispatches") != want or got.get("fallbacks") != 0:
             fail(f"train_path: under the kernel profiler {op} read {got}, expected {want} "
@@ -3675,7 +3703,7 @@ def run_train_path(argv, seed, device="cuda"):
     flops = train_flops(cfg, B, S)
     report = {
         "arch": cfg.name, "params": n_params, "dtype": cfg.compute_dtype, "remat": cfg.remat,
-        "microbatches": args.microbatches, "state_allocated_bytes": state_allocated,
+        "vocab": cfg.vocab, "microbatches": args.microbatches, "state_allocated_bytes": state_allocated,
         "state_bytes": {"params": 4 * n_params, "grads": 4 * n_params, "adamw_m": 4 * n_params,
                         "adamw_v": 4 * n_params},
         "batch": B, "seq": S, "steps": steps, "init_s": init_s,
@@ -3692,6 +3720,7 @@ def run_train_path(argv, seed, device="cuda"):
         "flash_launches_per_step": per_step, "kprof_step": {k: ops[k] for k in sorted(ops)},
         "adamw_s": adamw_walls["kernel_s"], "adamw_plain_s": adamw_walls["plain_s"],
         "adamw_launches_per_step": 2 * adamw_per_step,
+        "ce_launches_per_step": [args.microbatches] * 2,
         # the norm reads every gradient (4 bytes a parameter), the update
         # reads p, g, m, v and writes p, m, v (28)
         "adamw_bound_s": 32 * n_params / HBM_BYTES_PER_S,
@@ -3717,6 +3746,14 @@ def check_adamw_launches(steps, n_leaves, what) -> int:
              f"{[s['adamw_launches'] for s in steps]}, expected {per_call} each "
              f"({n_leaves} leaves)")
     return per_call
+
+
+def check_ce_launches(steps, microbatches, what) -> None:
+    """Every step launched each cross-entropy kernel once a microbatch."""
+    if any(s["ce_launches"] != [microbatches] * 2 for s in steps):
+        fail(f"{what}: cross_entropy_fwd and cross_entropy_bwd launches per step "
+             f"{[s['ce_launches'] for s in steps]}, expected {microbatches} each (one a "
+             "microbatch)")
 
 
 def adamw_close(got, want, what) -> float:
@@ -3889,6 +3926,90 @@ def adamw_entry(cfg, named, opt_state, ranks, launches, iters):
         bound_counts="bytes: g read by the norm (4 a parameter); p, g, m, v read and p, m, v "
                      "written by the update (28); operations: ~19 float32 an element")
     return line, {"kernel_s": kernel_s, "plain_s": plain_s}
+
+
+def ce_entries(B, S, V, launches, iters, what, device="cuda") -> list:
+    """The cross-entropy kernels' two lines at (B·S, V) bf16: each against
+    the plain version on the same seeded inputs and timed beside it, beside
+    the library call and the bytes bound (the forward reads N·V·2 bytes,
+    the backward reads and writes as many)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd, cross_entropy_bwd_ref,
+                                                   cross_entropy_fwd, cross_entropy_ref)
+
+    N = B * S
+    gen = torch.Generator(device=device).manual_seed(CE_SEED)
+    x = (torch.randn((N, V), device=device, generator=gen) * 2.0).to(torch.bfloat16)
+    lab = torch.randint(0, V, (N,), device=device, generator=gen, dtype=torch.int32)
+    g_lse = torch.rand(N, device=device, generator=gen) * 1e-3
+    g_nll = torch.full((N,), 1.0 / N, device=device)
+    odd = lab.clone()
+    odd[:3] = torch.tensor([-1, -V, V], device=device)
+
+    def hold_fwd(labels):
+        got, want = cross_entropy_fwd(x, labels), cross_entropy_ref(x, labels)
+        err = 0.0
+        for name, a, b in zip(("lse", "nll"), got, want):
+            if not torch.equal(a.isnan(), b.isnan()):
+                fail(f"cross_entropy_fwd {what}: {name}'s NaN differ from the plain version's")
+            ok = ~b.isnan()
+            e = float((a[ok] - b[ok]).abs().max())
+            if not e <= CE_TOL * max(1.0, float(b[ok].abs().max())):
+                fail(f"cross_entropy_fwd {what}: {name} {e} from the plain version's (limit "
+                     f"{CE_TOL} of its largest magnitude)")
+            err = max(err, e)
+        return got[0], err
+
+    with uncounted():
+        lse, fwd_err = hold_fwd(lab)
+        hold_fwd(odd)
+        got = cross_entropy_bwd(x, lab, lse, g_lse, g_nll).double()
+        want = cross_entropy_bwd_ref(x, lab, lse, g_lse, g_nll).double()
+        diff = (got - want).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-38))) - 7)
+        if not bool((diff <= ulp).all()):
+            fail(f"cross_entropy_bwd {what}: {int((diff > ulp).sum())} elements beyond one bf16 "
+                 "ulp of the plain version's")
+        bwd_err = float(diff.max())
+        del got, want, diff, ulp
+        fwd_ms = cuda_ms(lambda: cross_entropy_fwd(x, lab), iters)
+        bwd_ms = cuda_ms(lambda: cross_entropy_bwd(x, lab, lse, g_lse, g_nll), iters)
+        plain_fwd_ms = cuda_ms(lambda: cross_entropy_ref(x, lab), CE_PLAIN_ITERS)
+        plain_bwd_ms = cuda_ms(lambda: cross_entropy_bwd_ref(x, lab, lse, g_lse, g_nll),
+                               CE_PLAIN_ITERS)
+    lab64 = lab.long()
+    lib_fwd_ms = cuda_ms(lambda: F.cross_entropy(x.float(), lab64, reduction="none"),
+                         CE_PLAIN_ITERS)
+    xr = x.detach().requires_grad_()
+    out = F.cross_entropy(xr.float(), lab64, reduction="none")
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, xr, g_nll, retain_graph=True),
+                         CE_PLAIN_ITERS)
+    del out, xr
+    e = 2  # bf16
+    common = dict(route="cuda", source="src/repro_torch/csrc/cross_entropy.cu",
+                  shape={"rows": N, "vocab": V, "dtype": "bfloat16"}, what=what,
+                  tolerance=f"lse and nll within {CE_TOL} of their largest magnitude; the "
+                            "gradient within one bf16 ulp of the plain version's",
+                  library_call='F.cross_entropy(logits.float(), labels, reduction="none"): the '
+                               "nll alone, no lse; its backward through the float() cast")
+    return [
+        kernel_entry("cross_entropy_fwd", replaces="none: XLA's fusion of "
+                     "src/repro/training/train_step.py:46-53 cross_entropy (astype(f32), "
+                     "jax.nn.logsumexp, take_along_axis)",
+                     launches=launches["cross_entropy_fwd"], err=fwd_err, ms=fwd_ms,
+                     plain_ms=plain_fwd_ms, bytes_=N * V * e, ops=CE_OPS_PER_ELEMENT * N * V,
+                     library_ms=lib_fwd_ms, plain_call="cross_entropy_ref(logits, labels)",
+                     **common),
+        kernel_entry("cross_entropy_bwd", replaces="none: the VJP JAX's autodiff takes of that "
+                     "composition into the logits",
+                     launches=launches["cross_entropy_bwd"], err=bwd_err, ms=bwd_ms,
+                     plain_ms=plain_bwd_ms, bytes_=2 * N * V * e, ops=CE_OPS_PER_ELEMENT * N * V,
+                     library_ms=lib_bwd_ms,
+                     plain_call="cross_entropy_bwd_ref(logits, labels, lse, g_lse, g_nll)",
+                     **common),
+    ]
 
 
 def train_svc_captures() -> dict:
@@ -4340,8 +4461,8 @@ def train_restart(argv, seed, restored_step, device="cuda") -> dict:
     ``build/``, under the kernel profiler: the lost host's step restores
     ``restored_step``'s checkpoint, the restored state equals the saved one
     bit for bit (every leaf, as saved and as read back), every step
-    dispatched ``adamw_norm`` and ``adamw_update`` once and no op took its
-    plain version, and the run ends with a finite loss.  Reports ``main``'s
+    dispatched ``adamw_norm``, ``adamw_update``, ``cross_entropy_fwd`` and
+    ``cross_entropy_bwd`` once and no op took its plain version, and the run ends with a finite loss.  Reports ``main``'s
     dict, its log, the profiler's ops, and the checkpoints' bytes and
     save/restore walls."""
     import io
@@ -4389,7 +4510,7 @@ def train_restart(argv, seed, restored_step, device="cuda") -> dict:
         train.CheckpointManager = real
         kernels.set_profiler(None)
     ops = prof.summary()
-    for op in ADAMW_KERNELS:
+    for op in ADAMW_KERNELS + CE_KERNELS:
         if ops.get(op, {}).get("dispatches") != out["steps"]:
             fail(f"train_restart: under the kernel profiler {op} read {ops.get(op)}, expected "
                  f"{out['steps']} dispatches (one a step)")
@@ -4435,6 +4556,9 @@ def train_phases(smi: str, device: str = "cuda", path_argv=None) -> dict:
     lines += check_train_svc_kernels(svc, launches, ITERS)
     lines.append(adamw_line)
     del svc
+    torch.cuda.empty_cache()
+    lines += ce_entries(report["batch"], report["seq"], report["vocab"], launches, ITERS,
+                        f"train_path {report['arch']}", device)
     for line in lines:
         emit({"phase": "kernel", **line, "card": smi})
     torch.cuda.empty_cache()
@@ -4556,6 +4680,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
                           - flash0["flash_attention_bwd"],
                           "adamw_launches": [flash1[k] - flash0[k] for k in ADAMW_KERNELS],
                           "slstm_launches": [flash1[k] - flash0[k] for k in SLSTM_KERNELS],
+                          "ce_launches": [flash1[k] - flash0[k] for k in CE_KERNELS],
                           **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
             stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
             if i > 0 and i % TRAIN_SVC_EVERY == 0:
@@ -4593,6 +4718,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
              f"{[s['flash_bwd_launches'] for s in steps]}, expected {attentions} (one an "
              "attention)")
     adamw_per_step = check_adamw_launches(steps, len(named), f"train_family {cfg.name}")
+    check_ce_launches(steps, 1, f"train_family {cfg.name}")
     # the sLSTM's kernels: one forward launch a time step and layer, twice
     # under remat (the recompute), and one backward launch
     sl_layers = cfg.n_layers // cfg.slstm_every if cfg.family == "ssm" else 0
@@ -4613,7 +4739,8 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
     ops = prof.summary()
     # one dispatch of each AdamW wrapper a step, and of the flash wrappers
     # one an attention (twice the forward's under remat)
-    want_ops = {"adamw_norm": 1, "adamw_update": 1}
+    want_ops = {"adamw_norm": 1, "adamw_update": 1, "cross_entropy_fwd": 1,
+                "cross_entropy_bwd": 1}
     if attentions:
         want_ops.update(flash_attention=per_step, flash_attention_bwd=attentions)
     if sl_layers:
@@ -4678,6 +4805,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         "launches": launches, "flash_launches_per_step": per_step,
         "adamw_launches_per_step": 2 * adamw_per_step,
         "slstm_launches_per_step": slstm_per_step,
+        "ce_launches_per_step": [1, 1],
         "slstm_layers_vs_plain_autograd": slstm_held,
         "xlstm_step_holds": xlstm_held,
         "kprof_step": {k: ops[k] for k in sorted(ops)},
@@ -4898,6 +5026,11 @@ def train_family_phases(smi: str, device: str = "cuda", runs=TRAIN_FAMILY_RUNS) 
             from repro_torch.configs import get_config
 
             lines += slstm_entries(B, S, get_config(arch).d_model, launches, ITERS, device)
+        if report["family"] == "encdec":  # seamless's 256,206: rows off the 16-byte grid
+            from repro_torch.configs import get_config
+
+            lines += ce_entries(B, S, get_config(arch).vocab, launches, ITERS,
+                                f"train_family {arch}", device)
         for label, (q, k, v) in cap.captured.items():
             mask, causal = cap.masks[label], cap.causal[label]
             what = f"train_family {arch} {label} (layer 0, captured)"

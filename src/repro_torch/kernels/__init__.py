@@ -46,6 +46,11 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
   slstm_bwd       — its gradient, one launch a time step backward, then
                     dR as one batched product (JAX has no op name for
                     either: XLA compiles its lax.scan)
+  cross_entropy_fwd — the float32 cross-entropy over the vocabulary: each
+                    row's log-sum-exp and nll, one launch (every train
+                    step's loss on the card)
+  cross_entropy_bwd — its gradient into the logits, one launch (JAX has no
+                    op name for either: XLA fuses its composition)
 
 Every wrapper dispatches through ``obs.kprof.profiled`` under the JAX
 package's op name where it has one (``op_names``); ``set_profiler`` /
@@ -83,6 +88,8 @@ _OPS = {
     "adamw_update": "adamw_update",
     "slstm_fwd": "slstm_fwd",
     "slstm_bwd": "slstm_bwd",
+    "cross_entropy_fwd": "cross_entropy_fwd",
+    "cross_entropy_bwd": "cross_entropy_bwd",
 }
 
 
@@ -90,6 +97,7 @@ def wrappers() -> Dict[str, object]:
     """Kernel name → the wrapper that launches it."""
     from repro_torch.kernels.adamw.ops import adamw_apply, adamw_norm
     from repro_torch.kernels.corr_diff.ops import corr_moments
+    from repro_torch.kernels.cross_entropy.ops import cross_entropy_bwd, cross_entropy_fwd
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
     from repro_torch.kernels.fleet_moments.ops import fleet_moments
@@ -122,6 +130,8 @@ def wrappers() -> Dict[str, object]:
         "adamw_update": adamw_apply,
         "slstm_fwd": slstm_fwd,
         "slstm_bwd": slstm_bwd,
+        "cross_entropy_fwd": cross_entropy_fwd,
+        "cross_entropy_bwd": cross_entropy_bwd,
     }
 
 

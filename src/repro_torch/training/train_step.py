@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.cross_entropy import CrossEntropy, cross_entropy_ref
 from repro_torch.models.api import Model
 from repro_torch.models.convert import jax_leaves
 from repro_torch.models.layers import f32_accumulation
@@ -69,11 +70,15 @@ def init_train_state(model: Model, seed=0) -> TrainState:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4):
-    """Token-mean CE with z-loss, in float32; returns (loss, nll (B, S))."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)  # (B, S)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    """Token-mean CE with z-loss, in float32; returns (loss, nll (B, S)).
+    A label in [−V, 0) wraps to label + V and one out of range gives a NaN
+    nll, as JAX's ``take_along_axis`` does.  CPU and meta tensors take the
+    plain composition (``kernels.cross_entropy.ref``); CUDA tensors the
+    kernel pair (``CrossEntropy``: one launch forward, one backward)."""
+    if logits.device.type in ("cpu", "meta"):
+        lse, nll = cross_entropy_ref(logits, labels)  # (B, S) each
+    else:
+        lse, nll = CrossEntropy.apply(logits.contiguous(), labels.contiguous())
     loss = nll.mean() + z_loss * (lse * lse).mean()
     return loss, nll
 

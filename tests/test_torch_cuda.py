@@ -75,6 +75,16 @@ decode's one step with rows within SLSTM_CPU_TOL of the CPU's; two runs
 bit-equal; S launches of each kernel a call and no synchronize; a width
 that is not a multiple of 64 refused; xlstm's smoke config trained one
 step under each remat mode within the train step's limits of the CPU's.
+The cross-entropy (``-k cross_entropy``): the forward and backward kernels
+against the plain version at V = 50,304, 256,000 and 256,206 (rows off the
+16-byte grid in bf16) over 37 rows, float32 and bf16, int32 and int64
+labels, wrapped and out-of-range labels, a row of -inf and a row of ties:
+lse and nll within CE_TOL of their largest magnitude, NaN and infinities
+where the plain version has them, the gradient within 1e-6 of each row's
+largest (float32) or one bf16 ulp; 8,400 rows of 256,000 (past 2^31
+elements); two runs bit-equal; one launch of each a call through
+``train_step.cross_entropy`` with no synchronize; a raise, and no
+launch, for what the kernels do not take; the last card (two or more).
 """
 
 import ctypes
@@ -3164,3 +3174,200 @@ def test_slstm_train_step_on_the_card_matches_the_cpu_under_remat(dev, remat):
     for name, p in ds.params.named_parameters():
         want = cpu[name].grad
         assert float((p.grad.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+# ---------------------------------------------------------------------------
+# the cross-entropy over the vocabulary (csrc/cross_entropy.cu)
+# ---------------------------------------------------------------------------
+
+# the forward's lse and nll against the plain version's: float32 sums of the
+# row's exps in another order (~1,000 terms a thread, then 256 partials), an
+# absolute error of a few 1e-6 on an lse of ~12
+CE_TOL = 1e-5
+CE_VOCABS = (50_304, 256_000, 256_206)  # xlstm-1.3b, gemma-2b, seamless-m4t-large-v2
+
+
+def _ce_inputs(dev, N, V, dtype, seed, label_dtype=torch.int32):
+    """(logits (N, V), labels (N,)): seeded normal logits times 3; row 0 a
+    row of -inf, row 1 V equal values (ties), labels at random with rows
+    2–5 wrapped (−1, −V) and out of range (V, −V − 1)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((N, V), generator=g) * 3.0
+    x[0] = -float("inf")
+    x[1] = 7.0
+    lab = torch.randint(0, V, (N,), generator=g)
+    lab[2:6] = torch.tensor([-1, -V, V, -V - 1])
+    return x.to(dtype).to(dev), lab.to(label_dtype).to(dev)
+
+
+def _hold_ce_forward(got, want, what):
+    """(lse, nll) or (nll,) against the plain version's: NaN and infinities
+    where it has them, the rest within CE_TOL of its largest magnitude (at
+    least 1)."""
+    for name, a, b in zip(("lse", "nll"), got, want):
+        a, b = a.cpu().double(), b.cpu().double()
+        assert torch.equal(a.isnan(), b.isnan()), (what, name)
+        ok = ~b.isnan()
+        assert torch.equal(a[ok].isinf(), b[ok].isinf()) and torch.equal(
+            a[ok & a.isinf()], b[ok & b.isinf()]), (what, name)
+        fin = ok & ~b.isinf()
+        err = float((a[fin] - b[fin]).abs().max())
+        assert err <= CE_TOL * max(1.0, float(b[fin].abs().max())), (what, name, err)
+
+
+def _hold_ce_backward(got, want, what):
+    """float32 within 1e-6 of each row's largest |gradient|, bf16 within one
+    bf16 ulp of the plain version's (both round one float32 value once);
+    NaN where it has NaN (a row of -inf)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    a, b = got.cpu().double(), want.cpu().double()
+    assert torch.equal(a.isnan(), b.isnan()), what
+    rows = ~b.isnan().any(-1)
+    a, b = a[rows], b[rows]
+    err = (a - b).abs()
+    if got.dtype == torch.float32:
+        scale = b.abs().amax(-1, keepdim=True)
+        assert bool((err <= 1e-6 * scale).all()), (what, float((err / scale).max()))
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-38))) - 7)
+        assert bool((err <= ulp).all()), (what, float((err / ulp).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", CE_VOCABS)
+def test_cross_entropy_kernels_match_the_plain_version(dev, V, dtype):
+    """An odd row count, int32 labels at 50,304 and int64 elsewhere; the
+    backward from the kernel's own lse against the plain backward on it."""
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd, cross_entropy_bwd_ref,
+                                                   cross_entropy_fwd, cross_entropy_ref)
+
+    x, lab = _ce_inputs(dev, 37, V, dtype, seed=V,
+                        label_dtype=torch.int32 if V == 50_304 else torch.int64)
+    got = cross_entropy_fwd(x, lab)
+    _hold_ce_forward(got, cross_entropy_ref(x, lab), ("fwd", V, dtype))
+    assert float(got[0][0]) == -float("inf") and got[1].isnan()[[0, 4, 5]].all()
+    lse = got[0]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    g_lse, g_nll = (torch.randn(37, generator=g).to(dev) for _ in range(2))
+    d = cross_entropy_bwd(x, lab, lse, g_lse, g_nll)
+    _hold_ce_backward(d, cross_entropy_bwd_ref(x, lab, lse, g_lse, g_nll), ("bwd", V, dtype))
+
+
+def test_cross_entropy_past_two_to_the_31_elements(dev):
+    """8,400 rows of 256,000 bf16 logits (2.15e9 elements): the last rows,
+    past element 2^31, against the plain version on those rows alone."""
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd, cross_entropy_bwd_ref,
+                                                   cross_entropy_fwd, cross_entropy_ref)
+
+    N, V = 8_400, 256_000
+    assert N * V > 2 ** 31
+    x = torch.empty((N, V), dtype=torch.bfloat16, device=dev)
+    x.normal_(generator=torch.Generator(device=dev).manual_seed(2))
+    lab = torch.randint(0, V, (N,), device=dev)
+    lse, nll = cross_entropy_fwd(x, lab)
+    tail = slice(N - 5, N)
+    _hold_ce_forward((lse[tail], nll[tail]), cross_entropy_ref(x[tail], lab[tail]), "past 2^31")
+    ones = torch.ones(N, device=dev)
+    d = cross_entropy_bwd(x, lab, lse, ones, ones)
+    _hold_ce_backward(d[tail], cross_entropy_bwd_ref(x[tail], lab[tail], lse[tail], ones[tail],
+                                                     ones[tail]), "past 2^31")
+
+
+def test_cross_entropy_repeats_bit_for_bit(dev):
+    from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+
+    x, lab = _ce_inputs(dev, 33, 256_206, torch.bfloat16, seed=3)
+    ones = torch.ones(33, device=dev)
+    outs = []
+    for _ in range(2):
+        lse, nll = cross_entropy_fwd(x, lab)
+        outs.append((lse, nll, cross_entropy_bwd(x, lab, lse, ones, ones)))
+    for a, b in zip(*outs):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def test_cross_entropy_launches_once_each_without_a_synchronize(dev):
+    """``train_step.cross_entropy`` on the card: one launch of each kernel a
+    forward and backward (the wrappers' counts, exactly; the profiler's
+    device rows at most one a wrapper call: no copy or memset beside the
+    kernel, and late in a long test run the profiler drops rows, never adds
+    one), no synchronize; its loss and gradient against the CPU's plain
+    composition."""
+    from repro_torch import kernels
+    from repro_torch.kernels.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+    from repro_torch.training.train_step import cross_entropy
+
+    x, lab = _ce_inputs(dev, 64, 50_304, torch.bfloat16, seed=4)
+    x[0] = 0.0  # a finite loss
+    lab[2:6] = torch.tensor([-1, -50_304, 7, 9], device=dev)
+    lab = lab.reshape(4, 16)
+    x = x.reshape(4, 16, -1)
+    a = x.clone().requires_grad_()
+    cross_entropy(a, lab)[0].backward()  # built and warm
+    a.grad = None
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, nll = cross_entropy(a, lab)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = kernels.launch_counts()
+    assert (after["cross_entropy_fwd"] - before["cross_entropy_fwd"],
+            after["cross_entropy_bwd"] - before["cross_entropy_bwd"]) == (1, 1)
+    c = x.cpu().clone().requires_grad_()
+    closs, cnll = cross_entropy(c, lab.cpu())
+    closs.backward()
+    assert abs(float(loss.detach()) - float(closs)) <= 1e-6 * abs(float(closs))
+    _hold_ce_forward((nll.reshape(-1),), (cnll.reshape(-1),), "train_step nll")
+    _hold_ce_backward(a.grad.reshape(64, -1), c.grad.reshape(64, -1), "train_step")
+    lse, _ = cross_entropy_fwd(x, lab)
+    ones = torch.ones_like(lse)
+    assert _device_launches(lambda: cross_entropy_fwd(x, lab)) <= 1
+    assert _device_launches(lambda: cross_entropy_bwd(x, lab, lse, ones, ones)) <= 1
+
+
+@pytest.mark.parametrize("case", ["float16 logits", "float64 logits", "float labels",
+                                  "labels on the CPU", "a float64 gradient"])
+def test_cross_entropy_refuses_what_the_kernel_does_not_take(dev, case):
+    """A raise, no launch and no plain fallback."""
+    from repro_torch import kernels
+    from repro_torch.kernels.cross_entropy import CrossEntropy, cross_entropy_bwd, cross_entropy_fwd
+
+    x, lab = _ce_inputs(dev, 8, 100, torch.float32, seed=5)
+    before = kernels.launch_counts()
+    ones = torch.ones(8, device=dev)
+    with pytest.raises((TypeError, ValueError)):
+        if case == "float16 logits":
+            CrossEntropy.apply(x.half(), lab)
+        elif case == "float64 logits":
+            cross_entropy_fwd(x.double(), lab)
+        elif case == "float labels":
+            cross_entropy_fwd(x, lab.float())
+        elif case == "labels on the CPU":
+            cross_entropy_fwd(x, lab.cpu())
+        else:
+            cross_entropy_bwd(x, lab, ones, ones, ones.double())
+    assert kernels.launch_counts() == before
+
+
+def test_cross_entropy_launches_on_the_last_card(last_card):
+    from repro_torch import kernels
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd, cross_entropy_bwd_ref,
+                                                   cross_entropy_fwd, cross_entropy_ref)
+
+    x, lab = _ce_inputs(last_card, 9, 256_206, torch.bfloat16, seed=6)
+    before = kernels.launch_counts()
+    lse, nll = cross_entropy_fwd(x, lab)
+    ones = torch.ones(9, device=last_card)
+    d = cross_entropy_bwd(x, lab, lse, ones, ones)
+    after = kernels.launch_counts()
+    assert (after["cross_entropy_fwd"] - before["cross_entropy_fwd"],
+            after["cross_entropy_bwd"] - before["cross_entropy_bwd"]) == (1, 1)
+    assert lse.device == nll.device == d.device == last_card
+    _hold_ce_forward((lse, nll), cross_entropy_ref(x, lab), "last card")
+    _hold_ce_backward(d, cross_entropy_bwd_ref(x, lab, lse, ones, ones), "last card")
+    with pytest.raises(ValueError, match="expected"):
+        cross_entropy_fwd(x, lab.to("cuda:0"))

@@ -411,10 +411,14 @@ def test_cpu_runs_never_count_as_launches():
                              [False], sc)
     hs, _, saved = wrappers["slstm_fwd"](torch.ones(1, 2, 16), torch.ones(4, 1, 4), save=True)
     wrappers["slstm_bwd"](torch.ones(1, 2, 4), torch.ones(4, 1, 4), hs, saved)
+    lse, _ = wrappers["cross_entropy_fwd"](torch.ones(2, 5), torch.zeros(2, dtype=torch.int32))
+    wrappers["cross_entropy_bwd"](torch.ones(2, 5), torch.zeros(2, dtype=torch.int32), lse,
+                                  torch.ones(2), torch.ones(2))
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
                            "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
                            "fleet_merge", "fleet_moments", "fleet_score", "fleet_score_sharded",
                            "segment_aggsum", "segment_aggsum_unsorted", "corr_diff",
                            "flash_attention", "flash_attention_bwd", "adamw_norm",
-                           "adamw_update", "slstm_fwd", "slstm_bwd"}
+                           "adamw_update", "slstm_fwd", "slstm_bwd", "cross_entropy_fwd",
+                           "cross_entropy_bwd"}

@@ -334,7 +334,7 @@ def test_every_wrapper_launches_on_its_tensors_card():
     stream is that card's, appended by ``launch_on``), never through a bare
     ``B.launch`` or the current card's stream."""
     ops = sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*/ops.py"))
-    assert len(ops) == 12
+    assert len(ops) == 13
     launches = 0
     for path in ops:
         src = path.read_text()
@@ -347,7 +347,7 @@ def test_every_wrapper_launches_on_its_tensors_card():
             assert call.group(1) == "card", (path, call.group(1))
             assert re.search(r"\n\s+card = (dev|[\w.]+\.device)\.index\n", body), path
             launches += 1
-    assert launches == 20
+    assert launches == 22
 
 
 _SETTERS = re.compile(r"cuda(FuncSetAttribute|DeviceGetAttribute|"

@@ -17,6 +17,8 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     """Kernel name → a call of its wrapper on seeded tensors on ``dev``."""
     from repro_torch.kernels.adamw import Scalars, adamw_apply, adamw_norm
     from repro_torch.kernels.corr_diff import corr_moments
+    from repro_torch.kernels.cross_entropy import (cross_entropy_bwd, cross_entropy_fwd,
+                                                   cross_entropy_ref)
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.fleet_merge import fleet_merge
@@ -90,6 +92,12 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     sl_state[2] = sl_state[2].abs() + 1.0
     sl_dhs = t(rng.normal(size=(3, 5, 64)).astype(np.float32))
     sl_hs, _, sl_saved = slstm_scan_ref(sl_wx, sl_R, save=True)  # a gradient's: from zeros
+    # the cross-entropy over 5 rows of an odd vocabulary, two labels wrapped
+    # (−1, −V); the backward from the plain lse
+    ce_x = t((rng.normal(size=(5, 1003)) * 3).astype(np.float32))
+    ce_lab = t(np.array([3, -1, 1002, -1003, 0], np.int32))
+    ce_lse = cross_entropy_ref(ce_x, ce_lab)[0]
+    ce_g = t(rng.normal(size=(2, 5)).astype(np.float32))
     return {
         "hash_threshold": lambda: hash_threshold((keys,), 0.3, 1, valid),
         "fused_clean": lambda: fused_clean_groupby(gid, vals, valid, 0.3, 1, G),
@@ -114,4 +122,6 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
             [True, True, False], opt_sc),
         "slstm_fwd": lambda: slstm_fwd(sl_wx, sl_R, sl_state, save=True),
         "slstm_bwd": lambda: slstm_bwd(sl_dhs, sl_R, sl_hs, sl_saved),
+        "cross_entropy_fwd": lambda: cross_entropy_fwd(ce_x, ce_lab),
+        "cross_entropy_bwd": lambda: cross_entropy_bwd(ce_x, ce_lab, ce_lse, ce_g[0], ce_g[1]),
     }

@@ -110,6 +110,23 @@ def run(arch: str, steps: int, profile: bool) -> dict:
         return out
 
     TS.adamw_update = timed_update
+    ce_events, ce_shapes = [], []
+    real_ce = TS.cross_entropy
+
+    def timed_ce(logits, labels, *args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        if logits.requires_grad:
+            logits.register_hook(lambda g: ev[3].record())
+        ev[0].record()
+        loss, nll = real_ce(logits, labels, *args, **kw)
+        ev[1].record()
+        if loss.requires_grad:
+            loss.register_hook(lambda g: ev[2].record())
+            ce_events.append(ev)
+        ce_shapes.append((tuple(logits.shape), logits.dtype))
+        return loss, nll
+
+    TS.cross_entropy = timed_ce
     box = [state]
 
     def one_step(i):
@@ -127,15 +144,51 @@ def run(arch: str, steps: int, profile: bool) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     optimizer_ms = [a.elapsed_time(b) for a, b in events]
+    ce_ms = [(e[0].elapsed_time(e[1]), e[2].elapsed_time(e[3])) for e in ce_events]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     out = {"arch": arch, "n_layers": cfg.n_layers, "batch": B, "seq": S,
            "params": sum(p.numel() for p in leaves), "leaves": len(leaves),
            "step_s": walls, "warm_step_s": sum(walls[1:]) / steps,
            "optimizer_ms": optimizer_ms, "warm_optimizer_ms": sum(optimizer_ms[1:]) / steps,
+           "ce_fwd_bwd_ms": ce_ms,
+           "warm_ce_ms": sum(f + b for f, b in ce_ms[1:]) / steps,
            "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
-           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_device_gb": peak_gb}
     if profile:
         out["profile"] = profile_step(lambda: one_step(1 + steps))
+    TS.cross_entropy = real_ce
+    out["ce_alone"] = ce_alone(real_ce, *ce_shapes[-1], cfg.vocab)
     return out
+
+
+def ce_alone(ce, shape, dtype, vocab: int) -> dict:
+    """One forward and backward of ``ce`` on seeded logits of ``shape`` and
+    ``dtype`` and labels below ``vocab``: device launches and device ms
+    under torch.profiler, and the device bytes it allocates above what was
+    live before it."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    logits = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
+    labels = torch.randint(0, vocab, shape[:-1], device="cuda", generator=gen,
+                           dtype=torch.int32)
+
+    def call():
+        loss, _ = ce(logits, labels)
+        loss.backward()
+        logits.grad = None
+
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    prof = profile_step(call)
+    return {"shape": list(shape), "dtype": str(dtype), "device_launches": prof["device_launches"],
+            "device_ms": prof["device_ms"], "peak_extra_gb": extra / 1e9,
+            "top_device": prof["top_device"][:6]}
 
 
 def main() -> int:
