@@ -47,7 +47,8 @@ size, through the entry points a user calls:
      4,096 tokens (the banded window mask at full width) and its first 64
      positions decoded against it; ``ssm_serve`` — xlstm-1.3b through
      ``ServeEngine`` (no attention: the mLSTM's matrix memory and the
-     sLSTM, whose every step is the slstm_fwd kernel) and its forward over
+     sLSTM, whose every decode step is one per-step slstm_fwd launch and
+     whose forward one resident launch a layer) and its forward over
      2 × 512; flash ``kernel`` lines for the
      ring decode and the banded prefill; and each smoke config served on
      the card against the CPU;
@@ -73,9 +74,11 @@ size, through the entry points a user calls:
   8. training the other families through ``make_train_step`` in bf16 with
      float32 masters and remat "full" (``train_family``): xlstm-1.3b (48
      layers, no attention: the mLSTM's chunked parallel form and the
-     sLSTM's loop over time, one slstm_fwd launch a step forward and again
-     in the recompute, one slstm_bwd launch a step backward, counted
-     exactly; the two sLSTM ``kernel`` lines at its shape, one layer; its
+     sLSTM's loop over time, one resident slstm_fwd launch a layer forward
+     and again in the recompute, one slstm_bwd launch a layer backward
+     (launches a call from the route rule), counted exactly; the two sLSTM
+     ``kernel`` lines at its shape, one layer, each beside the per-step
+     route's time and held bit for bit against it; its
      first step held against the plain loop within the spread of two
      rounding-sized controls, and its loss-falls check made on one
      super-block, where rounding does not decide it) and
@@ -1563,12 +1566,17 @@ def run_fleet_path(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epo
         emit({"phase": "fleet_profile", "call": what, **prof})
 
     # 2. planner epochs under a Zipf query stream, priced from this run's
-    # walls: a clean at the median warm per-view clean, a maintain at one
-    # view's measured IVM, a retune at one retune-then-clean through the
-    # batched path (held against a per-view clean of the retuned view), and
-    # fig_planner_fleet's budget of one maintain plus 2.5 cleans
-    clean_s = float(np.median(list(warm_view_s.values())))
-    maintain_s = vm.maintain(names[-1])
+    # walls on one kind of view, as fig_planner_fleet prices a plain view's
+    # clean and maintain: a clean at the median warm per-view clean of the
+    # plain views (no deletes, no outlier index: an odd count, so the median
+    # is one view's wall and never the mean of a plain and a with_deletes
+    # view's), a maintain at one plain view's measured IVM, a retune at one
+    # retune-then-clean through the batched path (held against a per-view
+    # clean of the retuned view), and fig_planner_fleet's budget of one
+    # maintain plus 2.5 cleans
+    plain_views = names[1:n_views // 2]
+    clean_s = float(np.median([warm_view_s[n] for n in plain_views]))
+    maintain_s = vm.maintain(plain_views[-1])
     pair, retuned = names[-3:-1], names[-2]
     new_m = 2.0 * vm.views[retuned].m
     vm.adaptive_m = True
@@ -1630,6 +1638,7 @@ def run_fleet_path(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epo
     features, channels = planner.last_inputs
     prices = {"clean_s": clean_s, "maintain_s": maintain_s, "retune_s": retune_s,
               "budget_s": budget_s, "age_cap_epochs": FLEET_AGE_CAP_EPOCHS,
+              "clean_of": plain_views, "maintain_of": plain_views[-1],
               "retune_vs_per_view": retune_check}
 
     # 3. full maintenance makes every view exact
@@ -1642,7 +1651,8 @@ def run_fleet_path(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epo
     inputs = {"fused": fused_launches[0][1], "merge": merge_launches[0][1],
               "moments": channels, "features": torch.from_numpy(features).to(vm.device)}
     return t, {"comparison": comparison, "epochs": epochs_out, "merge_groups": merge_groups,
-               "per_view_s": per_view_s, "svc_refresh_many_view_s": dts, "prices": prices}, \
+               "per_view_s": per_view_s, "warm_view_s": warm_view_s,
+               "svc_refresh_many_view_s": dts, "prices": prices}, \
         inputs
 
 
@@ -4669,17 +4679,19 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
     with cap, svc_caps["hash_threshold"], svc_caps["segment_aggsum"], svc_caps["multi_agg"]:
         for i in range(n_steps):
             b = batch(i)
-            flash0 = kernels.launch_counts()
+            flash0, routes0 = kernels.launch_counts(), kernels.route_counts()
             with (slstm_scan_as(slstm_cap.scan()) if slstm_cap is not None and i == 0
                   else contextlib.nullcontext()):
                 met, step_s = wall(lambda: one_step(b))
-            flash1 = kernels.launch_counts()
+            flash1, routes1 = kernels.launch_counts(), kernels.route_counts()
             steps.append({"step": i + 1, "wall_s": step_s, "tok_per_s": B * S / step_s,
                           "flash_launches": flash1["flash_attention"] - flash0["flash_attention"],
                           "flash_bwd_launches": flash1["flash_attention_bwd"]
                           - flash0["flash_attention_bwd"],
                           "adamw_launches": [flash1[k] - flash0[k] for k in ADAMW_KERNELS],
                           "slstm_launches": [flash1[k] - flash0[k] for k in SLSTM_KERNELS],
+                          "slstm_routes": [{r: n - routes0[k][r] for r, n in routes1[k].items()
+                                            if n != routes0[k][r]} for k in SLSTM_KERNELS],
                           "ce_launches": [flash1[k] - flash0[k] for k in CE_KERNELS],
                           **{k: float(met[k]) for k in ("loss", "grad_norm", "clip_scale", "lr")}})
             stats.ingest_step(met["domain_loss_sum"], met["domain_count"])
@@ -4719,15 +4731,25 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
              "attention)")
     adamw_per_step = check_adamw_launches(steps, len(named), f"train_family {cfg.name}")
     check_ce_launches(steps, 1, f"train_family {cfg.name}")
-    # the sLSTM's kernels: one forward launch a time step and layer, twice
-    # under remat (the recompute), and one backward launch
+    # the sLSTM's kernels: a forward call a layer, twice under remat (the
+    # recompute), and a backward call, each of the route's launches a call
+    # (one on the resident route, S on the per-step route)
     sl_layers = cfg.n_layers // cfg.slstm_every if cfg.family == "ssm" else 0
     passes = 1 if cfg.remat == "none" else 2
-    slstm_per_step = [sl_layers * S * passes, sl_layers * S]
+    sl_calls = slstm_launches_per_call(B, S, cfg.d_model, device) if sl_layers else 0
+    sl_route = slstm_route_name(B, S, cfg.d_model, device) if sl_layers else None
+    slstm_per_step = [sl_layers * sl_calls * passes, sl_layers * sl_calls]
     if any(s["slstm_launches"] != slstm_per_step for s in steps):
         fail(f"train_family {cfg.name}: (slstm_fwd, slstm_bwd) launches per step "
              f"{[s['slstm_launches'] for s in steps]}, expected {slstm_per_step} ({sl_layers} "
-             f"sLSTM layers x {S} steps, the forward {passes} times)")
+             f"sLSTM layers x {sl_calls} launches a call, the forward {passes} times)")
+    # and every one of them on the route the rule names, by the wrappers'
+    # own route counters
+    slstm_routes = [{sl_route: n} if n else {} for n in slstm_per_step]
+    if any(s["slstm_routes"] != slstm_routes for s in steps):
+        fail(f"train_family {cfg.name}: (slstm_fwd, slstm_bwd) launches by route per step "
+             f"{[s['slstm_routes'] for s in steps]}, expected {slstm_routes} (the route rule's "
+             f"{sl_route})")
     # one step under the kernel profiler (every dispatch synchronized)
     prof = KernelProfiler()
     kernels.set_profiler(prof)
@@ -4759,9 +4781,9 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
     slstm_held = None
     if slstm_cap is not None:
         slstm_held = hold_slstm_layers(slstm_cap.calls, f"train_family {cfg.name}")
-        if len(slstm_held) != slstm_per_step[1] // S:
+        if len(slstm_held) != sl_layers:
             fail(f"train_family {cfg.name}: {len(slstm_held)} sLSTM backwards captured in the "
-                 f"warm-up step, expected {slstm_per_step[1] // S}")
+                 f"warm-up step, expected {sl_layers}")
         del slstm_cap
     # a random xlstm deeper than one super-block amplifies a rounding some
     # 1e4-fold into its loss and gradient, in JAX too
@@ -4805,6 +4827,7 @@ def run_family_train(arch, n_layers, B, S, seed, device="cuda"):
         "launches": launches, "flash_launches_per_step": per_step,
         "adamw_launches_per_step": 2 * adamw_per_step,
         "slstm_launches_per_step": slstm_per_step,
+        "slstm_routes_ran": sorted({r for s in steps for k in s["slstm_routes"] for r in k}),
         "ce_launches_per_step": [1, 1],
         "slstm_layers_vs_plain_autograd": slstm_held,
         "xlstm_step_holds": xlstm_held,
@@ -4905,32 +4928,82 @@ def xlstm_superblock_trains(cfg, seed, batch, what: str, device="cuda") -> dict:
             "first_batch_loss_before_after": [before, after]}
 
 
+def slstm_card(device) -> int:
+    """The card index of ``device`` (0 for a device without one, as the CPU
+    rehearsal's)."""
+    import torch
+
+    index = torch.device(device).index
+    return 0 if index is None else index
+
+
+def slstm_route_name(B, S, d, device) -> str:
+    """The route ``kernels/slstm``'s rule names for (B, S, d) on the card of
+    ``device``."""
+    from repro_torch.kernels.slstm import ops
+
+    return ops.route_on(B, S, d, slstm_card(device))
+
+
+def slstm_launches_per_call(B, S, d, device) -> int:
+    """Launches of each sLSTM kernel a call at (B, S, d) on the card of
+    ``device``, from the route rule: 1 resident, S per-step."""
+    from repro_torch.kernels.slstm import ops
+
+    return ops.launches_per_call(B, S, d, slstm_card(device))
+
+
 def slstm_entries(B, S, d, launches, iters, device="cuda") -> list:
     """The sLSTM's kernel lines at (B, S, d), one layer: wx ~ N(0, 1) and R
     at the init scale (0.5/sqrt(d)) from SLSTM_SEED, and dhs ~ N(0, 1).
     Held: the forward (``save=True``, as every train forward calls it: hs,
     the last state and the saved gates and states) and the backward (dwx,
     dR from the kernel's saved forward) against the plain version on the
-    same inputs, within SLSTM_TOL of each output's largest magnitude.
-    Timed (CUDA events): each wrapper call (``ms``), the same call with
-    all its launches queued before the card starts (``prequeued_ms``), the
-    plain version over SLSTM_PLAIN_ITERS calls, and the host's enqueue of
-    a call.  The bound:
+    same inputs, within SLSTM_TOL of each output's largest magnitude; and,
+    where the route rule names the resident route, its every output
+    ``torch.equal`` to the per-step route's on the same inputs.  Read from
+    the wrappers' own counters around the held calls, and failed unless
+    they are the rule's: the route each call took (``kernel_route``) and
+    its launches (``launches_per_call``).
+    Timed (CUDA events): each wrapper call on the rule's route (``ms``,
+    ``us_per_step``) and on the per-step route (``step_route_ms``), the
+    rule's call with all its launches queued before the card starts
+    (``prequeued_ms``), the plain version over SLSTM_PLAIN_ITERS calls, the
+    host's enqueue of a call, and one grid barrier of the resident route
+    (``barrier_us``: one cooperative launch of d/16 blocks passing S − 1
+    barriers and nothing else, over S − 1).  The bound:
     the larger of the operations (2·B·d·d a step for R·h, and for the
     backward's dh also the dR product, at the float32 CUDA-core peak) and
     the bytes (every input read once, R once, every output written once);
     beside it the time R takes to stream from device memory once a step,
-    the price of relaunching each step.  No PyTorch call computes the
+    the price of re-reading it each step.  No PyTorch call computes the
     recurrence: ``library_ms`` is null."""
     import torch
 
-    from repro_torch.kernels.slstm import slstm_bwd, slstm_bwd_ref, slstm_fwd, slstm_scan_ref
+    from repro_torch.kernels.slstm import ops, slstm_bwd, slstm_bwd_ref, slstm_fwd, slstm_scan_ref
     from repro_torch.kernels.slstm.ref import slstm_dR
 
     gen = torch.Generator(device=device).manual_seed(SLSTM_SEED)
     wx = torch.randn((B, S, 4 * d), generator=gen, device=device)
     R = torch.randn((4, d // 4, d), generator=gen, device=device) * (0.5 / d ** 0.5)
     dhs = torch.randn((B, S, d), generator=gen, device=device)
+    route = slstm_route_name(B, S, d, device)
+    per_call = slstm_launches_per_call(B, S, d, device)
+    ran = {}
+
+    def counted(wrapper, *args, **kw):
+        """One call of ``wrapper`` and, in ``ran``, the route it took and
+        its launches, read from the wrapper's own counters; fails unless
+        they are the rule's."""
+        n0, r0 = wrapper.launches, dict(wrapper.routes)
+        out = wrapper(*args, **kw)
+        got = {k: v - r0[k] for k, v in wrapper.routes.items() if v != r0[k]}
+        n = wrapper.launches - n0
+        if got != {route: per_call} or n != per_call:
+            fail(f"{wrapper.__name__}: one call at (B, S, d) = ({B}, {S}, {d}) launched {n} "
+                 f"kernels by route {got}; the route rule names {route}, {per_call} a call")
+        ran[wrapper.__name__] = {"kernel_route": next(iter(got)), "launches_per_call": n}
+        return out
 
     def rel(a, b):
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
@@ -4944,23 +5017,45 @@ def slstm_entries(B, S, d, launches, iters, device="cuda") -> list:
         abs_err = max(float((a.double() - b.double()).abs().max()) for _n, a, b in pairs)
         return errs, abs_err
 
+    def same_bits(what, names, got, want):
+        differ = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+        if differ:
+            fail(f"{what}: the {route} route's {differ} differ from the per-step route's")
+        return True
+
     with uncounted():
-        hs, last, saved = slstm_fwd(wx, R, save=True)
+        hs, last, saved = counted(slstm_fwd, wx, R, save=True)
         rhs, rlast, rsaved = slstm_scan_ref(wx, R, save=True)
         fwd_errs, fwd_abs = hold("slstm_fwd", [("hs", hs, rhs)] + [
             (f"last {n}", a, b) for n, a, b in zip("hcnm", last, rlast)] + [
             (f"saved {n}", a, b) for n, a, b in zip("gcnm", saved, rsaved)])
         del rhs, rlast, rsaved
-        dwx, dR = slstm_bwd(dhs, R, hs, saved)
+        dwx, dR = counted(slstm_bwd, dhs, R, hs, saved)
         rwx, rR = slstm_bwd_ref(dhs, R, hs, saved)
         bwd_errs, bwd_abs = hold("slstm_bwd", [("dwx", dwx, rwx), ("dR", dR, rR)])
-        del dwx, dR, rwx, rR
+        del rwx, rR
+        fwd_equal = bwd_equal = None
+        if route != "step":
+            shs, slast, ssaved = ops._launch_fwd(wx, R, None, True, "step")
+            fwd_equal = same_bits("slstm_fwd", ["hs", "last h", "last c", "last n", "last m",
+                                                "saved g", "saved c", "saved n", "saved m"],
+                                  [hs, *last, *saved], [shs, *slast, *ssaved])
+            sdwx, sdR = ops._launch_bwd(dhs, R, hs, saved, "step")
+            bwd_equal = same_bits("slstm_bwd", ["dwx", "dR"], [dwx, dR], [sdwx, sdR])
+            del shs, slast, ssaved, sdwx, sdR
+        del dwx, dR
         fwd_ms = cuda_ms(lambda: slstm_fwd(wx, R, save=True), iters)
         fwd_nosave_ms = cuda_ms(lambda: slstm_fwd(wx, R), iters)
         bwd_ms = cuda_ms(lambda: slstm_bwd(dhs, R, hs, saved), iters)
+        fwd_step_ms = cuda_ms(lambda: ops._launch_fwd(wx, R, None, True, "step"), iters)
+        bwd_step_ms = cuda_ms(lambda: ops._launch_bwd(dhs, R, hs, saved, "step"), iters)
         dG = slstm_bwd(dhs, R, hs, saved)[0]
         dR_ms = cuda_ms(lambda: slstm_dR(hs, dG), iters)  # the backward's product after its loop
         del dG
+        barrier_us = None
+        if route == "resident" and S > 1:
+            barrier_us = cuda_ms(lambda: ops.barrier_probe(device, d // ops.UNIT_TILE, S - 1),
+                                 iters) * 1e3 / (S - 1)
         fwd_queued_ms = prequeued_ms(lambda: slstm_fwd(wx, R, save=True), SLSTM_QUEUED_ITERS)
         bwd_queued_ms = prequeued_ms(lambda: slstm_bwd(dhs, R, hs, saved), SLSTM_QUEUED_ITERS)
         fwd_host_us = host_enqueue_us(lambda: slstm_fwd(wx, R, save=True), iters)
@@ -4973,14 +5068,16 @@ def slstm_entries(B, S, d, launches, iters, device="cuda") -> list:
     r_stream_ms = r_bytes * S / HBM_BYTES_PER_S * 1e3
     common = dict(route="cuda", source="src/repro_torch/csrc/slstm.cu", library_ms=None,
                   library_call="none: no PyTorch call computes the sLSTM's recurrence",
-                  shape={"B": B, "S": S, "d": d}, launches_per_call=S,
+                  shape={"B": B, "S": S, "d": d}, barrier_us=barrier_us,
                   r_streamed_from_hbm_each_step_ms=r_stream_ms, tolerance=SLSTM_TOL)
     fwd = kernel_entry(
         "slstm_fwd", replaces="none: the forward of XLA's lax.scan at "
         "src/repro/models/xlstm.py:242-256 (the einsum with R, then _slstm_cell at :213)",
         launches=launches["slstm_fwd"], err=fwd_abs, ms=fwd_ms, plain_ms=plain_fwd_ms,
         bytes_=f4 * B * S * 4 * d + r_bytes + 4 * state + f4 * B * S * d * 4 + f4 * B * S * 4 * d,
-        ops=steps_ops, rel_errs=fwd_errs, ms_without_save=fwd_nosave_ms,
+        ops=steps_ops, rel_errs=fwd_errs, ms_without_save=fwd_nosave_ms, **ran["slstm_fwd"],
+        us_per_step=fwd_ms * 1e3 / S, step_route_ms=fwd_step_ms,
+        outputs_equal_to_step_route=fwd_equal,
         host_enqueue_us=fwd_host_us, ms_launches_prequeued=fwd_queued_ms,
         bound_counts="operations: 2·B·d·d a step (R·h); bytes: wx and R read, hs, the last "
                      "state and the saved gates and c, n, m written",
@@ -4992,6 +5089,8 @@ def slstm_entries(B, S, d, launches, iters, device="cuda") -> list:
         launches=launches["slstm_bwd"], err=bwd_abs, ms=bwd_ms, plain_ms=plain_bwd_ms,
         bytes_=f4 * B * S * d * 2 + r_bytes + f4 * B * S * 4 * d * 2 + f4 * B * S * d * 3
         + r_bytes, ops=2 * steps_ops, rel_errs=bwd_errs, dR_product_ms=dR_ms,
+        **ran["slstm_bwd"], us_per_step=(bwd_ms - dR_ms) * 1e3 / S, step_route_ms=bwd_step_ms,
+        outputs_equal_to_step_route=bwd_equal,
         host_enqueue_us=bwd_host_us, ms_launches_prequeued=bwd_queued_ms,
         bound_counts="operations: 2·B·d·d a step for dg·Rᵀ and as many for dR; bytes: dhs, "
                      "hs, R, the saved gates and c, n, m read, dwx and dR written",
@@ -6247,7 +6346,8 @@ def main(argv=None) -> int:
           "wall_s": walls, "epochs_out": fleet["epochs"], "merge_shape_groups": fleet["merge_groups"],
           "batched_vs_per_view": fleet["comparison"],
           "svc_refresh_many_view_s": fleet["svc_refresh_many_view_s"],
-          "per_view_clean_s": fleet["per_view_s"], "planner_prices": fleet["prices"],
+          "per_view_clean_s": fleet["per_view_s"], "per_view_clean_warm_s": fleet["warm_view_s"],
+          "planner_prices": fleet["prices"],
           "peak_device_gb": peak_gb,
           "launches": fleet_launches, "stale_eq_exact_fresh_after_ivm": True, "card": smi})
     fleet_table = check_fleet_kernels(inputs, fleet_launches, ITERS)

@@ -7,7 +7,9 @@ kernel or raises — there is no fallback.  Every wrapper carries a plain
 integer ``launches`` that it bumps where it launches its kernel, so a run
 can show that the main path went through the kernels; hash_threshold and
 corr_moments also count the launches of each of their kernel's two routes
-in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
+in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment),
+and slstm_fwd and slstm_bwd theirs (resident: one launch a call; step:
+one a time step).
 
   hash_threshold  — η_{a,m} mask
   fused_clean     — η + per-group count/sum over delta rows in one pass
@@ -40,12 +42,13 @@ in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment).
   adamw_update    — AdamW's update of every leaf's p, m and v, one launch a
                     step (both on every train step on the card; JAX has no
                     op name for either, XLA fuses its update)
-  slstm_fwd       — the sLSTM's recurrence over a sequence, one launch a
-                    time step (every xlstm forward, recompute and decode
-                    on the card)
-  slstm_bwd       — its gradient, one launch a time step backward, then
-                    dR as one batched product (JAX has no op name for
-                    either: XLA compiles its lax.scan)
+  slstm_fwd       — the sLSTM's recurrence over a sequence, one
+                    cooperative launch a call (the resident route: every
+                    xlstm forward and recompute on the card) or one launch
+                    a time step (the per-step route: decode)
+  slstm_bwd       — its gradient, on the same two routes, then dR as one
+                    batched product (JAX has no op name for either: XLA
+                    compiles its lax.scan)
   cross_entropy_fwd — the float32 cross-entropy over the vocabulary: each
                     row's log-sum-exp and nll, one launch (every train
                     step's loss on the card)
@@ -152,5 +155,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, Dict[str, int]]:
-    """Launches by route (vector or scalar) of the wrappers that have two."""
+    """Launches by route (vector or scalar; resident or step) of the
+    wrappers that have two."""
     return {name: dict(fn.routes) for name, fn in wrappers().items() if hasattr(fn, "routes")}

@@ -1,5 +1,5 @@
-"""The sLSTM's recurrence over time, forward and backward, one launch a
-time step."""
+"""The sLSTM's recurrence over time, forward and backward: one launch a
+call (resident route) or one a time step (per-step route)."""
 
 from repro_torch.kernels.slstm.ops import SLSTMScan, slstm_bwd, slstm_fwd
 from repro_torch.kernels.slstm.ref import Saved, slstm_bwd_ref, slstm_scan_ref

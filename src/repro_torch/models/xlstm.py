@@ -7,7 +7,7 @@ decay chunked over queries of ``CHUNK``, and ``decode_step`` updates the
 O(1) per-head matrix memory ``C_t = f' C_{t−1} + i' (k ⊗ v)``.  sLSTM
 keeps a true recurrence (block-diagonal ``R`` over 4 heads) and runs as a
 loop over time, as JAX's ``lax.scan`` does: on the card as the
-``kernels.slstm`` kernels, one launch a step.
+``kernels.slstm`` kernels (one launch a sequence, one a decode step).
 
 Dtypes follow JAX's: matrices in ``compute_dtype``; ``b_f``, sLSTM's ``b``
 and ``R`` in f32 and used uncast; the parallel form materializes its decay

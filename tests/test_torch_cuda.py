@@ -72,9 +72,14 @@ against the plain version at xlstm-1.3b's widths over 512 steps (hs, the
 last state, the saved gates and states, dwx and dR within SLSTM_TOL of
 each one's largest magnitude), at ragged rows from a given state and the
 decode's one step with rows within SLSTM_CPU_TOL of the CPU's; two runs
-bit-equal; S launches of each kernel a call and no synchronize; a width
-that is not a multiple of 64 refused; xlstm's smoke config trained one
-step under each remat mode within the train step's limits of the CPU's.
+bit-equal; the resident route's every output ``torch.equal`` to the
+per-step route's at (8, 512, 2,048), (17, 48, 128), (3, 100, 64) and
+(2, 512, 2,048); resident calls on two streams at once equal to the same
+calls in series; the route rule's launches a call (1 resident, S
+per-step) and no synchronize; a cooperative grid the card cannot hold
+refused and raised; a width that is not a multiple of 64 refused; xlstm's
+smoke config trained one step under each remat mode within the train
+step's limits of the CPU's.
 The cross-entropy (``-k cross_entropy``): the forward and backward kernels
 against the plain version at V = 50,304, 256,000 and 256,206 (rows off the
 16-byte grid in bf16) over 37 rows, float32 and bf16, int32 and int64
@@ -3098,18 +3103,26 @@ def test_slstm_repeats_bit_for_bit(dev):
         assert torch.equal(a, b)
 
 
-def test_slstm_launches_once_a_step_without_a_synchronize(dev):
-    """S launches of each kernel a call, whatever B: the wrappers'
-    counters exactly, and the card's own kernels under the profiler, which
-    at times drops up to one kernel a call and never adds one; neither
-    wrapper synchronizes."""
+def test_slstm_launches_once_a_step_without_a_synchronize(dev, monkeypatch):
+    """The route rule's launches of each kernel a call: one on the resident
+    route (xlstm's width and a narrow one over 48 steps), S on the per-step
+    route (one step, as every decode, and a width past the resident
+    route's), whatever B: the wrappers' counters and their routes' exactly,
+    and every device row of each call under the profiler, which at times
+    drops up to one kernel a call and never adds one (the backward's with
+    its dR product after the loop taken out: a plain ``torch.bmm`` whose
+    cuBLAS rows in the call's profile need not match a profile of the
+    product alone); neither wrapper synchronizes."""
     from repro_torch import kernels
-    from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd
-    from repro_torch.kernels.slstm.ref import slstm_dR
+    from repro_torch.kernels.slstm import ops, slstm_bwd, slstm_fwd
 
-    for B, S, d in ((8, 48, 2048), (17, 48, 128)):
+    cases = (((8, 48, 2048), "resident", 1), ((17, 48, 128), "resident", 1),
+             ((8, 1, 2048), "step", 1), ((2, 3, 4096), "step", 3))
+    for (B, S, d), route, want in cases:
+        assert ops.route_on(B, S, d, torch.cuda.current_device()) == route, (B, S, d)
+        assert ops.launches_per_call(B, S, d, torch.cuda.current_device()) == want
         wx, R, dhs, _ = _slstm_inputs(dev, B, S, d, seed=5)
-        before = kernels.launch_counts()
+        before, routes = kernels.launch_counts(), kernels.route_counts()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -3117,14 +3130,93 @@ def test_slstm_launches_once_a_step_without_a_synchronize(dev):
             slstm_bwd(dhs, R, hs, saved)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        after = kernels.launch_counts()
-        assert after["slstm_fwd"] - before["slstm_fwd"] == S
-        assert after["slstm_bwd"] - before["slstm_bwd"] == S
-        assert S - 1 <= _device_launches(lambda: slstm_fwd(wx, R)) <= S
-        dG = slstm_bwd(dhs, R, hs, saved)[0]
-        loop = (_device_launches(lambda: slstm_bwd(dhs, R, hs, saved))
-                - _device_launches(lambda: slstm_dR(hs, dG)))  # less the one product after
-        assert S - 1 <= loop <= S
+        after, routes_after = kernels.launch_counts(), kernels.route_counts()
+        for name in ("slstm_fwd", "slstm_bwd"):
+            assert after[name] - before[name] == want
+            assert {k: routes_after[name][k] - routes[name][k] for k in ops.ROUTES} == {
+                k: (want if k == route else 0) for k in ops.ROUTES}
+        assert want - 1 <= _device_launches(lambda: slstm_fwd(wx, R)) <= want
+        with monkeypatch.context() as m:
+            m.setattr(ops, "slstm_dR", lambda hs, dG: None)
+            assert want - 1 <= _device_launches(lambda: slstm_bwd(dhs, R, hs, saved)) <= want
+
+
+SLSTM_ROUTE_SHAPES = [(8, 512, 2048), (17, 48, 128), (3, 100, 64), (2, 512, 2048)]
+
+
+@pytest.mark.parametrize("B,S,d", SLSTM_ROUTE_SHAPES)
+def test_slstm_resident_route_gives_the_step_routes_bits(dev, B, S, d):
+    """The resident route (one cooperative launch a call) against the
+    per-step route (one launch a step) on the same inputs: the forward with
+    and without save, from the zero state and from a given one (hs, the
+    last state, the saved gates and c, n, m), and the backward (dwx, dR),
+    ``torch.equal`` throughout: the two take every sum in the same order."""
+    from repro_torch.kernels.slstm import ops, slstm_fwd
+
+    assert ops.route_on(B, S, d, torch.cuda.current_device()) == "resident"
+    wx, R, dhs, st = _slstm_inputs(dev, B, S, d, seed=8, state=True)
+    for state in (None, st):
+        for save in (True, False):
+            got = ops._launch_fwd(wx, R, state, save, "resident")
+            want = ops._launch_fwd(wx, R, state, save, "step")
+            flat = [got[0], *got[1], *(got[2] if save else ())]
+            ref = [want[0], *want[1], *(want[2] if save else ())]
+            assert all(torch.equal(a, b) for a, b in zip(flat, ref)), (state is None, save)
+    hs, _, saved = slstm_fwd(wx, R, save=True)
+    got = ops._launch_bwd(dhs, R, hs, saved, "resident")
+    want = ops._launch_bwd(dhs, R, hs, saved, "step")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("B,S,d", [(8, 512, 2048), (2, 64, 256)])
+def test_slstm_resident_calls_on_two_streams_at_once_equal_the_calls_in_series(dev, B, S, d):
+    """Two resident forwards and backwards on two streams at once (each its
+    own barrier counter; at xlstm's width the second grid cannot start
+    until the first has left the card, at d = 256 both hold the card
+    together) equal the same calls made one after the other."""
+    from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd
+
+    inputs = [_slstm_inputs(dev, B, S, d, seed=20 + i) for i in range(2)]
+
+    def call(wx, R, dhs):
+        hs, last, saved = slstm_fwd(wx, R, save=True)
+        return [hs, *last, *saved, *slstm_bwd(dhs, R, hs, saved)]
+
+    series = [call(*x[:3]) for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    outs = []
+    for s, x in zip(streams, inputs):
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            outs.append(call(*x[:3]))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, series):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_slstm_a_grid_the_card_cannot_hold_is_refused_and_raised(dev):
+    """A cooperative grid past what the card holds at once is refused by
+    the runtime and raised, never run (a barrier across it would wait for
+    blocks that never start), and the counter's count stays; a resident
+    call at a shape past the route's limits is refused by its entry."""
+    from repro_torch.kernels.slstm import ops
+
+    card = torch.cuda.current_device()
+    ws = ops._barrier(card, torch.cuda.current_stream(card).cuda_stream)
+    counted = ws[1]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    with pytest.raises(RuntimeError, match="svc_slstm_barrier_probe"):
+        ops.barrier_probe(dev, 64 * sms, 1)
+    assert ws[1] == counted
+    blocks = 128
+    ops.barrier_probe(dev, blocks, 3)  # a grid it holds passes its barriers
+    torch.cuda.synchronize()
+    assert ws[1] == counted + 3 * blocks
+    assert int(ws[0].item()) == ws[1]
+    wx, R, _, _ = _slstm_inputs(dev, 2, 3, 4096)
+    with pytest.raises(RuntimeError, match="svc_slstm_fwd_resident"):
+        ops._launch_fwd(wx, R, None, False, "resident")
 
 
 def test_slstm_wrappers_refuse_a_width_the_kernel_does_not_take(dev):
@@ -3139,13 +3231,15 @@ def test_slstm_wrappers_refuse_a_width_the_kernel_does_not_take(dev):
 def test_slstm_train_step_on_the_card_matches_the_cpu_under_remat(dev, remat):
     """xlstm's smoke config, one train step from the same masters under
     each remat mode: loss and grad norm within 1e-5 relative, every
-    gradient within 1e-4 of its leaf's largest; the card launches the
-    forward kernel once a step and layer (twice under remat, which
-    recomputes the loop) and the backward kernel once."""
+    gradient within 1e-4 of its leaf's largest; the card calls the
+    forward kernel once a layer (twice under remat, which recomputes the
+    loop) and the backward kernel once, each call the route rule's
+    launches (one on the resident route, 32 on the per-step route)."""
     import dataclasses
 
     from repro_torch import kernels
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.slstm import ops
     from repro_torch.models import get_model
     from repro_torch.training import AdamWConfig, init_train_state, make_train_step
 
@@ -3165,8 +3259,11 @@ def test_slstm_train_step_on_the_card_matches_the_cpu_under_remat(dev, remat):
         runs.append(make_train_step(model, AdamWConfig(lr=1e-3))(state, batch))
         after = kernels.launch_counts()
     layers = cfg.n_layers // cfg.slstm_every
-    assert after["slstm_fwd"] - before["slstm_fwd"] == layers * 32 * (1 if remat == "none" else 2)
-    assert after["slstm_bwd"] - before["slstm_bwd"] == layers * 32
+    per_call = ops.launches_per_call(4, 32, cfg.d_model, torch.cuda.current_device())
+    assert per_call == 1  # the smoke config's width takes the resident route
+    assert after["slstm_fwd"] - before["slstm_fwd"] == layers * per_call * (
+        1 if remat == "none" else 2)
+    assert after["slstm_bwd"] - before["slstm_bwd"] == layers * per_call
     (cs, cm), (ds, dm) = runs
     for key in ("loss", "grad_norm"):
         assert abs(float(dm[key]) - float(cm[key])) <= 1e-5 * abs(float(cm[key])), key

@@ -347,7 +347,7 @@ def test_every_wrapper_launches_on_its_tensors_card():
             assert call.group(1) == "card", (path, call.group(1))
             assert re.search(r"\n\s+card = (dev|[\w.]+\.device)\.index\n", body), path
             launches += 1
-    assert launches == 22
+    assert launches == 25
 
 
 _SETTERS = re.compile(r"cuda(FuncSetAttribute|DeviceGetAttribute|"

@@ -15,7 +15,12 @@ tie rules of the port's softplus and clamps, against the JAX package.
   * ``layers.softplus``, ``log_sigmoid`` and the two clamps (``maximum``):
     forwards bit-equal to the old ``clamp_min`` forms, gradients at the tie
     0.5, as ``jax.grad``'s;
-  * the wrappers on CPU tensors take the plain version and count no launch.
+  * the wrappers on CPU tensors take the plain version and count no launch;
+  * the CUDA wrappers' route rule (``ops.route``) on an H100's figures:
+    resident (one launch a call) for xlstm-1.3b's training shape, per-step
+    for one step, for widths and batches past the resident route's and on
+    a card with fewer SMs than its blocks; a width that is no multiple of
+    64 raises.
 
 Widths B = 2, S = 16, d = 64 (float32).  Tolerance: each output within
 TOL = 1e-5 of its largest magnitude (max |port − jax| ≤ TOL · max |jax|);
@@ -40,6 +45,7 @@ from repro_torch.kernels.slstm import (
     slstm_fwd,
     slstm_scan_ref,
 )
+from repro_torch.kernels.slstm import ops as slstm_ops
 from repro_torch.kernels.slstm import ref as slstm_ref
 from repro_torch.models import layers as L
 from repro_torch.models.xlstm import SLSTMBlock
@@ -296,3 +302,31 @@ def test_tie_rules_forward_bit_equal_and_gradient_as_jax(name):
     want = np.asarray(jax.vmap(jax.grad(jfn))(jnp.asarray(pts)))
     assert got[0] == want[0] == 0.5
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+H100 = (132, 232_448)  # SMs, opt-in shared memory a block (bytes)
+
+
+@pytest.mark.parametrize("shape,card,want", [
+    ((8, 512, 2048), H100, "resident"),   # xlstm-1.3b's training call
+    ((8, 1, 2048), H100, "step"),         # a decode step
+    ((8, 512, 4096), H100, "step"),       # 256 blocks, and the slice past the registers
+    ((17, 48, 128), H100, "resident"),    # three row tiles
+    ((32, 48, 64), H100, "resident"),     # four row tiles, the most a block keeps
+    ((33, 48, 64), H100, "step"),         # five
+    ((8, 512, 2048), (114, 232_448), "step"),  # 128 blocks on a card of 114 SMs
+    ((8, 512, 2048), (132, 65_536), "step"),   # the h tile and partials past the shared memory
+])
+def test_slstm_route_rule(shape, card, want):
+    assert slstm_ops.route(*shape, *card) == want
+
+
+def test_slstm_route_rule_refuses_a_width_that_is_no_multiple_of_64():
+    for d in (96, 32, 2050):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            slstm_ops.route(8, 512, d, *H100)
+
+
+def test_slstm_resident_shared_memory_at_xlstm_width():
+    """The h tile (8·d floats) and the forward's partials (8,192 floats)."""
+    assert slstm_ops.resident_smem(2048) == (8 * 2048 + 8192) * 4 == 98_304

@@ -13,7 +13,7 @@ events gives the optimizer's device ms (the stream's time from the call's
 first launch to its last, the device busy with the backward before it).
 Then, unless ``--no-profile``, one more step under ``torch.profiler``
 (raw kernel events): device ms and launches, the top kernels by device
-time.  One JSON line a model, the card's name and power limit in it.
+time, and every sLSTM kernel's.  One JSON line a model, the card's name and power limit in it.
 
 ``--src DIR`` imports ``repro_torch`` from another checkout's ``src`` (its
 kernels built into that checkout's own ``build/``), so that two versions
@@ -68,7 +68,9 @@ def profile_step(fn, top: int = 10) -> dict:
             calls[e.name()] += 1
     return {"device_ms": sum(dev_ns.values()) / 1e6, "device_launches": sum(calls.values()),
             "top_device": [{"op": k[:120], "calls": calls[k], "device_ms": dev_ns[k] / 1e6}
-                           for k in sorted(dev_ns, key=lambda k: -dev_ns[k])[:top]]}
+                           for k in sorted(dev_ns, key=lambda k: -dev_ns[k])[:top]],
+            "slstm_device": [{"op": k[:120], "calls": calls[k], "device_ms": dev_ns[k] / 1e6}
+                             for k in sorted(dev_ns) if "slstm" in k]}
 
 
 def run(arch: str, steps: int, profile: bool) -> dict:
