@@ -144,6 +144,17 @@ The observatory and the chaos layer ride on these paths:
     the ops' execute seconds fit in the window; with no profiler, the
     median host enqueue of hash_threshold and fleet_scores.
 
+The pin's digest table and the planner's score take the host-side
+redesigns: visitView's pin is built by ``pin_table`` (one launch over the
+key arena, one host read; the ``outlier_digest`` line holds it against
+its plain version and the parent's composition in turns, with the index's
+keys on digest_table's one-block route and both routes past 2,048
+entries), and every planner score on the fleet, chaos fleet and sharded
+fleet paths goes through the staged host entries (one launch a score a
+card; the ``fleet_score`` and ``fleet_score_sharded`` lines give the
+planner's round trip by the parent's composition and the staged entry in
+turns).
+
 Each path runs with the launch counters set to 0 just before it and read
 just after (the main path and ``kernel_api`` also give, in ``routes``,
 the launches of hash_threshold and corr_moments by route: 16-byte vector
@@ -192,6 +203,7 @@ M = 0.1
 K = 1000
 SEED = 0
 ITERS = 20  # calls per timing
+TABLE_TURNS = 20  # calls of each table build (and planner score route) in turns
 # device against CPU, at a size the CPU path runs in seconds
 SMALL_VIDEOS, SMALL_LOGS, SMALL_DELTA = 2_000, 200_000, 20_000
 
@@ -507,13 +519,15 @@ XLSTM_CONTROL = 1e-7
 XLSTM_STEP_SPREAD = 4
 
 # the kernels each path must launch
-SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
+# (the pin's digest table: pin_table's one launch over the key arena; the
+# planner's scores: the staged host entries)
+SVC_LOOP_KERNELS = ("hash_threshold", "fused_clean", "outlier_member", "outlier_pin_table",
                     "multi_agg_two", "multi_agg_one", "segment_aggsum")
-FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score")
+FLEET_KERNELS = ("fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score_host")
 STREAM_KERNELS = ("fused_clean", "multi_agg_two", "multi_agg_one")
 API_KERNELS = ("segment_aggsum", "segment_aggsum_unsorted", "corr_diff")
 # every layer's attention, and the telemetry view's cleans and dashboard
-SHARDED_KERNELS = ("fleet_score_sharded", "fleet_moments", "fused_clean_fleet", "fleet_merge",
+SHARDED_KERNELS = ("fleet_score_sharded_host", "fleet_moments", "fused_clean_fleet", "fleet_merge",
                    "fused_clean", "hash_threshold", "segment_aggsum_unsorted")
 SERVE_KERNELS = ("flash_attention", "hash_threshold", "fused_clean", "multi_agg_two",
                  "multi_agg_one")
@@ -659,6 +673,27 @@ def device_launches(fn, calls: int = 4, tries: int = 3) -> float:
                              if e.device_type == torch.autograd.DeviceType.CUDA
                              and not e.key.startswith("ProfilerStep")) / calls)
     return best
+
+
+def kernel_rows_us(fn, match: str, calls: int = 20) -> float:
+    """Device µs a call of ``fn`` of the kernel rows whose name holds
+    ``match``, by ``torch.profiler`` over ``calls`` calls (0 where the
+    profiler lost the rows, ROADMAP A′.7)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if match in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total += getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+    return total / calls
 
 
 def profile_ops(fn, top: int = 10, match: tuple = ()) -> dict:
@@ -844,15 +879,26 @@ def run_svc_loop(vm, view, log, video, delta, groups, m, k, queries):
     aqp, t["query_batch_aqp_s"] = wall(lambda: vm.query_batch(name, queries, prefer="aqp"))
     from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
 
+    b0 = table_build_mark()
     _, t["register_outlier_index_s"] = wall(
         lambda: vm.register_outlier_index(name, "Log", "bytes", k=k))
-    before = pinned_hash.launches, digest_table.launches
+    # the index's registration builds the view's pin: its table on the
+    # one-launch route, one launch and one host read
+    pin_build = check_table_builds("register_outlier_index", b0, at_least=1)
+    before = (pinned_hash.launches, digest_table.launches, table_build_mark())
     t["svc_refresh_pinned_s"] = vm.svc_refresh(name)
-    # the pinned refresh: its pinned hashes and table builds, then the same
-    # refresh again (same deltas, same sample) under the profiler
+    # the pinned refresh: its pinned hashes and table builds (pin_table's
+    # launches, routes and host reads; none while the index and the bases
+    # stand), then the same refresh again (same deltas, same sample) under
+    # the profiler
+    builds = check_table_builds("the pinned refresh", before[2], at_least=0)
     pinned_refresh = {"wall_s": t["svc_refresh_pinned_s"],
                       "pinned_hash_launches": pinned_hash.launches - before[0],
-                      "table_builds": digest_table.launches - before[1]}
+                      "table_builds": builds["launches"],
+                      "digest_table_launches": digest_table.launches - before[1],
+                      "table_host_reads": builds["host_reads"],
+                      "table_routes": builds["routes"],
+                      "pin_build_at_registration": pin_build}
     prof = profile_ops(lambda: vm.svc_refresh(name))
     pinned_refresh["warm_profile"] = {k: prof[k] for k in (
         "self_cpu_ms", "self_device_ms", "device_launches", "runtime_calls")}
@@ -997,6 +1043,228 @@ def hold_moments(got, want, what):
     return float(err.max()), float((err / scale.clamp(min=1e-30)).max())
 
 
+def parent_digest_table(key_cols):
+    """The parent's digest_table, which the one-block route replaced at
+    K ≤ 2,048: one ``svc_outlier_digest`` launch, then a torch sort.
+    Uncounted: it calls the C entry directly."""
+    import torch
+
+    from repro_torch.core.hashing import DIGEST_SEED_HI, DIGEST_SEED_LO, seed_mix
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.outlier_member import ops
+
+    K = key_cols[0].shape[0]
+    dev = key_cols[0].device
+    out = torch.empty(K, dtype=torch.int64, device=dev)
+    if K:
+        _build.launch_on(dev.index, "svc_outlier_digest", ops._DIGEST_ARGS,
+                         *ops._col_ptrs(key_cols), len(key_cols), K, seed_mix(DIGEST_SEED_HI),
+                         seed_mix(DIGEST_SEED_LO), out.data_ptr())
+    return torch.sort(out).values
+
+
+def parent_pin_table(rel):
+    """The parent's ``pin_set`` table of the pin relation ``rel``: its
+    SENTINEL-masked key columns, two ``nonzero`` calls (each a host read),
+    a cat and a gather a column, then ``parent_digest_table``."""
+    import torch
+
+    from repro_torch.relational.relation import sentinel_where
+
+    keys = tuple(sentinel_where(rel.valid, rel.col(c)) for c in rel.schema.pk)
+    rows = torch.cat([rel.valid.nonzero().flatten(), (~rel.valid).nonzero()[:1].flatten()])
+    return parent_digest_table(tuple(k[rows].contiguous() for k in keys))
+
+
+def table_build_mark() -> tuple:
+    """pin_table's launches and routes and the kernel library's host
+    waits now, for ``check_table_builds``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.outlier_member.ops import pin_table
+
+    return pin_table.launches, dict(pin_table.routes), _build.wait.calls
+
+
+def check_table_builds(what: str, mark: tuple, at_least: int) -> dict:
+    """pin_table's launches, routes and host reads since ``mark``; fails
+    unless at least ``at_least`` tables were built and every one took the
+    one-launch route with one host read."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.outlier_member.ops import pin_table
+
+    got = {"launches": pin_table.launches - mark[0],
+           "routes": {k: pin_table.routes[k] - mark[1][k] for k in mark[1]},
+           "host_reads": _build.wait.calls - mark[2]}
+    arena = got["routes"]["arena"]
+    if arena < at_least or got["routes"]["sort"] or got["launches"] != arena or \
+            got["host_reads"] != arena:
+        fail(f"{what}: the pin's table builds are not one launch and one host read each: {got}")
+    return got
+
+
+def host_reads(fn) -> int:
+    """The host reads of one call of ``fn``: the synchronizing torch calls
+    (``torch.cuda.set_sync_debug_mode``'s warnings) and the kernel
+    library's stream waits (``_build.wait.calls``)."""
+    import warnings
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    waits = _build.wait.calls
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+    return syncs + _build.wait.calls - waits
+
+
+def in_turns(routes: dict, turns: int) -> dict:
+    """Median host µs of one call of each of ``routes`` (name → call that
+    ends with its result on the host or synchronized), the routes called in
+    turns, ``turns`` times each, after one warm call each."""
+    import torch
+
+    for fn in routes.values():
+        fn()
+    runs = {k: [] for k in routes}
+    for _ in range(turns):
+        for k, fn in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs[k].append((time.perf_counter() - t0) * 1e6)
+    return {k: float(np.median(v)) for k, v in runs.items()}
+
+
+def table_build_entry(pin, pin_keys, full_table, keys_k, mat_cols, mat_valid, launches, iters):
+    """outlier_digest's kernel line: the pin's table built from its key
+    arena (pin_table: one launch, one host read) at visitView's pin, held
+    ``torch.equal`` to ``pin_table_ref``, to the pin's own table and to the
+    parent's composition; the two compared in turns (median µs, device
+    launches, host reads, ms by events); digest_table at the index's keys
+    (one block) against the parent's digest and sort; and the routes past
+    2,048 entries held too.  ``launches``: the main path's launches of
+    both table wrappers."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.outlier_member.ops import (
+        MAX_SMEM_KEYS,
+        digest_table,
+        pin_launches,
+        pin_table,
+        table_route,
+    )
+    from repro_torch.kernels.outlier_member.ref import pin_table_ref, sorted_digest_table
+
+    rel = pin.relation
+    keys = tuple(rel.col(c).contiguous() for c in rel.schema.pk)
+    valid = rel.valid.contiguous()
+    NP, ncols = int(valid.shape[0]), len(keys)
+    n_valid = int(valid.sum())
+    with uncounted():
+        got = pin_table(keys, valid)
+        if not (torch.equal(got, pin.table) and torch.equal(got, pin_table_ref(keys, valid))
+                and torch.equal(got, parent_pin_table(rel))):
+            fail("outlier_digest: pin_table differs from its plain version or the parent's")
+        KP = int(got.shape[0])
+        if KP > MAX_SMEM_KEYS:
+            fail(f"outlier_digest: visitView's pin table holds {KP} entries, past the one launch")
+        n0, r0, w0 = pin_table.launches, dict(pin_table.routes), _build.wait.calls
+        pin_table(keys, valid)
+        counted = {"launches": pin_table.launches - n0, "host_waits": _build.wait.calls - w0,
+                   "routes": {k: pin_table.routes[k] - r0[k] for k in r0}}
+        if counted != {"launches": 1, "host_waits": 1, "routes": {"arena": 1, "sort": 0}}:
+            fail(f"outlier_digest: pin_table at visitView's pin counted {counted}")
+        new = lambda: pin_table(keys, valid)  # noqa: E731
+        old = lambda: parent_pin_table(rel)  # noqa: E731
+        routes = {"pin_table": {"launches_per_call": device_launches(new),
+                                "host_reads_per_call": host_reads(new),
+                                "ms": cuda_ms(new, iters), "route": "arena",
+                                "kernel_device_us": kernel_rows_us(new, "outlier_pin_table")},
+                  "parent_composition": {"launches_per_call": device_launches(old),
+                                         "host_reads_per_call": host_reads(old),
+                                         "ms": cuda_ms(old, iters)}}
+        for k, us in in_turns({"pin_table": new, "parent_composition": old},
+                              TABLE_TURNS).items():
+            routes[k]["median_us"] = us
+        if routes["pin_table"]["launches_per_call"] > 1 or \
+                routes["pin_table"]["host_reads_per_call"] != 1:
+            fail(f"outlier_digest: pin_table is not one launch and one host read: {routes}")
+        # digest_table at the index's K keys: one block digests and sorts
+        K = int(keys_k[0].shape[0])
+        got_k = digest_table(keys_k)
+        if not (torch.equal(got_k, sorted_digest_table(keys_k))
+                and torch.equal(got_k, parent_digest_table(keys_k))):
+            fail("outlier_digest: digest_table at the index's keys differs")
+        d0 = dict(digest_table.routes)
+        digest_table(keys_k)
+        index_route = [k for k in d0 if digest_table.routes[k] != d0[k]]
+        if index_route != [table_route(K)]:
+            fail(f"outlier_digest: digest_table at K = {K} took {index_route}")
+        index_keys = {
+            "keys": K, "route": index_route[0],
+            "launches_per_call": device_launches(lambda: digest_table(keys_k)),
+            "ms": cuda_ms(lambda: digest_table(keys_k), iters),
+            "plain_ms": cuda_ms(lambda: sorted_digest_table(keys_k), iters),
+            "bound_ms": K * (4 * len(keys_k) + 8) / HBM_BYTES_PER_S * 1e3,
+            "parent": {"launches_per_call": device_launches(lambda: parent_digest_table(keys_k)),
+                       "ms": cuda_ms(lambda: parent_digest_table(keys_k), iters)}}
+        index_keys.update({f"{k}_median_us": us for k, us in in_turns(
+            {"digest_table": lambda: digest_table(keys_k),
+             "parent": lambda: parent_digest_table(keys_k)}, TABLE_TURNS).items()})
+        # past 2,048 entries: the view's own rows as a pin arena (pin_table's
+        # second route), and digest_table over the pin's whole arena
+        big_keys, big_valid = tuple(c.contiguous() for c in mat_cols), mat_valid
+        big = pin_table(big_keys, big_valid)
+        entries = int(big.shape[0])
+        if not torch.equal(big, pin_table_ref(big_keys, big_valid)):
+            fail("outlier_digest: pin_table past 2,048 entries differs from its plain version")
+        n0, r0 = pin_table.launches, dict(pin_table.routes)
+        pin_table(big_keys, big_valid)
+        past = {"entries": entries, "slots": int(big_valid.shape[0]),
+                "launches": pin_table.launches - n0,
+                "routes": {k: pin_table.routes[k] - r0[k] for k in r0},
+                "ms": cuda_ms(lambda: pin_table(big_keys, big_valid), iters),
+                "plain_ms": cuda_ms(lambda: pin_table_ref(big_keys, big_valid), iters)}
+        if entries <= MAX_SMEM_KEYS or past["launches"] != pin_launches(entries) or \
+                past["routes"] != {"arena": 1, "sort": 1}:
+            fail(f"outlier_digest: the route past 2,048 entries counted {past}")
+        if not torch.equal(full_table, sorted_digest_table(pin_keys)):
+            fail("outlier_digest: digest_table of the full pin arena differs from the plain one")
+        full = {"keys": NP, "route": table_route(NP),
+                "ms": cuda_ms(lambda: digest_table(pin_keys), iters),
+                "plain_ms": cuda_ms(lambda: sorted_digest_table(pin_keys), iters),
+                "bound_ms": NP * (4 + 8) / HBM_BYTES_PER_S * 1e3}
+    # the bytes the build must move: the arena's validity, the valid
+    # slots' keys, the table written and its length
+    bytes_ = NP + n_valid * 4 * ncols + KP * 8 + 8
+    return kernel_entry(
+        "outlier_digest", "cuda", "src/repro_torch/csrc/outlier_member.cu",
+        "src/repro/kernels/outlier_member/ops.py:50",
+        launches["outlier_pin_table"] + launches["outlier_digest"], 0.0,
+        routes["pin_table"]["ms"], cuda_ms(lambda: pin_table_ref(keys, valid), iters),
+        bytes_=bytes_, ops=0, wrapper="pin_table (core.outliers.pin_set)",
+        kernel_route="arena", slots=NP, valid_slots=n_valid, keys=KP,
+        launches_by_wrapper={"pin_table": launches["outlier_pin_table"],
+                             "digest_table": launches["outlier_digest"]},
+        launches_per_call=routes["pin_table"]["launches_per_call"],
+        host_reads_per_call=routes["pin_table"]["host_reads_per_call"],
+        counted_per_call=counted, in_turns=routes, index_keys=index_keys,
+        past_2048=past, full_pin_arena=full,
+        tolerance="equal tables (torch.equal), both routes",
+    )
+
+
+
 def check_kernels(state, queries, m, seed, launches, iters):
     """Each kernel's wrapper against its plain version on the main path's
     tensors, timed with CUDA events; wrapper launches here are not counted
@@ -1012,11 +1280,7 @@ def check_kernels(state, queries, m, seed, launches, iters):
     from repro_torch.kernels.multi_agg.ref import multi_agg_ref
     from repro_torch.core.outliers import pin_set
     from repro_torch.kernels.outlier_member.ops import digest_table, outlier_codes, pinned_hash
-    from repro_torch.kernels.outlier_member.ref import (
-        outlier_codes_ref,
-        pinned_hash_ref,
-        sorted_digest_table,
-    )
+    from repro_torch.kernels.outlier_member.ref import outlier_codes_ref, pinned_hash_ref
     from repro_torch.query import QueryBatch, build_correspondence_cache, sample_columns
     from repro_torch.relational.relation import sentinel_where
 
@@ -1190,29 +1454,14 @@ def check_kernels(state, queries, m, seed, launches, iters):
                                                                           seed))},
         tolerance="equal validity, flags and codes",
     ))
-    # the digest entry at the pin's own table keys (its valid keys and one
-    # SENTINEL tuple, as core.outliers.pin_set digests them)
-    rows = torch.cat([pin.relation.valid.nonzero().flatten(),
-                      (~pin.relation.valid).nonzero()[:1].flatten()])
-    tkeys = tuple(c[rows].contiguous() for c in pin_keys)
-    got_t = digest_table(tkeys)
-    if not torch.equal(got_t, pin.table) or not torch.equal(got_t, sorted_digest_table(tkeys)):
-        fail("outlier_digest table differs from the plain sorted_digest_table")
-    if not torch.equal(full_table, sorted_digest_table(pin_keys)):
-        fail("outlier_digest table of the full pin arena differs from the plain one")
-    NP = int(pin_keys[0].shape[0])
-    out.append(kernel_entry(
-        "outlier_digest", "cuda", "src/repro_torch/csrc/outlier_member.cu",
-        "src/repro/kernels/outlier_member/ops.py:50", launches["outlier_digest"], 0.0,
-        cuda_ms(lambda: digest_table(tkeys), iters),
-        cuda_ms(lambda: sorted_digest_table(tkeys), iters),
-        bytes_=KP * (4 + 8), ops=0, keys=KP,
-        launches_per_call=device_launches(lambda: digest_table(tkeys)),
-        full_pin_arena={"keys": NP, "ms": cuda_ms(lambda: digest_table(pin_keys), iters),
-                        "plain_ms": cuda_ms(lambda: sorted_digest_table(pin_keys), iters),
-                        "bound_ms": NP * (4 + 8) / HBM_BYTES_PER_S * 1e3},
-        tolerance="equal tables",
-    ))
+    # 3'. the table build (outlier_digest's row): pin_table at the main
+    # path's own shape, the pin's key arena, against its plain version and
+    # the parent's composition (two host reads, a gather a column, a digest
+    # launch and a torch sort), timed in turns; then digest_table at the
+    # index's K keys (one block digests and sorts them), and past 2,048
+    # entries (the view's own key arena as a pin: a second route)
+    out.append(table_build_entry(pin, pin_keys, full_table, keys_k, mat_cols, mat.valid,
+                                 launches, iters))
 
     # 4. multi_agg: the dashboard over the correspondence panel (two-sided)
     # and over the materialized view (one-sided exact scan), each called as
@@ -1649,11 +1898,167 @@ def run_fleet_path(n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epo
             if a != b:
                 fail(f"fleet {n}: after maintain_all query_stale {a} != query_exact_fresh {b}")
     inputs = {"fused": fused_launches[0][1], "merge": merge_launches[0][1],
-              "moments": channels, "features": torch.from_numpy(features).to(vm.device)}
+              "moments": channels, "features": torch.from_numpy(features).to(vm.device),
+              "features_host": features}
     return t, {"comparison": comparison, "epochs": epochs_out, "merge_groups": merge_groups,
+               "planner_scores": len(planner.checks),
                "per_view_s": per_view_s, "warm_view_s": warm_view_s,
                "svc_refresh_many_view_s": dts, "prices": prices}, \
         inputs
+
+
+def staged_enqueue_us(fn, turns: int) -> float:
+    """Median host µs of one call of ``fn`` less the time it spends in the
+    kernel library's stream waits (``_build.wait``, timed around each
+    wait): the host side of a staged call up to its launches queued."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    real, spent = _build.wait, []
+
+    def timed(index):
+        t0 = time.perf_counter()
+        real(index)
+        spent.append(time.perf_counter() - t0)
+
+    timed.calls = real.calls  # real's own count goes through the module's name
+    _build.wait = timed
+    runs = []
+    try:
+        for _ in range(turns):
+            torch.cuda.synchronize()
+            spent.clear()
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0 - sum(spent)) * 1e6)
+    finally:
+        _build.wait = real
+        real.calls = timed.calls
+    return float(np.median(runs))
+
+
+def enqueue_us(fn, turns: int) -> float:
+    """Median host µs of one call of ``fn`` that returns with its work
+    queued on the card (no wait), the card synchronized after each."""
+    import torch
+
+    runs = []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def score_round_trips(routes: dict, turns: int) -> dict:
+    """The planner's score from a numpy panel to numpy scores by each of
+    ``routes`` (name → (call, the wrapper that counts its launches, the
+    route's name, a call of its part up to the work queued, or None for a
+    staged call)): each route's scores bit-equal to the first's, then a
+    call's kernel launches by the counter, device operations by
+    ``torch.profiler`` (kernels, copies and memsets), host reads, host
+    enqueue µs, and the median µs of the routes called in turns.
+    Uncounted."""
+    import torch
+
+    out = {}
+    with uncounted():
+        results = {k: r[0]() for k, r in routes.items()}
+        first = next(iter(results.values()))
+        for k, got in results.items():
+            if got.shape != first.shape or not np.array_equal(got.view(np.int32),
+                                                              first.view(np.int32)):
+                fail(f"planner score route {k} differs from {next(iter(results))}")
+        for k, (fn, counter, route, queued) in routes.items():
+            torch.cuda.synchronize()
+            n0 = counter.launches
+            fn()
+            out[k] = {"route": route, "kernel_launches_per_call": counter.launches - n0,
+                      "device_ops_per_call": device_launches(fn),
+                      "host_reads_per_call": host_reads(fn),
+                      "host_enqueue_us": staged_enqueue_us(fn, turns) if queued is None
+                      else enqueue_us(queued, turns)}
+        for k, us in in_turns({k: r[0] for k, r in routes.items()}, turns).items():
+            out[k]["median_us"] = us
+    return out
+
+
+def planner_score_routes(panel, device):
+    """The parent's planner score of the (V, F) numpy ``panel`` (a pageable
+    copy to the card, the device-panel wrapper, a copy back) and the
+    staged host entry, as ``score_round_trips`` takes them."""
+    import torch
+
+    from repro_torch.kernels.fleet_score import fleet_scores, fleet_scores_host
+
+    dev = torch.device(device)
+    return {
+        "copy_launch_copy": (lambda: fleet_scores(torch.from_numpy(panel).to(dev)).cpu().numpy(),
+                             fleet_scores, "device panel",
+                             lambda: fleet_scores(torch.from_numpy(panel).to(dev))),
+        "staged": (lambda: fleet_scores_host(panel, dev), fleet_scores_host,
+                   "mapped staging pair", None)}
+
+
+def parent_per_device_scores(stacked, devices):
+    """The parent's per-device branch of ``fleet_scores_sharded`` for the
+    (S, Vmax, F) host tensor ``stacked``: the stack pinned, each shard
+    copied to ``devices[s]``, one launch each, every shard's scores copied
+    to the first device and stacked.  It launches the C entry itself and
+    counts on its own ``launches``, not on a wrapper's."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fleet_score.ops import _ARGS
+    from repro_torch.kernels.fleet_score.ref import N_SCORES
+
+    stacked = stacked.pin_memory()
+    parts = []
+    for s, d in enumerate(devices):
+        x = stacked[s].to(d, non_blocking=True).contiguous()
+        out = torch.empty((x.shape[0], N_SCORES), dtype=torch.float32, device=d)
+        _build.launch_on(d.index, "svc_fleet_score", _ARGS, x.data_ptr(), x.shape[0],
+                         out.data_ptr())
+        parent_per_device_scores.launches += 1
+        parts.append(out)
+    return torch.stack([p.to(devices[0]) for p in parts])
+
+
+parent_per_device_scores.launches = 0
+
+
+def sharded_score_routes(stacked, devices):
+    """The sharded fleet's score combine of the (S, Vmax, F) numpy
+    ``stacked`` by the parent's composition and by the staged host entry:
+    over the stack on one card (``devices`` one device) or one shard a
+    device (``devices`` a list: ``parent_per_device_scores``)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fleet_score import fleet_scores_sharded, fleet_scores_sharded_host
+
+    if isinstance(devices, list):
+        cards = [_build.cuda_device(d) for d in devices]
+        counter = parent_per_device_scores
+
+        def queued():
+            return parent_per_device_scores(torch.from_numpy(stacked), cards)
+    else:
+        counter = fleet_scores_sharded
+
+        def queued():
+            return fleet_scores_sharded(torch.from_numpy(stacked).to(devices))
+    return {
+        "copy_launch_copy": (lambda: queued().cpu().numpy(), counter,
+                             "device panel" if not isinstance(devices, list)
+                             else "per device: copies in, launches, copies back, stack",
+                             queued),
+        "staged": (lambda: fleet_scores_sharded_host(stacked, devices),
+                   fleet_scores_sharded_host, "mapped staging pair", None)}
+
 
 
 def check_fleet_kernels(inputs, launches, iters):
@@ -1671,7 +2076,7 @@ def check_fleet_kernels(inputs, launches, iters):
         sort_stale,
     )
     from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
-    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores
+    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores, fleet_scores_host
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby_fleet, overflow_counter
     from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref
     from repro_torch.kernels.hash_threshold.ref import hash_threshold_ref
@@ -1785,18 +2190,41 @@ def check_fleet_kernels(inputs, launches, iters):
         views=V, rows=R, max_rel_err=rel, tolerance="1e-6 relative; deterministic",
     ))
 
-    # 4. fleet_score: bit-equal to the plain version
+    # 4. fleet_score: bit-equal to the plain version, on the device panel
+    # and through the planner's staged entry; the planner's round trip by
+    # the parent's composition and by the staged entry, in turns
     feats = inputs["features"]
+    panel = inputs["features_host"]
     V = feats.shape[0]
     got = fleet_scores(feats)
-    if not torch.equal(got.view(torch.int32), fleet_score_ref(feats).view(torch.int32)):
+    want = fleet_score_ref(feats)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         fail("fleet_score differs from the plain version")
+    with uncounted():
+        staged = fleet_scores_host(panel, feats.device)
+    if not np.array_equal(staged.view(np.int32), want.cpu().numpy().view(np.int32)):
+        fail("fleet_score's staged entry differs from the plain version")
+    trips = score_round_trips(planner_score_routes(panel, feats.device), TABLE_TURNS)
+    with uncounted():  # the kernel reading the staged panel over the bus, and from device memory
+        trips["staged"]["kernel_device_us"] = kernel_rows_us(
+            lambda: fleet_scores_host(panel, feats.device), "fleet_score_kernel")
+        trips["copy_launch_copy"]["kernel_device_us"] = kernel_rows_us(
+            lambda: fleet_scores(feats), "fleet_score_kernel")
+    # the counters exactly; the profiler at most (late in a process it can
+    # drop a row, ROADMAP A′.7, but never adds one)
+    if trips["staged"]["device_ops_per_call"] > 1 or \
+            trips["staged"]["kernel_launches_per_call"] != 1:
+        fail(f"fleet_score's staged entry is not one device operation a score: {trips}")
     out.append(kernel_entry(
         "fleet_score", "cuda", "src/repro_torch/csrc/fleet_score.cu",
-        "src/repro/kernels/fleet_score/kernel.py:102", launches["fleet_score"], 0.0,
+        "src/repro/kernels/fleet_score/kernel.py:102",
+        launches["fleet_score"] + launches["fleet_score_host"], 0.0,
         cuda_ms(lambda: fleet_scores(feats), iters),
         cuda_ms(lambda: fleet_score_ref(feats), iters),
-        bytes_=V * (13 + 6) * 4, ops=45 * V, views=V, tolerance="bit-equal",
+        bytes_=V * (13 + 6) * 4, ops=45 * V, views=V,
+        launches_by_wrapper={"fleet_scores_host": launches["fleet_score_host"],
+                             "fleet_scores": launches["fleet_score"]},
+        planner_round_trip=trips, tolerance="bit-equal",
     ))
     return out
 
@@ -5349,6 +5777,36 @@ def run_chaos_twin(logs, n_views, n_videos, n_logs, n_delta, n_deletes, groups, 
     return vm, names, plan, planner, out
 
 
+class ScoreCount:
+    """The planner's score calls (``scheduler.score_fleet``) between
+    ``start`` and ``stop`` against fleet_score's launches: ``stop`` fails
+    unless each score was one staged launch and none used the device-panel
+    wrapper."""
+
+    def start(self):
+        import repro_torch.planner.scheduler as sched
+        from repro_torch.kernels.fleet_score import fleet_scores, fleet_scores_host
+
+        self.sched, self.real, self.calls = sched, sched.score_fleet, 0
+        self.wrappers = (fleet_scores_host, fleet_scores)
+        self.before = tuple(w.launches for w in self.wrappers)
+
+        def counting(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        sched.score_fleet = counting
+        return self
+
+    def stop(self, what: str) -> dict:
+        self.sched.score_fleet = self.real
+        staged, device = (w.launches - b for w, b in zip(self.wrappers, self.before))
+        out = {"calls": self.calls, "staged_launches": staged, "device_panel_launches": device}
+        if staged != self.calls or device or not self.calls:
+            fail(f"{what}: planner scores {out}, want one staged launch each")
+        return out
+
+
 def run_chaos_fleet(logs, gen_s, n_views, n_videos, n_logs, n_delta, n_deletes, groups, m,
                     epochs, prices, iters, device="cuda"):
     """chaos_fleet over the host ``logs`` (generated once in ``gen_s``
@@ -5361,11 +5819,12 @@ def run_chaos_fleet(logs, gen_s, n_views, n_videos, n_logs, n_delta, n_deletes, 
 
     import torch
 
-    from repro_torch.kernels.fleet_score import fleet_scores
+    from repro_torch.kernels.fleet_score import fleet_scores, fleet_scores_host
     from repro_torch.obs import load_jsonl, reconcile
     from repro_torch.obs.trace import Tracer
 
     args = (n_views, n_videos, n_logs, n_delta, n_deletes, groups, m, epochs, prices)
+    scores = ScoreCount().start()
     tracer = Tracer()
     faulted, names, plan, _p, fout = run_chaos_twin(logs, *args, plan_seed=0, tracer=tracer,
                                                     device=device)
@@ -5422,9 +5881,14 @@ def run_chaos_fleet(logs, gen_s, n_views, n_videos, n_logs, n_delta, n_deletes, 
                                       planner.step(), planner.step()), "fleet")
     if planner.epoch != epochs_before + 2:
         fail("kprof fleet: the window did not run two planner epochs")
-    feats = torch.from_numpy(planner.cost_model.features()).to(clean.device)
+    report["planner_scores"] = scores.stop("chaos fleet")
+    panel = planner.cost_model.features()
+    feats = torch.from_numpy(panel).to(clean.device)
     window["fleet_score_host_enqueue"] = {"panel": list(feats.shape), **host_enqueue_median_us(
         lambda: fleet_scores(feats), iters)}
+    # the planner's staged score, whole (its launch, its wait, the copy out)
+    window["fleet_score_staged_call"] = {"panel": list(panel.shape), **host_enqueue_median_us(
+        lambda: fleet_scores_host(panel, clean.device), iters)}
     window["planner_epoch_2"] = {"snapshot_s": planner.last_report.snapshot_s,
                                  "schedule_s": planner.last_report.schedule_s,
                                  "act_s": planner.last_report.act_s}
@@ -5584,13 +6048,13 @@ def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shar
         cm.pin_costs(refresh_s=prices["clean_s"], maintain_s=prices["maintain_s"],
                      retune_s=prices["retune_s"])
     scored = []
-    real_sharded = fleet_mod.fleet_scores_sharded
+    real_sharded = fleet_mod.fleet_scores_sharded_host
 
-    def recording(stacked, **kw):  # keeps each epoch's score-combine input
-        scored.append(stacked)
-        return real_sharded(stacked, **kw)
+    def recording(stacked, devices, **kw):  # keeps each epoch's score-combine input
+        scored.append(stacked.copy())
+        return real_sharded(stacked, devices, **kw)
 
-    fleet_mod.fleet_scores_sharded = recording
+    fleet_mod.fleet_scores_sharded_host = recording
 
     def deltas(epoch):
         return [grow_log(np.random.default_rng(SHARDED_DELTA_SEED + 100 * epoch + i), n_videos,
@@ -5685,7 +6149,7 @@ def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shar
             before = dict(ans["answers"])
             out["epochs"].append(row)
     finally:
-        fleet_mod.fleet_scores_sharded = real_sharded
+        fleet_mod.fleet_scores_sharded_host = real_sharded
         kernels.set_profiler(None)
         trace.set_tracer(None)
     quarantines = sum(h.failures for vm in fleet.vms for h in vm.health.views.values())
@@ -5710,6 +6174,7 @@ def run_sharded_fleet(logs, n_videos, n_logs, n_delta, groups, m, prices, n_shar
                     for op, st in summary.items()}
     out["shard_ops"] = {op: sorted(per) for op, per in shard_summary["shards"].items()}
     out["shard_devices"] = shard_devices(fleet)
+    out["score_calls"] = len(scored)
     out["wall_s"] = t
     del fleet, flat, planner
     torch.cuda.empty_cache()
@@ -5820,42 +6285,74 @@ def run_sharded_groupbys(n_videos, start, n_delta, groups, m, seed, n_shards, de
     return report
 
 
-def check_sharded_score(stacked, launches, iters):
-    """fleet_score_sharded on the sharded fleet's last (S, Vmax, F) stack:
-    bit-equal to the plain score of each shard's panel."""
+def check_sharded_score(panel, launches, iters):
+    """fleet_score_sharded on the sharded fleet's last (S, Vmax, F) stack
+    (``panel``, numpy): the device-panel wrapper and the staged host entry
+    bit-equal to the plain score of each shard's panel; the score combine's
+    round trip by the parent's composition and by the staged entry, in
+    turns, over the stack on one card and one shard a device."""
     import torch
 
-    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores_sharded
+    from repro_torch.kernels.fleet_score import (
+        fleet_score_ref,
+        fleet_scores_sharded,
+        fleet_scores_sharded_host,
+    )
 
+    stacked = torch.from_numpy(panel).to("cuda")
     S, vmax, F = stacked.shape
     got = fleet_scores_sharded(stacked)
+    with uncounted():
+        staged = fleet_scores_sharded_host(panel, stacked.device)
     for s in range(S):
-        if not torch.equal(got[s].view(torch.int32),
-                           fleet_score_ref(stacked[s].contiguous()).view(torch.int32)):
+        want = fleet_score_ref(stacked[s].contiguous())
+        if not torch.equal(got[s].view(torch.int32), want.view(torch.int32)):
             fail(f"fleet_score_sharded differs from the plain version on shard {s}")
+        if not np.array_equal(staged[s].view(np.int32), want.cpu().numpy().view(np.int32)):
+            fail(f"fleet_score_sharded's staged entry differs from the plain version on shard {s}")
+    trips = {"stack": score_round_trips(sharded_score_routes(panel, stacked.device), TABLE_TURNS),
+             "per_device": score_round_trips(sharded_score_routes(panel, [stacked.device] * S),
+                                             TABLE_TURNS)}
+    for what, want in (("stack", 1), ("per_device", S)):
+        st = trips[what]["staged"]
+        if st["device_ops_per_call"] > want or st["kernel_launches_per_call"] != want:
+            fail(f"fleet_score_sharded's staged {what} entry is not {want} launches: {st}")
     flat = stacked.reshape(S * vmax, F)
     return kernel_entry(
         "fleet_score_sharded", "cuda", "src/repro_torch/csrc/fleet_score.cu",
-        "src/repro/kernels/fleet_score/kernel.py:102", launches["fleet_score_sharded"], 0.0,
+        "src/repro/kernels/fleet_score/kernel.py:102",
+        launches["fleet_score_sharded"] + launches["fleet_score_sharded_host"], 0.0,
         cuda_ms(lambda: fleet_scores_sharded(stacked), iters),
         cuda_ms(lambda: fleet_score_ref(flat).reshape(S, vmax, -1), iters),
         bytes_=S * vmax * (F + 6) * 4, ops=45 * S * vmax, shards=S, vmax=vmax,
+        launches_by_wrapper={"fleet_scores_sharded_host": launches["fleet_score_sharded_host"],
+                             "fleet_scores_sharded": launches["fleet_score_sharded"]},
+        score_combine_round_trip=trips,
         jax_entry="src/repro/kernels/fleet_score/ops.py:77", tolerance="bit-equal",
     )
 
 
-def stacked_score_parity(stacked, mesh, what: str) -> dict:
+def stacked_score_parity(panel, mesh, what: str) -> dict:
     """``fleet_scores_sharded`` over ``mesh`` (each shard scored on its
     device) bit-equal to the one launch over the stack on the mesh's first
-    device and to the plain score of each shard's panel."""
+    device, to the staged host entry a shard a device (uncounted) and to
+    the plain score of each shard's panel (``panel``: the numpy stack)."""
     import torch
 
-    from repro_torch.kernels.fleet_score import fleet_score_ref, fleet_scores_sharded
+    from repro_torch.kernels.fleet_score import (
+        fleet_score_ref,
+        fleet_scores_sharded,
+        fleet_scores_sharded_host,
+    )
 
+    stacked = torch.from_numpy(panel)
     devices = mesh.axis_devices("data")
     got = fleet_scores_sharded(stacked, mesh=mesh)
     with uncounted():
         one = fleet_scores_sharded(stacked.to(devices[0]))
+        staged = fleet_scores_sharded_host(panel, list(devices))
+    if not np.array_equal(staged.view(np.int32), one.cpu().numpy().view(np.int32)):
+        fail(f"{what}: the staged per-device scores differ from the stacked launch")
     if got.device != devices[0]:
         fail(f"{what}: the gathered scores lie on {got.device}, not {devices[0]}")
     if not torch.equal(got.view(torch.int32), one.view(torch.int32)):
@@ -5870,7 +6367,8 @@ def stacked_score_parity(stacked, mesh, what: str) -> dict:
 
 def hold_on_last_card(device, tol=MULTI_CARD_TOL) -> dict:
     """Every wrapper of ``tests/torch_wrapper_calls.py`` once on ``device``
-    against its plain version on the CPU over the same seeded inputs:
+    (the host entries' numpy results on the host) against its plain
+    version on the CPU over the same seeded inputs:
     integer and boolean outputs exact, float outputs within ``tol`` of the
     largest magnitude (1e-4 for the attention, whose f32 sums run in
     another order).  The launches are not counted."""
@@ -5884,7 +6382,7 @@ def hold_on_last_card(device, tol=MULTI_CARD_TOL) -> dict:
     spec.loader.exec_module(mod)
 
     def leaves(x):
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
             return [x]
         return [t for y in x for t in leaves(y)]
 
@@ -5895,7 +6393,9 @@ def hold_on_last_card(device, tol=MULTI_CARD_TOL) -> dict:
             got, want = leaves(call()), leaves(cpu[name]())
             worst = 0.0
             for a, b in zip(got, want, strict=True):
-                if a.device != torch.device(device):
+                if isinstance(a, np.ndarray):  # a host entry's result
+                    a, b = torch.from_numpy(a), torch.from_numpy(b)
+                elif a.device != torch.device(device):
                     fail(f"{name} on {device}: an output lies on {a.device}")
                 a = a.cpu()
                 if not b.is_floating_point():
@@ -5961,10 +6461,15 @@ def multi_card_phase(logs, n_videos, n_logs, n_delta, groups, m, prices, epochs,
         missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
         if missing:
             fail(f"multi_card {label}: kernels never launched: {missing}")
-        want = (epochs + 2) * len(devices)  # the preview, each epoch, the parity call
-        if launches["fleet_score_sharded"] != want:
-            fail(f"multi_card {label}: {launches['fleet_score_sharded']} fleet_score_sharded "
-                 f"launches, want {want}: one per shard and call")
+        # one launch per shard and score: the preview and each epoch through
+        # fleet_scores_sharded_host, the parity call through
+        # fleet_scores_sharded's mesh branch (staged too)
+        want = {"fleet_score_sharded_host": fleet["score_calls"] * len(devices),
+                "fleet_score_sharded": len(devices)}
+        if fleet["score_calls"] != epochs + 1 or \
+                any(launches[k] != n for k, n in want.items()):
+            fail(f"multi_card {label}: {fleet['score_calls']} score calls, launches "
+                 f"{ {k: launches[k] for k in want} }, want {want}: one per shard and call")
         run = {"shards": len(devices), "devices": [str(d) for d in devices],
                "shard_devices": fleet["shard_devices"],
                "epoch_s": [e["sharded_epoch_s"] for e in fleet["epochs"]],
@@ -6340,6 +6845,12 @@ def main(argv=None) -> int:
     missing = [k for k in FLEET_KERNELS if fleet_launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the fleet path: {missing}")
+    # every planner score through the staged entry: one launch a score
+    if fleet_launches["fleet_score_host"] != fleet["planner_scores"] or \
+            fleet_launches["fleet_score"]:
+        fail(f"fleet path: {fleet['planner_scores']} planner scores, "
+             f"{fleet_launches['fleet_score_host']} staged and {fleet_launches['fleet_score']} "
+             "device-panel fleet_score launches")
     emit({"phase": "fleet_path", "views": FLEET_VIEWS, "n_videos": FLEET_VIDEOS,
           "n_logs_per_view": FLEET_LOGS, "delta_rows_per_view": FLEET_DELTA,
           "deleted_rows_per_view": FLEET_DELETES, "m": M, "epochs": FLEET_EPOCHS,
@@ -6347,7 +6858,7 @@ def main(argv=None) -> int:
           "batched_vs_per_view": fleet["comparison"],
           "svc_refresh_many_view_s": fleet["svc_refresh_many_view_s"],
           "per_view_clean_s": fleet["per_view_s"], "per_view_clean_warm_s": fleet["warm_view_s"],
-          "planner_prices": fleet["prices"],
+          "planner_prices": fleet["prices"], "planner_scores": fleet["planner_scores"],
           "peak_device_gb": peak_gb,
           "launches": fleet_launches, "stale_eq_exact_fresh_after_ivm": True, "card": smi})
     fleet_table = check_fleet_kernels(inputs, fleet_launches, ITERS)
@@ -6387,6 +6898,12 @@ def main(argv=None) -> int:
     missing = [k for k in SHARDED_KERNELS if sharded_launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the sharded fleet's path: {missing}")
+    # every score combine through the staged entry: one launch over the stack
+    if sharded_launches["fleet_score_sharded_host"] != sharded["score_calls"] or \
+            sharded_launches["fleet_score_sharded"]:
+        fail(f"sharded fleet: {sharded['score_calls']} score combines, "
+             f"{sharded_launches['fleet_score_sharded_host']} staged and "
+             f"{sharded_launches['fleet_score_sharded']} device-panel launches")
     emit({"phase": "sharded_fleet", **sharded, "launches": sharded_launches,
           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     sharded_table = [check_sharded_score(sharded_scores, sharded_launches, ITERS)]

@@ -16,6 +16,7 @@ the pin is built and dropped with it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Sequence, Tuple
 
 import numpy as np
@@ -50,15 +51,21 @@ class OutlierIndex:
 class PinSet:
     """A view's outlier pin set (Def. 5) and its membership table.
 
-    ``relation`` holds the pinned view keys, ``keys`` its pk columns with
-    SENTINEL_KEY on invalid rows, and ``table`` the sorted 64-bit digests
-    (``kernels/outlier_member.digest_table``) that every pinned hash of the
-    pin probes.  Built by ``pin_set`` where the pin is built; the table is
-    not cached anywhere else."""
+    ``relation`` holds the pinned view keys and ``table`` the sorted 64-bit
+    digests (``kernels/outlier_member.pin_table``) that every pinned hash
+    of the pin probes.  ``keys``, its pk columns with SENTINEL_KEY on
+    invalid rows, is made on first use (the clean's pin mask and
+    ``flag_outliers`` read it; the pinned hash does not).  Built by
+    ``pin_set`` where the pin is built; the table is not cached anywhere
+    else."""
 
     relation: Relation
-    keys: Tuple[torch.Tensor, ...]
     table: torch.Tensor
+
+    @functools.cached_property
+    def keys(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(sentinel_where(self.relation.valid, self.relation.col(c))
+                     for c in self.relation.schema.pk)
 
 
 def pin_set(pin: Relation) -> PinSet:
@@ -68,12 +75,12 @@ def pin_set(pin: Relation) -> PinSet:
     rows, one all-SENTINEL tuple: membership over it is membership over
     the SENTINEL-masked key columns, whose invalid rows all share that
     tuple.  A pushed-up pin holds a few valid keys in an arena of the view's
-    group capacity, so the table stays small enough for shared memory."""
+    group capacity: on a card one launch over the arena builds the table
+    and one host wait reads its length."""
     from repro_torch.kernels.outlier_member import ops as _om
 
-    keys = tuple(sentinel_where(pin.valid, pin.col(c)) for c in pin.schema.pk)
-    rows = torch.cat([pin.valid.nonzero().flatten(), (~pin.valid).nonzero()[:1].flatten()])
-    return PinSet(pin, keys, _om.digest_table(tuple(k[rows].contiguous() for k in keys)))
+    keys = tuple(pin.col(c).contiguous() for c in pin.schema.pk)
+    return PinSet(pin, _om.pin_table(keys, pin.valid.contiguous()))
 
 
 def outlier_index_from_arrays(

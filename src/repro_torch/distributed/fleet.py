@@ -5,10 +5,11 @@ kprof scopes, driven by one process over a list of devices (a
 ``launch.mesh.LocalMesh``).  Shard s lives on the mesh's s-th device along
 ``mesh_axis`` when that axis has ``n_shards`` devices, otherwise every
 shard lives on ``device``; the score combine is
-``kernels.fleet_score.fleet_scores_sharded`` (one launch per shard on its
-card, or one launch over the stack when every shard lives on ``device``).
-A shard's bases, ingest partitions, samples and feature panel stay on its
-card: only the score panel crosses cards, gathered onto the first.
+``kernels.fleet_score.fleet_scores_sharded_host`` (one launch per shard on
+its card, or one launch over the stack when every shard lives on
+``device``).  A shard's bases, ingest partitions and samples stay on its
+card; the feature panels and their scores stay on the host, in one mapped
+staging pair that every shard's card reads and writes.
 
 SVC §7.5 observes that hashed sampling is deterministic and row-local, so
 sampled cleaning parallelizes trivially across data partitions — only the
@@ -27,7 +28,7 @@ each shard owning its views end to end —
 
 The planner closes exactly ONE global decision per epoch: per-shard
 feature panels are scored in place and combined with a single
-all_gather (``kernels.fleet_score.fleet_scores_sharded``) into one
+all_gather (``kernels.fleet_score.fleet_scores_sharded_host``) into one
 greedy knapsack over the whole fleet — the same ``greedy_knapsack`` the
 single-device ``MaintenancePlanner`` runs, fed the same candidate tuples,
 so a sharded fleet's plan is bit-identical to the flat plan on the same
@@ -58,7 +59,7 @@ from repro_torch.kernels.fleet_score import (
     A_MAINTAIN,
     N_FEATURES,
     N_SCORES,
-    fleet_scores_sharded,
+    fleet_scores_sharded_host,
 )
 from repro_torch.obs import kprof, trace
 from repro_torch.planner.costs import CostModel
@@ -146,8 +147,8 @@ class ShardedFleet:
             self.devices = list(mesh.axis_devices(mesh_axis))
         else:
             self.devices = [torch.device(device)] * self.n_shards
-        # fleet_scores_sharded's per-device branch: each shard's panel goes
-        # from the host to its own card
+        # fleet_scores_sharded_host's per-device branch: each shard's card
+        # reads its panel from the host and writes its scores there
         self._score_per_device = mesh is not None and self.n_shards > 1 and \
             mesh.shape.get(mesh_axis, 1) == self.n_shards
         # one full view stack per shard: manager + cost model + health, all
@@ -354,12 +355,9 @@ class ShardedFleet:
                     feats[s, :len(names)] = self.cost_models[s].features(names)
             shard_rows = [len(shard_names.get(s, ())) for s
                           in range(self.n_shards)]
-            stacked = torch.from_numpy(feats)
-            if not self._score_per_device:
-                stacked = stacked.to(self.devices[0])
-            scores = fleet_scores_sharded(
-                stacked, mesh=self.mesh, axis=self.mesh_axis,
-                shard_views=shard_rows).cpu().numpy()
+            scores = fleet_scores_sharded_host(
+                feats, self.devices if self._score_per_device else self.devices[0],
+                shard_views=shard_rows)
             assert scores.shape[2] == N_SCORES
         snapshot_s = clock() - t0
 

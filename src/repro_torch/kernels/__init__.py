@@ -8,23 +8,38 @@ integer ``launches`` that it bumps where it launches its kernel, so a run
 can show that the main path went through the kernels; hash_threshold and
 corr_moments also count the launches of each of their kernel's two routes
 in ``routes`` (vector: aligned 16-byte streams; scalar: any alignment),
-and slstm_fwd and slstm_bwd theirs (resident: one launch a call; step:
-one a time step).
+slstm_fwd and slstm_bwd theirs (resident: one launch a call; step: one a
+time step), outlier_digest its (block: digest and sort in one block;
+sort: a digest launch and a torch sort) and outlier_pin_table its (arena:
+the launch over the arena; sort: the composed table's digest launch past
+2,048 entries).
 
   hash_threshold  — η_{a,m} mask
   fused_clean     — η + per-group count/sum over delta rows in one pass
   outlier_member  — the pinned hash: η ∨ outlier-index digest membership,
                     narrowed validity and the __outlier flag in one pass
-  outlier_digest  — the sorted digest table of a pin's keys, built once
-                    per pin (outlier_member's digest entry)
+  outlier_digest  — the sorted digest table of K key tuples (outlier_member's
+                    digest entry): one block digests and sorts them up to
+                    2,048, else a launch and a torch sort
+  outlier_pin_table — the sorted digest table of a pin's key arena, built
+                    once per pin: one launch over the arena and one host
+                    wait for the table's length
   multi_agg       — all Q queries' moments in one panel scan (two kernels:
                     two-sided clean ∥ stale ∥ diff, and one-sided)
   fused_clean_fleet — fused_clean for V views in one launch (svc_refresh_many)
   fleet_merge     — every view's merge remainder (stale + ins) − del
   fleet_moments   — every view's planner moments from the fleet panel
-  fleet_score     — every view's action scores for the planner's knapsack
+  fleet_score     — every view's action scores for the planner's knapsack,
+                    on a device panel (JAX's op)
+  fleet_score_host — the same kernel as the planner calls it: a numpy panel
+                    in, numpy scores out, through a card's mapped staging
+                    pair (one launch and one wait a score)
   fleet_score_sharded — the same kernel over a sharded fleet's (S, Vmax, F)
-                    stack of per-shard panels (one launch on one card)
+                    stack of per-shard panels (one launch on one card; over
+                    a mesh, one a shard through the staging pair)
+  fleet_score_sharded_host — the sharded fleet's score combine through the
+                    staging pair: one launch over the stack, or one a shard
+                    on its own card
   segment_aggsum  — the group-by's reduce-by-key over sorted ids: int32
                     counts and float32 sums, out-of-range ids dropped
                     (segment_groupby, and segment_sum with
@@ -75,13 +90,16 @@ _OPS = {
     "fused_clean": "fused_clean",
     "outlier_member": "outlier_member",
     "outlier_digest": "outlier_digest",
+    "outlier_pin_table": "outlier_digest",
     "multi_agg_two": "multi_agg",
     "multi_agg_one": "multi_agg",
     "fused_clean_fleet": "fused_clean_fleet",
     "fleet_merge": "fleet_merge",
     "fleet_moments": "fleet_moments",
     "fleet_score": "fleet_score",
+    "fleet_score_host": "fleet_score",
     "fleet_score_sharded": "fleet_score_sharded",
+    "fleet_score_sharded_host": "fleet_score_sharded",
     "segment_aggsum": "segment_aggsum",
     "segment_aggsum_unsorted": "segment_aggsum",
     "corr_diff": "corr_diff",
@@ -104,11 +122,13 @@ def wrappers() -> Dict[str, object]:
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.fleet_merge.ops import fleet_merge
     from repro_torch.kernels.fleet_moments.ops import fleet_moments
-    from repro_torch.kernels.fleet_score.ops import fleet_scores, fleet_scores_sharded
+    from repro_torch.kernels.fleet_score.ops import (fleet_scores, fleet_scores_host,
+                                                     fleet_scores_sharded,
+                                                     fleet_scores_sharded_host)
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
-    from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
+    from repro_torch.kernels.outlier_member.ops import digest_table, pin_table, pinned_hash
     from repro_torch.kernels.segment_aggsum.ops import segment_groupby, segment_sum
     from repro_torch.kernels.slstm.ops import slstm_bwd, slstm_fwd
 
@@ -117,13 +137,16 @@ def wrappers() -> Dict[str, object]:
         "fused_clean": fused_clean_groupby,
         "outlier_member": pinned_hash,
         "outlier_digest": digest_table,
+        "outlier_pin_table": pin_table,
         "multi_agg_two": multi_agg_two,
         "multi_agg_one": multi_agg_one,
         "fused_clean_fleet": fused_clean_groupby_fleet,
         "fleet_merge": fleet_merge,
         "fleet_moments": fleet_moments,
         "fleet_score": fleet_scores,
+        "fleet_score_host": fleet_scores_host,
         "fleet_score_sharded": fleet_scores_sharded,
+        "fleet_score_sharded_host": fleet_scores_sharded_host,
         "segment_aggsum": segment_groupby,
         "segment_aggsum_unsorted": segment_sum,
         "corr_diff": corr_moments,
@@ -155,6 +178,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, Dict[str, int]]:
-    """Launches by route (vector or scalar; resident or step) of the
-    wrappers that have two."""
+    """Launches by route (vector or scalar; resident or step; block or
+    sort; arena or sort) of the wrappers that have two."""
     return {name: dict(fn.routes) for name, fn in wrappers().items() if hasattr(fn, "routes")}

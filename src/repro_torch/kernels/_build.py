@@ -21,6 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -131,19 +132,79 @@ def launch_on(index: int, name: str, argtypes: tuple, *args) -> None:
     last argument.  The current card is switched only when it is another,
     and switched back after; the first launch on each card checks that the
     library's runtime sees the card PyTorch made current."""
-    prev = torch._C._cuda_getDevice()
-    if prev == index and index in _runtime_checked:
+    if torch._C._cuda_getDevice() == index and index in _runtime_checked:
         launch(name, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))
         return
+    call_on(index, name, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def call_on(index: int, name: str, argtypes: tuple, *args) -> None:
+    """``launch`` with card ``index`` current: switched only when it is
+    another, and switched back after; the first call on each card checks
+    that the library's runtime sees the card PyTorch made current."""
+    prev = torch._C._cuda_getDevice()
     if prev != index:
         torch._C._cuda_setDevice(index)
     try:
         if index not in _runtime_checked:
             _check_runtime_device(index)
-        launch(name, argtypes, *args, torch._C._cuda_getCurrentRawStream(index))
+        launch(name, argtypes, *args)
     finally:
         if prev != index:
             torch._C._cuda_maybeExchangeDevice(prev)
+
+
+def wait(index: int) -> None:
+    """The host waits for every launch queued so far on card ``index``'s
+    current stream (``svc_stream_wait``): the one host read of a wrapper
+    whose result lies in mapped host memory.  ``wait.calls`` counts them."""
+    launch_on(index, "svc_stream_wait", (P,))
+    wait.calls += 1
+
+
+wait.calls = 0
+
+
+class Mapped:
+    """Page-locked host memory mapped into every card's address space
+    (``svc_host_alloc`` in ``csrc/common.cu``: mapped and portable).
+    ``device`` is the address a kernel dereferences, ``host`` the same
+    bytes as a numpy uint8 array."""
+
+    __slots__ = ("nbytes", "host_ptr", "device", "host")
+
+    def __init__(self, nbytes: int, host_ptr: int, device: int):
+        self.nbytes, self.host_ptr, self.device = nbytes, host_ptr, device
+        self.host = np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(host_ptr))
+
+
+_mapped: Dict[object, Mapped] = {}
+
+
+def mapped(key, nbytes: int, index: int) -> Mapped:
+    """The mapped buffer ``key`` (a wrapper's own name for it), at least
+    ``nbytes`` long: made on first use with card ``index`` current, and
+    made anew at the next power of two when a call needs more (the old one
+    freed first).  A wrapper owns its buffers between its first write and
+    its wait, and every call waits before it returns, so a call never
+    finds a kernel still reading them; the next call writes them over.
+    Read ``host`` after each call of this function: a regrown buffer has
+    a new one."""
+    buf = _mapped.get(key)
+    if buf is not None and buf.nbytes >= nbytes:
+        return buf
+    size = 4096
+    while size < nbytes:
+        size *= 2
+    if buf is not None:
+        del _mapped[key]
+        call_on(index, "svc_host_free", (P,), buf.host_ptr)
+    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+    call_on(index, "svc_host_alloc", (I64, ctypes.POINTER(ctypes.c_void_p),
+                                      ctypes.POINTER(ctypes.c_void_p)),
+            size, ctypes.byref(host), ctypes.byref(dev))
+    buf = _mapped[key] = Mapped(size, host.value, dev.value)
+    return buf
 
 
 _runtime_checked: set = set()

@@ -6,11 +6,16 @@ from repro_torch.kernels.outlier_member.ops import (
     fused_hash_member,
     outlier_codes,
     outlier_member,
+    pin_launches,
+    pin_table,
     pinned_hash,
+    table_route,
 )
 from repro_torch.kernels.outlier_member.ref import (
+    compact_pin_keys,
     fused_hash_member_ref,
     outlier_codes_ref,
+    pin_table_ref,
     pinned_hash_ref,
     sorted_digest_table,
 )
@@ -21,9 +26,14 @@ __all__ = [
     "fused_hash_member",
     "outlier_codes",
     "outlier_member",
+    "pin_launches",
+    "pin_table",
     "pinned_hash",
+    "table_route",
+    "compact_pin_keys",
     "fused_hash_member_ref",
     "outlier_codes_ref",
+    "pin_table_ref",
     "pinned_hash_ref",
     "sorted_digest_table",
 ]

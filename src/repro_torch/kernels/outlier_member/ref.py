@@ -9,6 +9,9 @@ path.  Rows whose FIRST key column is ``SENTINEL_KEY`` are never members.
 ``pinned_hash_ref`` is the pinned hash as ``core.outliers`` composed it
 before the kernel did it in one pass: SENTINEL-masked probe keys, η ∨
 membership narrowed to the validity, and the int8 ``__outlier`` flag.
+``pin_table_ref`` is a pin's digest table as ``core.outliers.pin_set``
+composed it before one launch built it: the valid slots' keys and one
+all-SENTINEL tuple, digested and sorted.
 """
 
 from __future__ import annotations
@@ -30,6 +33,23 @@ def pack_digest(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 def sorted_digest_table(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
     """Packed digests of the index key tuples, sorted ascending."""
     return torch.sort(pack_digest(*key_digest(key_cols))).values
+
+
+def compact_pin_keys(keys: Sequence[torch.Tensor],
+                     valid: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The key tuples a pin's table digests: its valid slots' keys and,
+    when any slot is invalid, one all-SENTINEL tuple (membership over the
+    table is then membership over the SENTINEL-masked key columns, whose
+    invalid slots all share that tuple)."""
+    rows = torch.cat([valid.nonzero().flatten(), (~valid).nonzero()[:1].flatten()])
+    return tuple(sentinel_where(valid, k)[rows].contiguous() for k in keys)
+
+
+def pin_table_ref(keys: Sequence[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """A pin's sorted digest table: ``sorted_digest_table`` of
+    ``compact_pin_keys``, the composition ``core.outliers.pin_set`` ran
+    before one launch did it."""
+    return sorted_digest_table(compact_pin_keys(keys, valid))
 
 
 def digest_member(probe_cols: Sequence[torch.Tensor], table: torch.Tensor) -> torch.Tensor:

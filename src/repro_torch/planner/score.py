@@ -1,8 +1,10 @@
 """Fleet scoring: stack the cost-model features, score in ONE launch.
 
 The per-view feature gather (counter reads + lazily refreshed moment
-snapshots) stacks into a (V, N_FEATURES) panel, and kernels/fleet_score
-prices every (view, action) candidate at once on the manager's device.
+snapshots) stacks into a (V, N_FEATURES) numpy panel, and
+kernels/fleet_score prices every (view, action) candidate at once on the
+manager's device: on a card one launch reads the panel from mapped host
+memory and writes the scores there (``fleet_scores_host``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,6 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from repro_torch.kernels.fleet_score import (
     A_CLEAN,
@@ -20,7 +21,7 @@ from repro_torch.kernels.fleet_score import (
     A_SKIP,
     CORR_WINS,
     REC_M,
-    fleet_scores,
+    fleet_scores_host,
 )
 from repro_torch.planner.costs import CostModel
 
@@ -53,5 +54,5 @@ def score_fleet(cost_model: CostModel, names: Optional[Sequence[str]] = None) ->
     """Gather features and price the whole fleet in one launch."""
     names = list(names) if names is not None else list(cost_model.vm.views)
     feats = cost_model.features(names)
-    scores = fleet_scores(torch.from_numpy(feats).to(cost_model.vm.device))
-    return FleetScores(names=names, features=feats, scores=scores.cpu().numpy())
+    return FleetScores(names=names, features=feats,
+                       scores=fleet_scores_host(feats, cost_model.vm.device))

@@ -106,7 +106,7 @@ from repro_torch.kernels.fleet_merge import (
     sort_by_key,
 )
 from repro_torch.kernels.fleet_moments import fleet_moments, fleet_moments_ref
-from repro_torch.kernels.fleet_score import N_FEATURES, fleet_score_ref, fleet_scores
+from repro_torch.kernels.fleet_score import N_FEATURES, N_SCORES, fleet_score_ref, fleet_scores
 from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
 from repro_torch.kernels.fused_clean.ref import fused_clean_fleet_ref, fused_clean_ref
 from repro_torch.kernels.hash_threshold.ops import hash_threshold
@@ -364,10 +364,12 @@ def test_pinned_refresh_on_the_card_builds_the_table_once(dev):
     vms = {d: _small_fleet(d) for d in ("cuda", "cpu")}
     for vm in vms.values():
         vm.register_outlier_index("v0", "Log0", "bytes", k=50)
-    builds, hashes = digest_table.launches, pinned_hash.launches
+    from repro_torch.kernels.outlier_member import pin_table
+
+    builds, hashes = (digest_table.launches, pin_table.launches), pinned_hash.launches
     vms["cuda"].svc_refresh("v0")
     torch.cuda.synchronize()
-    assert digest_table.launches == builds
+    assert (digest_table.launches, pin_table.launches) == builds
     assert pinned_hash.launches > hashes
     vms["cpu"].svc_refresh("v0")
     a, b = (to_host(vms[d].views["v0"].clean_sample) for d in ("cuda", "cpu"))
@@ -375,6 +377,98 @@ def test_pinned_refresh_on_the_card_builds_the_table_once(dev):
         assert np.array_equal(a[col], b[col]), col
     assert a["__outlier"].sum() > 0
     np.testing.assert_allclose(a["totalBytes"], b["totalBytes"], rtol=1e-5)
+
+
+# arenas of (slots, valid slots, key columns): visitView's pin (1.5M slots,
+# 104 valid), tables of 2,047, 2,048 and 2,049 entries, every slot valid,
+# none valid, one valid
+PIN_ARENAS = [(1_500_000, 104, 1), (5_000, 2_046, 2), (5_000, 2_047, 1), (2_048, 2_048, 3),
+              (5_000, 2_048, 4), (300, 0, 1), (300, 1, 2), (1, 1, 1)]
+
+
+def _pin_arena(slots, n_valid, ncols, dev, seed=0):
+    rng = np.random.default_rng(seed + slots + n_valid)
+    cols = tuple(torch.from_numpy(rng.integers(-50, 1_000_000, slots).astype(np.int32)).to(dev)
+                 for _ in range(ncols))
+    valid = np.zeros(slots, bool)
+    valid[rng.choice(slots, n_valid, replace=False)] = True
+    return cols, torch.from_numpy(valid).to(dev)
+
+
+@pytest.mark.parametrize("slots,n_valid,ncols", PIN_ARENAS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pin_table_is_one_launch_equal_to_its_plain_version(dev, slots, n_valid, ncols, offset):
+    """One launch over the arena and one host wait, no torch synchronize,
+    the table ``torch.equal`` to the plain version's and to the composed
+    table; past 2,048 entries the composed route, two launches.  At
+    ``offset`` 1 the arena starts one slot into its columns, so its
+    validity is not 16-byte aligned and the kernel reads it a byte a lane."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.outlier_member import compact_pin_keys, pin_launches, pin_table
+    from repro_torch.kernels.outlier_member.ref import pin_table_ref
+
+    cols, valid = _pin_arena(slots + offset, n_valid, ncols, dev)
+    if offset:
+        cols, valid = tuple(c[offset:] for c in cols), valid[offset:]
+        n_valid = int(valid.sum())
+    args = (cols, valid)
+    entries = n_valid + int(n_valid < slots)
+    want = pin_table_ref(*args)
+    assert want.shape == (entries,)
+    assert torch.equal(want, sorted_digest_table(compact_pin_keys(*args)))
+    pin_table(*args)  # built and warm
+    torch.cuda.synchronize()
+    before, routes, waits = pin_table.launches, dict(pin_table.routes), _build.wait.calls
+    if entries <= MAX_SMEM_KEYS:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pin_table(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pin_table.launches - before == pin_launches(entries)
+    assert pin_table.routes["arena"] - routes["arena"] == 1
+    assert pin_table.routes["sort"] - routes["sort"] == int(entries > MAX_SMEM_KEYS)
+    assert _build.wait.calls - waits == 1
+    assert got.device == want.device and torch.equal(got, want)
+    assert torch.equal(pin_table(*args), got)  # the workspace is zero again
+    if entries <= MAX_SMEM_KEYS:
+        assert _device_launches(lambda: pin_table(*args)) == 1
+
+
+@pytest.mark.parametrize("K", [1, 2, 105, 1000, MAX_SMEM_KEYS])
+@pytest.mark.parametrize("ncols", [1, 4])
+def test_digest_table_block_route_is_one_launch(dev, K, ncols):
+    """Up to 2,048 key tuples one block digests and sorts them: one device
+    launch, no sort, the plain table."""
+    from repro_torch.kernels.outlier_member import table_route
+
+    keys = _keys(np.random.default_rng(K + 10 * ncols), K, ncols, dev, high=3000)
+    assert table_route(K) == "block"
+    before = dict(digest_table.routes)
+    got = digest_table(keys)
+    torch.cuda.synchronize()
+    assert digest_table.routes["block"] == before["block"] + 1
+    assert digest_table.routes["sort"] == before["sort"]
+    assert torch.equal(got, sorted_digest_table(keys))
+    assert _device_launches(lambda: digest_table(keys)) == 1
+
+
+def test_pin_tables_of_two_streams_at_once(dev):
+    """Two pins' tables built on two streams, each with its own workspace,
+    equal the same builds in series."""
+    from repro_torch.kernels.outlier_member import pin_table
+
+    a = _pin_arena(1_500_000, 104, 1, dev, seed=1)
+    b = _pin_arena(200_000, 1_500, 2, dev, seed=2)
+    want = [pin_table(*a), pin_table(*b)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        got_a = pin_table(*a)
+    with torch.cuda.stream(s2):
+        got_b = pin_table(*b)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want[0]) and torch.equal(got_b, want[1])
 
 
 def _panel(rng, R, C, dev):
@@ -1648,8 +1742,9 @@ def test_fleet_scores_sharded_is_one_launch_bit_equal_shard_by_shard(dev, S, vma
 
 
 def test_fleet_scores_sharded_on_a_mesh_of_the_card_scores_each_shard(dev):
-    """A LocalMesh whose data axis repeats cuda:0: one launch per shard,
-    gathered in shard order, bit-equal to the one-launch path."""
+    """A LocalMesh whose data axis repeats cuda:0: one launch per shard
+    through the staging pair, the scores on the mesh's first device in
+    shard order, bit-equal to the one-launch path."""
     from repro_torch.kernels.fleet_score import fleet_scores_sharded
     from repro_torch.launch.mesh import LocalMesh
 
@@ -1658,7 +1753,114 @@ def test_fleet_scores_sharded_on_a_mesh_of_the_card_scores_each_shard(dev):
     before = fleet_scores_sharded.launches
     got = fleet_scores_sharded(x, mesh=mesh)
     assert fleet_scores_sharded.launches == before + 4
+    assert got.device == x.device
     assert torch.equal(got.view(torch.int32), fleet_scores_sharded(x).view(torch.int32))
+
+
+@pytest.mark.parametrize("V", [1, 16, 129, 4096])
+def test_staged_fleet_score_is_bit_equal_to_plain(dev, V):
+    """The planner's entry: a numpy panel through the card's mapped staging
+    pair, one device launch and one host wait a score, no torch copy or
+    synchronize, bit-equal to the plain score; each call's scores are its
+    own array."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fleet_score import fleet_scores_host
+
+    rng = np.random.default_rng(V)
+    f = np.abs(rng.normal(0, 1, (V, N_FEATURES))).astype(np.float32) * np.array(
+        [5e3, 400, 20, 1e5, 1e5, 500, 900, 50, 2, 5, 100, 0.5, 3], np.float32)
+    f[::3, 3] = 0.0
+    f[::5] = 0.0
+    f[1::4, 11] = rng.choice([1.0 / 512, 1.0, 1.5], len(f[1::4]))
+    want = fleet_score_ref(torch.from_numpy(f)).numpy()
+    fleet_scores_host(f, dev)  # built and warm
+    before, waits = fleet_scores_host.launches, _build.wait.calls
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fleet_scores_host(f, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fleet_scores_host.launches == before + 1 and _build.wait.calls == waits + 1
+    assert isinstance(got, np.ndarray) and got.shape == (V, N_SCORES)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    other = fleet_scores_host(f[::-1].copy(), dev)  # the pair written over
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.shares_memory(got, other)
+    assert np.array_equal(other.view(np.int32), want[::-1].view(np.int32))
+    assert _device_launches(lambda: fleet_scores_host(f, dev)) == 1
+
+
+@pytest.mark.parametrize("S,vmax", [(1, 1), (4, 4), (4, 16), (3, 700)])
+@pytest.mark.parametrize("per_device", [False, True])
+def test_staged_sharded_score_is_bit_equal_shard_by_shard(dev, S, vmax, per_device):
+    """The sharded fleet's score combine through one staging pair: one
+    launch over the stack, or one a shard on its device (here every shard
+    on this card), one host wait, bit-equal to the plain score of each
+    shard's panel; under the profiler one dispatch, never a fallback."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fleet_score import fleet_scores_sharded_host
+    from repro_torch.obs.kprof import KernelProfiler, set_profiler
+
+    f = _sharded_features(S, vmax)
+    devices = [dev] * S if per_device else dev
+    fleet_scores_sharded_host(f, devices)
+    before, waits = fleet_scores_sharded_host.launches, _build.wait.calls
+    got = fleet_scores_sharded_host(f, devices)
+    launches = S if per_device else 1
+    assert fleet_scores_sharded_host.launches == before + launches
+    assert _build.wait.calls == waits + 1
+    for s in range(S):
+        want = fleet_score_ref(torch.from_numpy(f[s]))
+        assert np.array_equal(got[s].view(np.int32), want.numpy().view(np.int32))
+    prof = set_profiler(KernelProfiler())
+    try:
+        fleet_scores_sharded_host(f, devices, shard_views=[vmax] * S)
+    finally:
+        set_profiler(None)
+    st = prof.summary()["fleet_score_sharded"]
+    assert (st["dispatches"], st["fallbacks"]) == (1, 0)
+    assert sorted(prof.shard_summary()["shards"]["fleet_score_sharded"]) == list(range(S))
+    assert _device_launches(lambda: fleet_scores_sharded_host(f, devices)) == launches
+
+
+def test_a_profiled_staged_dispatch_covers_its_launch(dev):
+    """A profiled dispatch of a host entry times its wait: behind a spin
+    kernel on the stream, each dispatch's recorded wall covers the spin,
+    and its result is complete when it returns."""
+    from repro_torch.kernels.fleet_score import fleet_scores_host
+    from repro_torch.kernels.outlier_member import pin_table
+    from repro_torch.kernels.outlier_member.ref import pin_table_ref
+    from repro_torch.obs.kprof import KernelProfiler, set_profiler
+
+    f = _sharded_features(1, 16)[0]
+    keys, valid = _pin_arena(1_500_000, 104, 1, dev)
+    want_scores = fleet_score_ref(torch.from_numpy(f)).numpy()
+    want_table = pin_table_ref(keys, valid)
+    cycles = 20_000_000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    spin_s = start.elapsed_time(end) / 1e3
+    assert spin_s > 1e-3
+    for op, call, check in (
+            ("fleet_score", lambda: fleet_scores_host(f, dev),
+             lambda out: np.array_equal(out.view(np.int32), want_scores.view(np.int32))),
+            ("outlier_digest", lambda: pin_table(keys, valid),
+             lambda out: torch.equal(out, want_table))):
+        call()  # built and warm
+        prof = set_profiler(KernelProfiler())
+        try:
+            for _ in range(2):  # a compile, then an execute
+                torch.cuda.synchronize()
+                torch.cuda._sleep(cycles)
+                assert check(call()), op
+        finally:
+            set_profiler(None)
+        st = prof.summary()[op]
+        assert (st["dispatches"], st["fallbacks"], st["compiles"]) == (2, 0, 1), op
+        assert st["compile_s"] >= 0.5 * spin_s and st["execute_s"] >= 0.5 * spin_s, (op, st)
 
 
 def _sharded_delta(G, R, seed=0):
@@ -1749,7 +1951,9 @@ def test_sharded_fleet_epoch_on_the_card_matches_the_cpu(dev):
     finally:
         set_profiler(None)
     want = cpu.epoch_step()
-    assert kernels.launch_counts()["fleet_score_sharded"] == 1
+    # the score combine through the staging pair: one launch over the stack
+    counts = kernels.launch_counts()
+    assert (counts["fleet_score_sharded_host"], counts["fleet_score_sharded"]) == (1, 0)
     assert all(st["fallbacks"] == 0 for st in prof.summary().values())
     assert [(a.view, a.action, a.shard) for a in rep.actions] == \
         [(a.view, a.action, a.shard) for a in want.actions]
@@ -1776,19 +1980,24 @@ def last_card():
 
 
 def _leaves(x):
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, np.ndarray)):
         return [x]
     return [t for y in x for t in _leaves(y)]
 
 
 def _hold_outputs(name, got, want, device):
-    """Every output of ``got`` on ``device``; integer and boolean outputs
-    equal to ``want``'s, float ones within 1e-5 of the largest magnitude
-    (1e-4 for the attention: f32 sums in another order)."""
+    """Every output of ``got`` on ``device`` (a host entry's numpy output on
+    the host); integer and boolean outputs equal to ``want``'s, float ones
+    within 1e-5 of the largest magnitude (1e-4 for the attention: f32 sums
+    in another order)."""
     got, want = _leaves(got), _leaves(want)
     assert len(got) == len(want), name
     for a, b in zip(got, want):
-        assert a.device == device, (name, a.device)
+        if isinstance(a, np.ndarray):
+            assert isinstance(b, np.ndarray), name
+            a, b = torch.from_numpy(a), torch.from_numpy(b)
+        else:
+            assert a.device == device, (name, a.device)
         a, b = a.cpu(), b.cpu()
         if not b.is_floating_point():
             assert torch.equal(a, b), name
@@ -1852,7 +2061,8 @@ def test_sharded_fleet_over_a_mesh_of_the_card_equals_the_stacked_fleet(dev):
     assert meshed.devices == [torch.device("cuda", 0)] * 2
     kernels.reset_launches()
     got = meshed.epoch_step()
-    assert kernels.launch_counts()["fleet_score_sharded"] == 2
+    counts = kernels.launch_counts()
+    assert (counts["fleet_score_sharded_host"], counts["fleet_score_sharded"]) == (2, 0)
     want = plain.epoch_step()
     assert [(a.view, a.action, a.shard, a.score) for a in got.actions] == \
         [(a.view, a.action, a.shard, a.score) for a in want.actions]
@@ -1937,7 +2147,8 @@ def test_sharded_fleet_across_cards_matches_the_flat_twin(last_card):
             assert rel.valid.device == torch.device("cuda", s)
     kernels.reset_launches()
     got = spread.epoch_step()
-    assert kernels.launch_counts()["fleet_score_sharded"] == S
+    counts = kernels.launch_counts()
+    assert (counts["fleet_score_sharded_host"], counts["fleet_score_sharded"]) == (S, 0)
     want = flat.epoch_step()
     assert [(a.view, a.action, a.shard, a.score) for a in got.actions] == \
         [(a.view, a.action, a.shard, a.score) for a in want.actions]

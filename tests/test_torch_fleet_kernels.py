@@ -20,6 +20,15 @@ tolerance (rtol 2e-6, atol 1e-6, ``tests/test_kernels.py``) and the
 CORR_WINS and REC_M decisions exactly.  fleet_moments ≤ 1e-6 relative
 (sums in another order); fused_clean fleet counts exact and sums ≤ 1e-6
 relative.
+
+The planner's host entries (``fleet_scores_host``,
+``fleet_scores_sharded_host``: a numpy panel in, numpy scores out) take
+the plain version on a CPU device: bit-equal to the device-panel op and
+to the JAX ref, shard by shard for the stack.  ``score_fleet`` on a CPU
+manager, through the host entry, is bit-equal to JAX's ``score_fleet``
+fed the same feature panel with its scorer run op by op (the JAX ref),
+and within the tolerance above of its jitted scorer; two successive
+``FleetScores`` share no memory.
 """
 
 import jax.numpy as jnp
@@ -45,9 +54,12 @@ from repro_torch.kernels.fleet_moments import fleet_moments
 from repro_torch.kernels.fleet_score import (
     CORR_WINS,
     N_FEATURES,
+    N_SCORES,
     REC_M,
     fleet_score_ref,
     fleet_scores,
+    fleet_scores_host,
+    fleet_scores_sharded_host,
 )
 from repro_torch.kernels.fused_clean import fused_clean_groupby, fused_clean_groupby_fleet
 
@@ -246,6 +258,117 @@ def test_fleet_score_degenerate_panels_match_jax():
         assert np.array_equal(got, want)
     with pytest.raises(ValueError):
         fleet_scores(T(np.zeros((3, 12), np.float32)))
+
+
+@pytest.mark.parametrize("V", [0, 1, 16, 129])
+def test_fleet_scores_host_on_the_cpu_is_the_plain_score(V):
+    f = _features(100 + V, V)
+    got = fleet_scores_host(f, "cpu")
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32 and got.shape == (V, N_SCORES)
+    assert np.array_equal(got.view(np.int32), fleet_scores(T(f)).numpy().view(np.int32))
+    if V:
+        want = _np(jax_fleet_score_ref(jnp.asarray(f)))
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.shares_memory(got, f)
+
+
+@pytest.mark.parametrize("S,vmax", [(4, 4), (3, 7), (1, 16)])
+@pytest.mark.parametrize("per_shard", [False, True])
+def test_fleet_scores_sharded_host_on_the_cpu_is_bit_equal_shard_by_shard(S, vmax, per_shard):
+    stacked = _features(S * vmax, S * vmax).reshape(S, vmax, N_FEATURES)
+    stacked[-1, vmax // 2:] = 0.0  # a short last shard: zero padding scores zero
+    devices = [torch.device("cpu")] * S if per_shard else "cpu"
+    got = fleet_scores_sharded_host(stacked, devices, shard_views=[vmax] * (S - 1) + [vmax // 2])
+    assert got.shape == (S, vmax, N_SCORES) and got.dtype == np.float32
+    for s in range(S):
+        want = _np(jax_fleet_score_ref(jnp.asarray(stacked[s])))
+        assert np.array_equal(got[s].view(np.int32), want.view(np.int32))
+
+
+def test_fleet_scores_host_checks_its_panel():
+    with pytest.raises(ValueError):
+        fleet_scores_host(np.zeros((3, 12), np.float32), "cpu")
+    with pytest.raises(TypeError):
+        fleet_scores_host(np.zeros((3, N_FEATURES), np.float64), "cpu")
+    with pytest.raises(TypeError):
+        fleet_scores_host(torch.zeros((3, N_FEATURES)), "cpu")
+    with pytest.raises(ValueError):
+        fleet_scores_sharded_host(np.zeros((3, N_FEATURES), np.float32), "cpu")
+    with pytest.raises(ValueError):
+        fleet_scores_sharded_host(np.zeros((2, 3, N_FEATURES), np.float32), ["cpu"] * 3)
+
+
+def _tiny_fleet(package):
+    """Three group-by views over 256-row logs in either package, a delta
+    ingested into each, some query traffic, the planner's costs pinned:
+    (its manager, a cost model on it)."""
+    if package == "jax":
+        from repro.core import Query, ViewDef
+        from repro.planner.costs import CostModel
+        from repro.relational.plan import GroupByNode, Scan
+        from repro.relational.relation import from_columns
+        from repro.views import ViewManager
+        vm, kw = ViewManager(clock=lambda: 0.0), {}
+    else:
+        from repro_torch.core import Query, ViewDef
+        from repro_torch.planner.costs import CostModel
+        from repro_torch.relational.plan import GroupByNode, Scan
+        from repro_torch.relational.relation import from_columns
+        from repro_torch.views import ViewManager
+        vm, kw = ViewManager(device="cpu", clock=lambda: 0.0), {"device": "cpu"}
+    rng = np.random.default_rng(5)
+
+    def rows(start, n):
+        return {"sessionId": np.arange(start, start + n, dtype=np.int32),
+                "videoId": rng.integers(0, 16, n).astype(np.int32),
+                "bytes": rng.exponential(10.0, n).astype(np.float32)}
+
+    for i in range(3):
+        vm.register_base(f"Log{i}", from_columns(rows(0, 256), pk=["sessionId"], capacity=1024,
+                                                 **kw))
+        plan = GroupByNode(child=Scan(f"Log{i}", pk=("sessionId",)), keys=("videoId",),
+                           aggs=(("totalBytes", "sum", "bytes"), ("visits", "count", None)),
+                           num_groups=32)
+        vm.register_view(ViewDef(f"v{i}", plan), delta_bases=(f"Log{i}",), m=0.25, seed=i,
+                         delta_group_capacity=32)
+    for i in range(3):
+        vm.query_batch(f"v{i}", [Query(agg="sum", col="totalBytes")] * (i + 1))
+        vm.ingest(f"Log{i}", inserts=from_columns(rows(1000 + 100 * i, 40 + 10 * i),
+                                                  pk=["sessionId"], **kw))
+    cm = CostModel(vm, clock=lambda: 5.0)
+    cm.pin_costs(refresh_s=1.0, maintain_s=4.0)
+    return vm, cm
+
+
+def test_score_fleet_through_the_host_entry_matches_jax(monkeypatch):
+    import repro.planner.score as jax_score
+    from repro_torch.planner import score_fleet
+
+    _vm, cm = _tiny_fleet("port")
+    fs = score_fleet(cm)
+    assert fs.features.shape == (3, N_FEATURES) and fs.scores.shape == (3, N_SCORES)
+    assert bool((fs.scores[:, 1:3] > 0).any())  # a view worth cleaning or maintaining
+    _jvm, jcm = _tiny_fleet("jax")
+    monkeypatch.setattr(jcm, "features", lambda names=None, use_pallas=None: fs.features.copy())
+    jitted = jax_score.score_fleet(jcm)  # JAX's scorer as its planner runs it (jitted)
+    np.testing.assert_allclose(fs.scores, jitted.scores, rtol=2e-6, atol=1e-6)
+    assert np.array_equal(fs.scores[:, CORR_WINS], jitted.scores[:, CORR_WINS])
+    assert np.array_equal(fs.scores[:, REC_M], jitted.scores[:, REC_M])
+    monkeypatch.setattr(jax_score, "fleet_scores",
+                        lambda feats, use_pallas=None: jax_fleet_score_ref(jnp.asarray(feats)))
+    want = jax_score.score_fleet(jcm)  # the same composition, its scorer op by op
+    assert fs.names == list(want.names)
+    assert np.array_equal(fs.scores.view(np.int32), np.asarray(want.scores).view(np.int32))
+
+
+def test_successive_fleet_scores_share_no_memory():
+    from repro_torch.planner import score_fleet
+
+    _vm, cm = _tiny_fleet("port")
+    a, b = score_fleet(cm), score_fleet(cm)
+    assert np.array_equal(a.scores, b.scores) and np.array_equal(a.features, b.features)
+    assert not np.shares_memory(a.scores, b.scores)
+    assert not np.shares_memory(a.features, b.features)
 
 
 # ---------------------------------------------------------------------------

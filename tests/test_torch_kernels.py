@@ -393,8 +393,11 @@ def test_cpu_runs_never_count_as_launches():
     table = wrappers["outlier_digest"]((gid,))
     wrappers["outlier_member"]((gid,), torch.ones(4, dtype=torch.bool), 0.5, 0, table)
     wrappers["fleet_moments"](*[torch.ones(2, 4)] * 8)
+    wrappers["outlier_pin_table"]((gid,), torch.ones(4, dtype=torch.bool))
     wrappers["fleet_score"](torch.ones(2, 13))
     wrappers["fleet_score_sharded"](torch.ones(2, 3, 13))
+    wrappers["fleet_score_host"](np.ones((2, 13), np.float32), "cpu")
+    wrappers["fleet_score_sharded_host"](np.ones((2, 3, 13), np.float32), ["cpu", "cpu"])
     wrappers["segment_aggsum"](gid, torch.ones(4, 2), 2)
     wrappers["segment_aggsum_unsorted"](gid, torch.ones(4, 2), 2)
     wrappers["corr_diff"](torch.ones(4), torch.zeros(4), torch.ones(4, dtype=torch.bool))
@@ -416,8 +419,9 @@ def test_cpu_runs_never_count_as_launches():
                                   torch.ones(2), torch.ones(2))
     assert port_kernels.launch_counts() == before
     assert set(before) == {"hash_threshold", "fused_clean", "outlier_member", "outlier_digest",
-                           "multi_agg_two", "multi_agg_one", "fused_clean_fleet",
-                           "fleet_merge", "fleet_moments", "fleet_score", "fleet_score_sharded",
+                           "outlier_pin_table", "multi_agg_two", "multi_agg_one",
+                           "fused_clean_fleet", "fleet_merge", "fleet_moments", "fleet_score",
+                           "fleet_score_host", "fleet_score_sharded", "fleet_score_sharded_host",
                            "segment_aggsum", "segment_aggsum_unsorted", "corr_diff",
                            "flash_attention", "flash_attention_bwd", "adamw_norm",
                            "adamw_update", "slstm_fwd", "slstm_bwd", "cross_entropy_fwd",

@@ -1,5 +1,12 @@
 """The outlier pin set: its digest table is built once per pin.
 
+The table's own build: ``pin_table`` (one launch over the pin's key
+arena on a card) and its plain version ``pin_table_ref`` equal the JAX
+package's ``_sorted_digests`` of the same compacted keys, packed as the
+port packs a digest, and the table ``pin_set`` composed before, bit for
+bit, for 1 to 4 key columns and arenas whose tables hold 1, 2, 300, 2,047,
+2,048 and 2,049 entries (the last past the one-launch route).
+
 A view with an outlier index (visitView over Log ⋈ Video, 300 videos,
 6,000 sessions, k = 40) runs the same steps through
 ``repro.views.ViewManager`` and ``repro_torch.views.ViewManager(device=
@@ -17,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import repro.core as jcore
 import repro.relational.expr as jexpr
 import repro.relational.plan as jplan
@@ -25,12 +34,22 @@ import repro_torch.relational.expr as texpr
 import repro_torch.relational.plan as tplan
 from repro.data.synthetic import grow_log as jax_grow_log
 from repro.data.synthetic import make_log_video as jax_make_log_video
+from repro.kernels.outlier_member.ops import _sorted_digests as jax_sorted_digests
 from repro.relational.relation import to_host as jax_to_host
 from repro.views import ViewManager as JaxViewManager
 from repro_torch.core import PinSet
 from repro_torch.data.synthetic import grow_log, make_log_video
+from repro_torch.kernels.outlier_member import (
+    MAX_SMEM_KEYS,
+    compact_pin_keys,
+    pin_launches,
+    pin_table,
+    pin_table_ref,
+    sorted_digest_table,
+    table_route,
+)
 from repro_torch.kernels.outlier_member import ops as outlier_ops
-from repro_torch.relational.relation import to_host
+from repro_torch.relational.relation import SENTINEL_KEY, from_columns, sentinel_where, to_host
 from repro_torch.views import ViewManager
 
 N_VIDEOS, N_LOGS, N_DELTA, GROUPS, M, K = 300, 6_000, 1_000, 512, 0.1, 40
@@ -92,18 +111,18 @@ def drive(vm, core, X, log_video, grow, device_kw, builds=None):
 def runs():
     jax_out = drive(JaxViewManager(), jcore, jexpr, jax_make_log_video, jax_grow_log, {})
     builds = [0]
-    real = outlier_ops.digest_table
+    real = outlier_ops.pin_table
 
-    def counting(key_cols):
+    def counting(keys, valid):
         builds[0] += 1
-        return real(key_cols)
+        return real(keys, valid)
 
-    outlier_ops.digest_table = counting
+    outlier_ops.pin_table = counting
     try:
         vm = ViewManager(device="cpu")
         port_out = drive(vm, tcore, texpr, make_log_video, grow_log, {"device": "cpu"}, builds)
     finally:
-        outlier_ops.digest_table = real
+        outlier_ops.pin_table = real
     return jax_out, port_out, vm
 
 
@@ -140,3 +159,84 @@ def test_the_digest_table_is_built_once_per_pin(runs):
     # the valid pinned keys and one SENTINEL tuple for the invalid rows
     valid = pin.relation.valid
     assert pin.table.shape[0] == int(valid.sum()) + int(not bool(valid.all()))
+
+
+# ---------------------------------------------------------------------------
+# the pin's table: pin_table and pin_table_ref against JAX's _sorted_digests
+# ---------------------------------------------------------------------------
+
+# (arena slots, valid slots): tables of 1 (no slot valid), 300 (all
+# valid), 2 (one valid), 2,047, 2,048 (the most the one launch holds),
+# 2,048 without the SENTINEL tuple, and 2,049 entries
+ARENAS = {"none_valid": (50, 0), "all_valid": (300, 300), "one_valid": (300, 1),
+          "2047": (5_000, 2_046), "2048": (5_000, 2_047), "2048_all_valid": (2_048, 2_048),
+          "2049": (5_000, 2_048)}
+
+
+def _arena(ncols, slots, n_valid, seed):
+    """Key columns of a pin arena (hot keys repeat) with ``n_valid`` valid
+    slots scattered through it, and its validity."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(-50, 1_500, slots).astype(np.int32) for _ in range(ncols)]
+    valid = np.zeros(slots, bool)
+    valid[rng.choice(slots, n_valid, replace=False)] = True
+    return cols, valid
+
+
+def _jax_packed(cols, valid):
+    """JAX's sorted digests of the compacted keys (the valid slots' tuples,
+    then one all-SENTINEL tuple when a slot is invalid), packed as the
+    port's int64 (hi ^ 2^31)·2^32 + lo."""
+    keys = [np.concatenate([c[valid], [SENTINEL_KEY] * int(not valid.all())]).astype(np.int32)
+            for c in cols]
+    hi, lo = jax_sorted_digests([jnp.asarray(k) for k in keys])
+    hi, lo = np.asarray(hi).astype(np.uint64), np.asarray(lo).astype(np.uint64)
+    return (((hi ^ np.uint64(1 << 31)) << np.uint64(32)) | lo).view(np.int64)
+
+
+@pytest.mark.parametrize("arena", list(ARENAS))
+@pytest.mark.parametrize("ncols", [1, 2, 3, 4])
+def test_pin_table_equals_jax_sorted_digests_and_the_composed_table(arena, ncols):
+    slots, n_valid = ARENAS[arena]
+    cols, valid = _arena(ncols, slots, n_valid, seed=slots + n_valid + ncols)
+    raw, ok = tuple(torch.from_numpy(c) for c in cols), torch.from_numpy(valid)
+    masked = tuple(sentinel_where(ok, c) for c in raw)  # as PinSet.keys holds them
+    want = _jax_packed(cols, valid)
+    entries = n_valid + int(n_valid < slots)
+    assert want.shape == (entries,)
+    got = pin_table_ref(raw, ok)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(pin_table(raw, ok), got)
+    # the masked keys give the same table: invalid slots are never digested
+    assert torch.equal(pin_table(masked, ok), got)
+    # the composition pin_set ran before: nonzero, cat, a gather a column,
+    # the digest table of the compacted keys
+    rows = torch.cat([ok.nonzero().flatten(), (~ok).nonzero()[:1].flatten()])
+    old = sorted_digest_table(tuple(k[rows].contiguous() for k in masked))
+    assert torch.equal(old, got)
+    assert all(torch.equal(a, b) for a, b in zip(compact_pin_keys(raw, ok),
+                                                 (k[rows] for k in masked)))
+    pin = tcore.pin_set(from_columns({f"k{j}": c for j, c in enumerate(cols)},
+                                     pk=[f"k{j}" for j in range(ncols)], valid=valid,
+                                     device="cpu"))
+    assert torch.equal(pin.table, got)
+    assert all(torch.equal(a, b) for a, b in zip(pin.keys, masked))
+    assert pin_launches(entries) == (1 if entries <= MAX_SMEM_KEYS else 2)
+
+
+def test_the_table_routes():
+    """digest_table digests and sorts in one block up to MAX_SMEM_KEYS
+    tuples; pin_table's one launch holds a table of as many entries, and
+    one entry more takes a second launch (the composed table's)."""
+    assert MAX_SMEM_KEYS == 2048
+    assert [table_route(k) for k in (0, 1, 1000, 2048, 2049, 50_000)] == \
+        ["block"] * 4 + ["sort"] * 2
+    assert [pin_launches(k) for k in (0, 1, 105, 2048, 2049)] == [1, 1, 1, 1, 2]
+
+
+def test_pin_table_of_an_empty_arena_is_empty():
+    empty, none = (torch.empty(0, dtype=torch.int32),), torch.empty(0, dtype=torch.bool)
+    assert pin_table(empty, none).shape == (0,)
+    assert pin_table_ref(empty, none).shape == (0,)
+    with pytest.raises(ValueError):
+        pin_table(empty, torch.ones(3, dtype=torch.bool))  # validity of another length

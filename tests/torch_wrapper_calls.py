@@ -1,5 +1,8 @@
 """One small call of every kernel wrapper of ``repro_torch.kernels.wrappers()``.
 
+The host entries (``fleet_score_host``, ``fleet_score_sharded_host``) take
+and return numpy arrays; every other call returns tensors on ``dev``.
+
 Shared by the CPU profiler tests (``test_torch_kprof.py``) and the card's
 (``test_torch_cuda.py``); imports only numpy, torch and repro_torch, so it
 runs where JAX is not installed.
@@ -23,11 +26,12 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.fleet_merge import fleet_merge
     from repro_torch.kernels.fleet_moments import fleet_moments
-    from repro_torch.kernels.fleet_score import N_FEATURES, fleet_scores, fleet_scores_sharded
+    from repro_torch.kernels.fleet_score import (N_FEATURES, fleet_scores, fleet_scores_host,
+                                                 fleet_scores_sharded, fleet_scores_sharded_host)
     from repro_torch.kernels.fused_clean.ops import fused_clean_groupby, fused_clean_groupby_fleet
     from repro_torch.kernels.hash_threshold.ops import hash_threshold
     from repro_torch.kernels.multi_agg.ops import multi_agg_one, multi_agg_two
-    from repro_torch.kernels.outlier_member.ops import digest_table, pinned_hash
+    from repro_torch.kernels.outlier_member.ops import digest_table, pin_table, pinned_hash
     from repro_torch.kernels.segment_aggsum import segment_groupby, segment_sum
     from repro_torch.kernels.slstm import slstm_bwd, slstm_fwd, slstm_scan_ref
 
@@ -59,7 +63,8 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
     ivalid = t(rng.uniform(size=(V, G)) < 0.3)
     ivals = t(rng.uniform(0.0, 5.0, (V, G, C)).astype(np.float32))
     moments_in = [t(rng.uniform(0.0, 2.0, (V, R)).astype(np.float32)) for _ in range(8)]
-    feats = t(rng.uniform(0.0, 10.0, (16, N_FEATURES)).astype(np.float32))
+    host_feats = rng.uniform(0.0, 10.0, (16, N_FEATURES)).astype(np.float32)
+    feats = t(host_feats)
     sorted_gid = t(np.sort(rng.integers(0, G, R)).astype(np.int32))
     t_new = t(rng.gamma(2.0, 4.0, R).astype(np.float32))
     t_old = t(rng.gamma(2.0, 4.0, R).astype(np.float32))
@@ -103,6 +108,7 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
         "fused_clean": lambda: fused_clean_groupby(gid, vals, valid, 0.3, 1, G),
         "outlier_member": lambda: pinned_hash((keys,), valid, 0.3, 1, table),
         "outlier_digest": lambda: digest_table((keys,)),
+        "outlier_pin_table": lambda: pin_table((keys,), valid),
         "multi_agg_two": lambda: multi_agg_two(*panel, sel, meta, *panel),
         "multi_agg_one": lambda: multi_agg_one(*panel, sel, meta),
         "fused_clean_fleet": lambda: fused_clean_groupby_fleet(fgid, fvals, fvalid,
@@ -111,6 +117,10 @@ def wrapper_calls(dev) -> Dict[str, Callable[[], object]]:
         "fleet_moments": lambda: fleet_moments(*moments_in),
         "fleet_score": lambda: fleet_scores(feats),
         "fleet_score_sharded": lambda: fleet_scores_sharded(feats.reshape(4, 4, N_FEATURES)),
+        # the host entries: numpy in, numpy out (the sharded one a shard a device)
+        "fleet_score_host": lambda: fleet_scores_host(host_feats, dev),
+        "fleet_score_sharded_host": lambda: fleet_scores_sharded_host(
+            host_feats.reshape(2, 8, N_FEATURES), [dev, dev]),
         "segment_aggsum": lambda: segment_groupby(sorted_gid, vals, G),
         "segment_aggsum_unsorted": lambda: segment_sum(gid, vals, G),
         "corr_diff": lambda: corr_moments(t_new, t_old, valid),
